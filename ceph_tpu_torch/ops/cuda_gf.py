@@ -3,7 +3,8 @@
 Port of ``ceph_tpu/ops/pallas_gf.py``.  Each TPU kernel there has a
 counterpart written by hand in CUDA C++ for Hopper (``csrc/gf_kernels.cu``,
 ``sm_90a``), built with ``nvcc`` into a shared library at first use and
-loaded with ctypes:
+loaded with ctypes (:func:`build` and :func:`load` serve every ``.cu`` file
+of ``csrc/``):
 
 =================  ===========================================  ==========
 wrapper            replaces                                     kernel
@@ -50,20 +51,28 @@ launches: Dict[str, int] = {
 }
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "gf_kernels.cu"
+CSRC = _PKG / "csrc"
+SOURCE = CSRC / "gf_kernels.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: shared memory a block may take on Hopper with the opt-in attribute; a
-#: kernel stages one output group's masks ([G, C] int32) there at a time
-_SMEM_LIMIT = 227 * 1024
+#: codec kernel stages one output group's masks ([G, C] int32) there at a
+#: time
+SMEM_LIMIT = 227 * 1024
 #: bit-rows per output group of each kernel (``G`` in ``gf_kernels.cu``)
 _GROUP_ROWS = {"gf2_matrix_w8": 8, "gf2_matrix_w16": 16, "gf2_packet": 8}
 
 _lib_lock = threading.Lock()
-_lib = None
-#: nvcc's output (ptxas register and shared-memory report) of the build
-build_log = ""
+#: source file name -> its loaded library
+_libs: Dict[str, ctypes.CDLL] = {}
+#: source file name -> nvcc's output (ptxas register and shared-memory
+#: report), kept beside each library as ``<library>.log``
+build_logs: Dict[str, str] = {}
+#: argument types of the three entry points of ``gf_kernels.cu``
+_SIGNATURES = dict.fromkeys(launches, (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p))
 
 
 def reset_launches() -> None:
@@ -87,52 +96,67 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile ``csrc/gf_kernels.cu`` into ``build/`` (keyed by the source
-    and flags, so an edited source rebuilds) and return the library path."""
-    global build_log
-    src = SOURCE.read_bytes()
+def build(source: str = SOURCE.name) -> Path:
+    """Compile ``csrc/<source>`` into ``build/`` and return the library
+    path.  The library is keyed by the source's digest and the flags, so an
+    edited source rebuilds; builds of different sources may run at once."""
+    path = CSRC / source
+    src = path.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libgf_kernels-{digest[:16]}.so"
+    lib = BUILD_DIR / f"lib{path.stem}-{digest[:16]}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
+        if log.exists():
+            build_logs[source] = log.read_text()
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    tmp = lib.with_name(
+        f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(path)],
         capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
+        raise RuntimeError(f"nvcc failed on {path}:\n{proc.stderr}")
+    build_logs[source] = proc.stdout + proc.stderr
+    log.write_text(build_logs[source])
     os.replace(tmp, lib)
     return lib
 
 
-def _library():
-    global _lib
+def load(source: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>``, loaded once per process,
+    with ``signatures`` (entry point -> ctypes argument types) applied;
+    every entry point returns a CUDA error code."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name in launches:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_longlong, ctypes.c_void_p]
+                fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[source] = lib
+        return lib
+
+
+def launch(source: str, signatures: Dict[str, tuple],
+           counts: Dict[str, int], name: str, device: torch.device,
+           *args) -> None:
+    """Launch entry point ``name`` of ``csrc/<source>`` with ``args`` on
+    ``device``'s current stream, raise on a CUDA error, and count the
+    launch in ``counts``."""
+    fn = getattr(load(source, signatures), name)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    counts[name] += 1
 
 
 def _launch(name: str, x: torch.Tensor, masks: torch.Tensor,
             out: torch.Tensor, a: int, b: int) -> None:
-    fn = getattr(_library(), name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), masks.data_ptr(), out.data_ptr(), a, b,
-                x.shape[1], stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches[name] += 1
+    launch(SOURCE.name, _SIGNATURES, launches, name, x.device, x.data_ptr(),
+           masks.data_ptr(), out.data_ptr(), a, b, x.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -224,10 +248,10 @@ def _check(name: str, masks: torch.Tensor, x: torch.Tensor,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
     group_bytes = _GROUP_ROWS[name] * masks.shape[1] * 4
-    if group_bytes > _SMEM_LIMIT:
+    if group_bytes > SMEM_LIMIT:
         raise ValueError(f"{name}: a group of {masks.shape[1]}-wide masks "
                          f"takes {group_bytes} bytes, over the kernel's "
-                         f"{_SMEM_LIMIT}-byte shared-memory table")
+                         f"{SMEM_LIMIT}-byte shared-memory table")
 
 
 def matrix_encode_w8(masks: torch.Tensor, d32: torch.Tensor,

@@ -1,0 +1,236 @@
+#!/usr/bin/env python
+"""Hopper EC kernel sweep: the port of ``tools/ec_kernel_sweep.py``.
+
+Times the w=8 GF(2) product's kernel variants and the two split-cost
+probes on one card, each gated bit-exactly before it is timed, for
+reed_sol_van k=8 m=4 w=8 over ``--size-mib`` MiB chunks (lanes
+[8, size/4]):
+
+  variants  base (the production ``gf2_matrix_w8``), pipelined
+            (``sweep_pipelined_w8``: double-buffered ``cp.async`` staging)
+            and int8_4dot (``sweep_int8_4dot``: int8 tensor cores), each
+            gated against ``gf2_matrix_w8``'s output
+  split     copy_control (``sweep_copy``: rows < m copied) and
+            extract_only (``sweep_extract``: the bit-plane extraction
+            alone), each gated against its plain PyTorch version
+
+Each row prints the payload rate (k * chunk bytes over the mean time,
+GiB/s, the JAX tool's unit), the mean ms, the least time an H100 SXM could
+take for the same work and the share of it reached.  Times are CUDA events
+around ``--iters`` back-to-back launches (one CUDA graph) after one warm
+launch; at the default 8 MiB the 64 MiB input is larger than the card's
+50 MB L2.
+
+Run:
+    python -m ceph_tpu_torch.tools.ec_kernel_sweep [--size-mib 8]
+        [--iters 512] [--tile 1024] [--stage variants,split]
+        [--only base,pipelined] [--device cuda]
+
+The card is the default and the tool raises without one.  ``--device cpu``
+runs the plain versions at a shrunk size and says that its numbers are
+not the card's.  The JAX tool's ``precision`` stage and its bf16_4dot,
+f32_4dot, bf16_blockdiag and xornet variants are not ported yet (ROADMAP.md,
+queue 2): naming one exits with code 2.  A variant that differs from its
+oracle exits with code 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch.device import resolve_device
+from ceph_tpu_torch.matrices import reed_sol
+from ceph_tpu_torch.matrices.bitmatrix import matrix_to_bitmatrix
+from ceph_tpu_torch.ops import cuda_gf, sweep_gf
+
+K, M, W = 8, 4, 8
+
+#: H100 SXM published rates (NVIDIA data sheet) at the 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+
+#: chunk bytes of a ``--device cpu`` run, whatever ``--size-mib`` says
+CPU_CHUNK = 256 << 10
+
+#: row -> the kernel it times
+VARIANTS = {"base": "gf2_matrix_w8", "pipelined": "sweep_pipelined_w8",
+            "int8_4dot": "sweep_int8_4dot"}
+PROBES = {"copy_control": "sweep_copy", "extract_only": "sweep_extract"}
+STAGES = ("variants", "split")
+#: names of the JAX tool that have no kernel on the card yet
+NOT_PORTED = ("precision", "bf16_4dot", "f32_4dot", "bf16_blockdiag",
+              "xornet")
+
+
+def work(kernel: str, k: int, m: int, n4: int,
+         table_bytes: int = 0) -> tuple[int, int]:
+    """(bytes, int8 operations) one call of ``kernel`` must move and do
+    over lanes [k, n4]: each input byte read once, each output byte
+    written once; the int8 product's multiply-adds count two operations."""
+    lane_row = n4 * cuda_gf.LANE_BYTES
+    if kernel in ("sweep_copy", "sweep_extract"):
+        return 2 * m * lane_row, 0
+    ops = 2 * 4 * (8 * m) * (8 * k) * n4 if kernel == "sweep_int8_4dot" else 0
+    return (k + m) * lane_row + table_bytes, ops
+
+
+def bound_ms(nbytes: int, int8_ops: int = 0) -> tuple[float, str]:
+    """Least time on an H100 SXM, ms, and what sets it ("bytes" or
+    "operations"): the larger of bytes over the memory rate and int8
+    operations over the tensor cores' rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = int8_ops / INT8_OPS_PER_S * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
+def time_ms(fn, iters: int, device: torch.device) -> float:
+    """Mean ms of ``fn`` over ``iters`` back-to-back calls after one warm
+    call.  On the card: CUDA events around one replay of a CUDA graph that
+    holds the ``iters`` launches, so the host's cost of a launch (tens of
+    microseconds through a Python wrapper, as long as the copy itself)
+    stays out of the time, as the JAX tool's ``lax.scan`` chain keeps
+    dispatch out of its.  On the CPU: the host clock."""
+    fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: a wrapper's first launch in a process sets kernel
+    # attributes, which the default capture mode refuses
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()  # warm: uploads the graph
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _parse(argv):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size-mib", type=int, default=8,
+                    help="chunk MiB per data row (default 8: lanes "
+                         "[8, 2097152])")
+    ap.add_argument("--iters", type=int, default=512)
+    ap.add_argument("--tile", type=int, default=sweep_gf.DEFAULT_TILE,
+                    help="lanes per shared-memory stage of the pipelined "
+                         "kernel (a multiple of 4)")
+    ap.add_argument("--stage", default=",".join(STAGES))
+    ap.add_argument("--only", default="",
+                    help="comma-separated rows to run (default all)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (plain versions, smoke "
+                         "test only)")
+    return ap.parse_args(argv)
+
+
+def _refused(stages, only, tile) -> str:
+    for name in stages + only:
+        if name in NOT_PORTED:
+            return (f"{name!r} has no kernel on the card yet; ROADMAP.md, "
+                    "queue 2 lists it")
+    for name in stages:
+        if name not in STAGES:
+            return f"no stage {name!r} (stages: {', '.join(STAGES)})"
+    for name in only:
+        if name not in VARIANTS and name not in PROBES:
+            return (f"no row {name!r} (rows: "
+                    f"{', '.join([*VARIANTS, *PROBES])})")
+    if tile <= 0 or tile % 4 or (sweep_gf.pipelined_smem_bytes(K, M, tile)
+                                 > cuda_gf.SMEM_LIMIT):
+        return (f"--tile {tile} is not a positive multiple of 4 whose two "
+                "stages fit in shared memory")
+    return ""
+
+
+def main(argv=None) -> int:
+    args = _parse(argv)
+    stages = [s for s in args.stage.split(",") if s]
+    only = [n for n in args.only.split(",") if n]
+    refused = _refused(stages, only, args.tile)
+    if refused:
+        print(f"ec_kernel_sweep: {refused}", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    on_card = device.type == "cuda"
+    if on_card:
+        chunk = args.size_mib << 20
+        print(f"device: {torch.cuda.get_device_name(device)}", flush=True)
+    else:
+        chunk = min(args.size_mib << 20, CPU_CHUNK)
+        print(f"device: cpu  (NOT the card -- plain versions at {chunk} B "
+              "chunks; the numbers are smoke-test only)", flush=True)
+
+    bits = matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, W), W)
+    rng = np.random.RandomState(0)
+    data_np = rng.randint(0, 256, size=(K, chunk), dtype=np.uint8)
+    d32 = torch.from_numpy(data_np.view(np.int32)).to(device)
+    n4 = d32.shape[1]
+    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(device)
+    bp = torch.from_numpy(
+        sweep_gf.prep_shift_major_w8(bits, K).astype(np.int8)).to(device)
+    print(f"reed_sol_van k={K} m={M} w={W}, lanes [{K}, {n4}], "
+          f"{args.iters} iters, tile {args.tile}", flush=True)
+
+    def row(name, fn, want, oracle) -> int:
+        if not torch.equal(fn(), want):
+            print(f"{name:14s} MISMATCH against {oracle}", flush=True)
+            return 1
+        kernel = {**VARIANTS, **PROBES}[name]
+        table = {"base": masks, "pipelined": masks, "int8_4dot": bp}.get(name)
+        nbytes, ops = work(kernel, K, M, n4,
+                           0 if table is None else table.nbytes)
+        bound, by = bound_ms(nbytes, ops)
+        ms = time_ms(fn, args.iters, device)
+        gibs = data_np.nbytes / (ms / 1e3) / 2**30
+        # the bound is the card's: a CPU row does not stand beside it
+        against = (f"  bound {bound:.4f} ms ({by})  {bound / ms:7.1%} of "
+                   "bound" if on_card else "  (cpu)")
+        print(f"{name:14s} bit-exact {gibs:9.2f} GiB/s  {ms:.4f} ms{against}",
+              flush=True)
+        return 0
+
+    rc = 0
+    keep = set(only) or {*VARIANTS, *PROBES}
+    if "variants" in stages and keep & set(VARIANTS):
+        print("== variants (bit-exact-gated against gf2_matrix_w8) ==",
+              flush=True)
+        ref = cuda_gf.matrix_encode_w8(masks, d32, K, M)
+        calls = {
+            "base": lambda: cuda_gf.matrix_encode_w8(masks, d32, K, M),
+            "pipelined": lambda: sweep_gf.pipelined_w8(masks, d32, K, M,
+                                                       args.tile),
+            "int8_4dot": lambda: sweep_gf.int8_4dot(bp, d32, K, M),
+        }
+        for name, fn in calls.items():
+            if name in keep:
+                rc |= row(name, fn, ref, "gf2_matrix_w8")
+    if "split" in stages and keep & set(PROBES):
+        print("== split-cost probes (gated against their plain versions) ==",
+              flush=True)
+        probes = {
+            "copy_control": (lambda: sweep_gf.copy_rows(d32, M),
+                             sweep_gf.copy_plain(d32, M), "copy_plain"),
+            "extract_only": (lambda: sweep_gf.extract_rows(d32, M),
+                             sweep_gf.extract_plain(d32, M), "extract_plain"),
+        }
+        for name, (fn, want, oracle) in probes.items():
+            if name in keep:
+                rc |= row(name, fn, want, oracle)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

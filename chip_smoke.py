@@ -22,8 +22,14 @@ Phases (any failure raises and exits non-zero):
    rise during its profile.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased).
+5. The kernel sweep's four kernels (``csrc/sweep_kernels.cu``) against
+   their plain versions at the sweep's shape, lanes [8, 2097152], and at a
+   ragged one; then the port's kernel sweep (``ec_kernel_sweep.main``) at
+   8 MiB chunks, which must exit 0 with every row bit-exact.  These four
+   kernels' launches are counted during the sweep.
 
-It prints the ``kernels`` JSON line and, last, the device line.
+Both kernel sources build at once, one ``nvcc`` each.  It prints the
+``kernels`` JSON line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -35,18 +41,22 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from ceph_tpu_torch.matrices import reed_sol
 from ceph_tpu_torch.matrices.bitmatrix import matrix_to_bitmatrix
-from ceph_tpu_torch.ops import cuda_gf
+from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 from ceph_tpu_torch.ops.pipeline import DeviceStream
 from ceph_tpu_torch.plugins import registry as registry_mod
-from ceph_tpu_torch.tools import ec_benchmark
+from ceph_tpu_torch.tools import ec_benchmark, ec_kernel_sweep
 
 #: H100 SXM published memory rate (NVIDIA data sheet) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
+#: clock cycles of the spin kernel before each timed launch (about 1 ms)
+SPIN_CYCLES = 2_000_000
 
 K, M = 8, 4
 STRIPE = 8 << 20  # 8 MiB payload -> 1 MiB chunks at k=8
@@ -67,6 +77,17 @@ REPLACES = {
     "gf2_matrix_w16": "ceph_tpu/ops/pallas_gf.py:153",
     "gf2_packet": "ceph_tpu/ops/pallas_gf.py:240",
 }
+SWEEP_SOURCE = "ceph_tpu_torch/csrc/sweep_kernels.cu"
+SWEEP_REPLACES = {
+    "sweep_copy": "tools/ec_kernel_sweep.py:117",
+    "sweep_extract": "tools/ec_kernel_sweep.py:121",
+    "sweep_pipelined_w8": "tools/ec_kernel_sweep.py:76",
+    "sweep_int8_4dot": "experiments/kernel_r4.py:76",
+}
+#: lanes per row: the sweep's 8 MiB chunks, and a ragged width that is no
+#: multiple of 4 lanes, of the pipelined tile or of the int8 block's tile
+SWEEP_N4 = (8 << 20) // cuda_gf.LANE_BYTES
+RAGGED_N4 = 100003
 
 
 def _profile(extra: dict) -> dict:
@@ -76,11 +97,15 @@ def _profile(extra: dict) -> dict:
 def _time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed with
     CUDA events after the 50 MB L2 cache is overwritten (the main path
-    streams granules larger than L2, so its kernels find it cold)."""
+    streams granules larger than L2, so its kernels find it cold).  A
+    spin kernel holds the card after the flush while the host enqueues
+    the events and ``fn``'s launches, so the host's time in a Python
+    wrapper stays out of the device time."""
     fn()  # warm
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -174,6 +199,100 @@ def phase_kernels(reg, dev, gen, flush) -> dict:
     return results
 
 
+def _sweep_cases(dev):
+    """name -> (kernel, plain version, library call or None) over lanes x,
+    for reed_sol_van k=8 m=4 w=8 as the sweep runs it."""
+    bits = matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, 8), 8)
+    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(dev)
+    bp = torch.from_numpy(
+        sweep_gf.prep_shift_major_w8(bits, K).astype(np.int8)).to(dev)
+    tile = sweep_gf.DEFAULT_TILE
+    return {
+        "sweep_copy": (lambda x: sweep_gf.copy_rows(x, M),
+                       lambda x: sweep_gf.copy_plain(x, M),
+                       lambda x: x[:M].clone(), 0),
+        "sweep_extract": (lambda x: sweep_gf.extract_rows(x, M),
+                          lambda x: sweep_gf.extract_plain(x, M), None, 0),
+        "sweep_pipelined_w8": (
+            lambda x: sweep_gf.pipelined_w8(masks, x, K, M, tile),
+            lambda x: sweep_gf.pipelined_w8_plain(masks, x, K, M), None,
+            masks.nbytes),
+        "sweep_int8_4dot": (lambda x: sweep_gf.int8_4dot(bp, x, K, M),
+                            lambda x: sweep_gf.int8_4dot_plain(bp, x, K, M),
+                            None, bp.nbytes),
+    }
+
+
+def phase_sweep_kernels(dev, gen, flush) -> dict:
+    """Each sweep kernel against its plain version on the card, bit-exact,
+    at the sweep's lanes [8, 2097152] (timed) and at a ragged width."""
+    results = {}
+    cases = _sweep_cases(dev)
+    for n4 in (SWEEP_N4, RAGGED_N4):
+        x = torch.randint(0, 256, (K, n4 * cuda_gf.LANE_BYTES),
+                          dtype=torch.uint8, device=dev, generator=gen
+                          ).view(torch.int32)
+        for name, (kern, plain, library, table_bytes) in cases.items():
+            a, b = kern(x), plain(x)
+            torch.cuda.synchronize()
+            # extract's lanes are counts; the other outputs are bytes
+            if name == "sweep_extract":
+                err = (a.long() - b.long()).abs()
+            else:
+                err = (a.view(torch.uint8).int() - b.view(torch.uint8).int()
+                       ).abs()
+            max_abs_err = int(err.max().item())
+            assert torch.equal(a, b), \
+                f"{name}: kernel != plain version at lanes {tuple(x.shape)}"
+            del a, b, err
+            if n4 != SWEEP_N4:
+                print(f"[sweep-kernel] {name} lanes {tuple(x.shape)}: "
+                      "bit-exact (ragged)", flush=True)
+                continue
+            nbytes, ops = ec_kernel_sweep.work(name, K, M, n4, table_bytes)
+            bound, by = ec_kernel_sweep.bound_ms(nbytes, ops)
+            ms = _time_ms(lambda: kern(x), 20, flush)
+            plain_ms = _time_ms(lambda: plain(x), 3, flush)
+            library_ms = (None if library is None
+                          else _time_ms(lambda: library(x), 20, flush))
+            results[name] = {
+                "name": name, "route": "cuda", "source": SWEEP_SOURCE,
+                "replaces": SWEEP_REPLACES[name], "max_abs_err": max_abs_err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": by, "library_ms": library_ms,
+            }
+            lib_note = (f"library x[:m].clone() {library_ms:.4f} ms"
+                        if library_ms is not None else
+                        "library_ms null: no single PyTorch call computes it")
+            print(f"[sweep-kernel] {name} lanes {tuple(x.shape)}: bit-exact, "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}; {nbytes} bytes, {ops} int8 ops), "
+                  f"{lib_note}", flush=True)
+        del x
+    return results
+
+
+def phase_sweep(card: str) -> dict:
+    """The port's kernel sweep at 8 MiB chunks; the sweep kernels'
+    launches, counted from zero over this run."""
+    argv = ["--size-mib", "8", "--iters", "48", "--stage", "variants,split"]
+    sweep_gf.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ec_kernel_sweep.main(argv)
+    launched = dict(sweep_gf.launches)
+    out = buf.getvalue().strip().splitlines()
+    for line in out:
+        print(f"[sweep] {line}", flush=True)
+    assert rc == 0, f"ec_kernel_sweep exited {rc}"
+    for row in (*ec_kernel_sweep.VARIANTS, *ec_kernel_sweep.PROBES):
+        assert any(line.split()[:2] == [row, "bit-exact"] for line in out), \
+            f"ec_kernel_sweep: no bit-exact {row} row"
+    print(f"[sweep] {' '.join(argv)} exited 0; launches {launched}; card "
+          f"{card}", flush=True)
+    return launched
+
+
 def _stripes(rs, n: int):
     return [np.frombuffer(rs.bytes(STRIPE), dtype=np.uint8) for _ in range(n)]
 
@@ -259,11 +378,14 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
-    lib = cuda_gf.build()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {' '.join(cuda_gf.NVCC_FLAGS)})", flush=True)
-    if cuda_gf.build_log:
-        print(cuda_gf.build_log.strip(), flush=True)
+    sources = (cuda_gf.SOURCE.name, sweep_gf.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(cuda_gf.build, sources))
+    print(f"[build] {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc "
+          f"{' '.join(cuda_gf.NVCC_FLAGS)})", flush=True)
+    for source in sources:
+        print(cuda_gf.build_logs.get(source, "").strip(), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -274,14 +396,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     kernels = phase_kernels(reg, dev, gen, flush)
+    kernels.update(phase_sweep_kernels(dev, gen, flush))
     del flush
     per_profile = phase_main_path(reg, np.random.RandomState(args.seed), card)
-    main_launches = dict(cuda_gf.launches)
+    launched = dict(cuda_gf.launches)
     phase_ec_benchmark(card)
+    launched.update(phase_sweep(card))
 
     for name, row in kernels.items():
-        row["launches"] = main_launches[name]
-        assert row["launches"] > 0, f"{name} never launched on the main path"
+        row["launches"] = launched[name]
+        assert row["launches"] > 0, f"{name} never launched on its path"
     print(json.dumps({"main_path": per_profile}))
     print(smi)
     print(json.dumps({"kernels": [

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-and the ``cuda`` plugin against the numpy ``jerasure`` plugin.
+the ``cuda`` plugin against the numpy ``jerasure`` plugin, and the port's
+kernel sweep.
 
 Marked ``cuda``; every test skips without a card.  Imports no JAX, so it
 also runs where JAX is not installed:
@@ -12,8 +13,9 @@ import pytest
 import torch
 
 from ceph_tpu_torch.matrices import bitmatrix, reed_sol
-from ceph_tpu_torch.ops import cuda_gf
+from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 from ceph_tpu_torch.plugins import registry
+from ceph_tpu_torch.tools import ec_kernel_sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +104,86 @@ def test_cuda_plugin_matches_numpy_jerasure(dev, profile):
     maps = [{c: a for c, a in e.items() if c not in (0, n - 1)} for e in want]
     for got, exp in zip(ec.decode_batch(maps), want):
         assert all(np.array_equal(got[c], exp[c]) for c in exp)
+
+
+# -- the kernel sweep's four kernels -----------------------------------------
+
+
+def _sweep_operands(k, m, dev):
+    B = bitmatrix.matrix_to_bitmatrix(
+        reed_sol.vandermonde_coding_matrix(k, m, 8), 8)
+    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(B, k)).to(dev)
+    bp = torch.from_numpy(
+        sweep_gf.prep_shift_major_w8(B, k).astype(np.int8)).to(dev)
+    return masks, bp
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary (the kernels then take their one-lane-per-load form)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 4
+    return y
+
+
+@pytest.mark.parametrize("k,m,n4,aligned", [
+    (8, 4, 4096, True),    # whole tiles
+    (8, 4, 1003, True),    # n4 not a multiple of 4 lanes or of a tile
+    (8, 4, 4096, False),   # a pointer off the 16-byte grid
+    (3, 2, 4099, False),   # int8 contraction padded: 24 plane rows in 32
+    (12, 6, 1, True),      # one lane
+    (16, 8, 333, True),    # the widest code the int8 kernel takes
+    (5, 7, 4096, True),    # odd m: half of the last 16-row tile of Bp
+])
+def test_sweep_kernels_match_plain_versions(dev, k, m, n4, aligned):
+    rs = np.random.RandomState(k * 1000 + n4)
+    d = _lanes(rs, k, n4, dev)
+    if not aligned:
+        d = _unaligned(d)
+    masks, bp = _sweep_operands(k, m, dev)
+    pairs = (
+        (sweep_gf.copy_rows(d, m), sweep_gf.copy_plain(d, m)),
+        (sweep_gf.extract_rows(d, m), sweep_gf.extract_plain(d, m)),
+        (sweep_gf.pipelined_w8(masks, d, k, m),
+         sweep_gf.pipelined_w8_plain(masks, d, k, m)),
+        (sweep_gf.int8_4dot(bp, d, k, m),
+         sweep_gf.int8_4dot_plain(bp, d, k, m)),
+    )
+    for got, want in pairs:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tile", [4, 1000, 3072])
+def test_pipelined_kernel_at_any_tile(dev, tile):
+    # a tile smaller than a block's threads, one that is no multiple of
+    # the 1024 lanes a block covers, and one that opts in to 197 KiB of
+    # shared memory
+    rs = np.random.RandomState(tile)
+    d = _lanes(rs, 8, 20000, dev)
+    masks, _ = _sweep_operands(8, 4, dev)
+    assert torch.equal(sweep_gf.pipelined_w8(masks, d, 8, 4, tile),
+                       cuda_gf.matrix_encode_w8(masks, d, 8, 4))
+
+
+def test_sweep_wrappers_count_launches_and_refuse_mixed_devices(dev):
+    masks, bp = _sweep_operands(4, 2, dev)
+    d = torch.zeros((4, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        sweep_gf.int8_4dot(bp.cpu(), d, 4, 2)
+    with pytest.raises(ValueError):
+        sweep_gf.pipelined_w8(masks.cpu(), d, 4, 2)
+    before = dict(sweep_gf.launches)
+    sweep_gf.copy_rows(d, 2)
+    sweep_gf.extract_rows(d, 2)
+    sweep_gf.pipelined_w8(masks, d, 4, 2)
+    sweep_gf.int8_4dot(bp, d, 4, 2)
+    assert all(sweep_gf.launches[n] == before[n] + 1 for n in before)
+
+
+def test_kernel_sweep_runs_on_the_card(dev, capsys):
+    assert ec_kernel_sweep.main(["--size-mib", "1", "--iters", "4"]) == 0
+    out = capsys.readouterr().out
+    for row in (*ec_kernel_sweep.VARIANTS, *ec_kernel_sweep.PROBES):
+        assert f"{row:14s} bit-exact" in out

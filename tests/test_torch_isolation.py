@@ -1,8 +1,9 @@
 """The port stands alone: no module of ceph_tpu_torch, and not chip_smoke.py,
-imports JAX or the JAX package.  Checked twice: statically (an AST scan of
-every import) and at run time (a fresh interpreter in which ``jax`` and
-``ceph_tpu`` cannot be imported imports every port module and encodes and
-decodes one stripe)."""
+imports JAX, the JAX package or the JAX package's tools and experiments.
+Checked twice: statically (an AST scan of every import) and at run time (a
+fresh interpreter in which ``jax``, ``ceph_tpu``, ``tools`` and
+``experiments`` cannot be imported imports every port module and encodes
+and decodes one stripe, and runs the kernel sweep on the CPU)."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "ceph_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "ceph_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ceph_tpu", "tools", "experiments")
 
 
 def _port_files():
@@ -46,6 +47,9 @@ def test_forbidden_prefix_compares_whole_module_names():
     assert _forbidden("ceph_tpu") and _forbidden("ceph_tpu.ops.gf")
     assert _forbidden("jax.numpy") and not _forbidden("jaxtyping")
     assert not _forbidden("ceph_tpu_torch.ops.gf")
+    assert _forbidden("tools.ec_kernel_sweep") and _forbidden("experiments")
+    assert not _forbidden("ceph_tpu_torch.tools.ec_kernel_sweep")
+    assert not _forbidden("functools")
 
 
 _PROBE = r"""
@@ -53,6 +57,8 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["ceph_tpu"] = None
+sys.modules["tools"] = None
+sys.modules["experiments"] = None
 import numpy as np
 import ceph_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ceph_tpu_torch.__path__,
@@ -71,7 +77,10 @@ want = ref.encode(set(range(6)), payload)
 assert all(np.array_equal(enc[c], want[c]) for c in want)
 dec = ec.decode(set(range(6)), {c: enc[c] for c in (0, 2, 3, 5)})
 assert all(np.array_equal(dec[c], want[c]) for c in want)
-assert not any(m == "jax" or m.startswith(("jax.", "ceph_tpu."))
+from ceph_tpu_torch.tools import ec_kernel_sweep
+assert ec_kernel_sweep.main(["--device", "cpu", "--iters", "1"]) == 0
+assert not any(m in ("jax", "tools", "experiments")
+               or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
                for m, mod in sys.modules.items() if mod is not None)
 print("imported", len(names))
 """
