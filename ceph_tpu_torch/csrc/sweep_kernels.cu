@@ -21,7 +21,6 @@
 // refused set-up call.
 
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -335,131 +334,192 @@ int launch_pipelined(const uint32_t* x, const uint32_t* masks, uint32_t* out,
 // ---------------------------------------------------------------------------
 //
 // For each byte position b < 4: planes[s*k + j] = (x[j] >> (8b + s)) & 1 as
-// int8 [8k, T]; acc = Bp @ planes in int32, with Bp the shift-major int8
+// int8 [8k, n4]; acc = Bp @ planes in int32, with Bp the shift-major int8
 // 0/1 bitmatrix [8m, 8k]; bit l of byte b of output row i is
 // acc[8i + l] & 1.  Every sum is at most 8k, exact in int32.
 //
 // Bound on the card: memory, (k + m) * n4 * 4 bytes; the product's
 // 2 * 4 * 8m * 8k * n4 int8 operations at 1,979 TOP/s take less at k=8 m=4.
-// What costs here is the integer work around the products, so the design
-// keeps it small.  The four byte positions' products share Bp, so they run
-// as one product with four columns per lane: column 4n + b holds byte b of
-// lane n, and one shift and one mask, (x[j] >> s) & 0x01010101, give the
-// four plane bits of (s, j) at once -- one 32-bit shared-memory store, not
-// four byte extractions.  One block of 4 warps owns T = 128 lanes (512
-// product columns) at a time and walks its tiles.  Bp, zero-padded to
-// Kp = 8k rounded up to 16, stays in shared memory for the walk in 8x16
-// tiles of 128 contiguous bytes (wmma loads need 32-byte aligned tiles);
-// plane rows are padded by 16 bytes against bank conflicts.  Each warp takes
-// 8 x 32 output tiles (one output row, 8 lanes): int8 wmma m8n32k16 products
-// (mma.sync on the tensor cores) with int32 accumulators, stored to the
-// warp's own 1 KiB of shared memory; lane c of the warp then packs bit 0 of
-// column c's 8 rows into one output byte, and two shuffles join four bytes
-// into the output lane.  Two block barriers per tile.
+// What costs is the integer work around the products -- making the planes
+// and packing the parity -- so the design keeps all of it in registers,
+// with no shared memory and no block barrier:
 //
-// Measured on an H100 SXM (700 W) at lanes [8, 2097152]: about 0.78 ms, 26x
-// the bound, so neither memory nor the tensor cores limit it.  The likely
-// cost is the traffic per 8 x 32 output tile: its fragment loads (B in
-// row-major order, which the int8 mma does not take natively), the
-// accumulator's round trip through shared memory and the packing -- about
-// 190 instructions a warp for 8 lanes of one output row.  Keeping Bp's
-// fragments in registers across tiles, a B layout the int8 mma takes as it
-// is, packing the parity from the accumulator registers, and wgmma are the
-// next steps.
+// - Products: mma.sync m16n8k32 .s8.s8.s32, A = Bp (16 bit-rows, i.e. two
+//   output rows, by 32 plane rows), B = planes (32 plane rows by 8 lanes of
+//   one byte position).  The 32 plane rows of K-step ks are ordered so
+//   that the rows a thread holds in its fragment, 4t + e and 4t + 16 + e
+//   (t = lane % 4, e < 4), are planes (s, j) = (e, t + 4ks) and
+//   (e + 4, t + 4ks): all of one input row j.  So a thread builds its B
+//   fragment from one 32-bit lane of x[j], with a shift, a mask and one
+//   multiply that spreads 4 bits to 4 bytes per register.  Bp's fragments
+//   are loaded once, in the same order, and stay in registers.
+// - Parity: a ballot of bit 0 of each accumulator register gives, for 8
+//   bit-rows by 4 columns, the parity bits of the whole warp; each thread
+//   gathers the 8 bits of one output byte of its own (row, lane) from it.
+//
+// A warp takes 32 lanes (four groups of 8) at a time and walks its lanes;
+// the grid is as many blocks as fit on the card.  Templates on the K-steps
+// (ceil(k/4): k <= 16) and the 16-row tiles of Bp (ceil(m/2): m <= 8)
+// keep every fragment index constant.  wgmma is a later step.
 
 constexpr int kI8Threads = 128;
-constexpr int kI8Lanes = 128;          // lanes per block tile: one a thread
-constexpr int kI8Cols = 4 * kI8Lanes;  // product columns: (lane, byte)
-constexpr int kI8Ld = kI8Cols + 16;    // bytes per plane row, padded
-constexpr int kFragM = 8, kFragN = 32, kFragK = 16;
+constexpr int kI8Groups = 4;                 // 8-lane groups a warp takes
+constexpr int kI8WarpLanes = 8 * kI8Groups;  // lanes a warp takes at once
 
-using namespace nvcuda;
-
-__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
-
-// Bp tiles, plane rows, and each warp's 8 x 32 int32 accumulator tile
-__host__ __device__ inline size_t int8_smem_bytes(int k, int m) {
-  const size_t Kp = round16(8 * k);
-  return static_cast<size_t>(m) * kFragM * Kp + Kp * kI8Ld +
-         (kI8Threads / 32) * kFragM * kFragN * sizeof(int);
+// d += a * b on the int8 tensor cores (int32 accumulators)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// bits 0..3 of nib to bit 0 of bytes 0..3 (the partial products of the
+// multiply land on distinct bits, so nothing carries)
+__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+// bits t, t + 4, ..., t + 28 of mask to bits 0..7
+__device__ __forceinline__ uint32_t gather8(uint32_t mask, int t) {
+  uint32_t v = (mask >> t) & 0x11111111u;
+  v = (v | (v >> 3)) & 0x03030303u;
+  v = (v | (v >> 6)) & 0x000F000Fu;
+  return (v | (v >> 12)) & 0xFFu;
+}
+
+template <int KS, int MS>
 __global__ void __launch_bounds__(kI8Threads)
 sweep_int8_kernel(const uint32_t* __restrict__ x,
                   const int8_t* __restrict__ bp, uint32_t* __restrict__ out,
-                  int k, int m, long long n4, long long ntiles) {
-  const int depth = 8 * k, Kp = round16(depth), KT = Kp / kFragK;
-  constexpr int NT = kI8Cols / kFragN;
-  extern __shared__ __align__(128) unsigned char int8_smem[];
-  // a_t: [m][KT] tiles, each row-major 8x16: Bp rows 8i..8i+7 (output row
-  // i), columns 16kt..16kt+15
-  signed char* a_t = reinterpret_cast<signed char*>(int8_smem);
-  // planes: [Kp][kI8Ld] bytes, row s*k + j, column 4n + b
-  signed char* planes = a_t + static_cast<size_t>(m) * kFragM * Kp;
-  int* scratch = reinterpret_cast<int*>(planes + static_cast<size_t>(Kp) *
-                                                     kI8Ld);
+                  int k, int m, long long n4) {
+  // output rows a thread packs: (lane / 8) + 4q for q < Q
+  constexpr int Q = (MS + 1) / 2;
+  const int lane_id = threadIdx.x % 32;
+  const int g = lane_id / 4, t = lane_id % 4;
+  const int rows = 8 * m, depth = 8 * k;
 
-  for (int e = threadIdx.x; e < m * kFragM * Kp; e += blockDim.x) {
-    const int tile = e >> 7, row = (tile / KT) * kFragM + ((e >> 4) & 7),
-              col = (tile % KT) * kFragK + (e & 15);
-    a_t[e] = col < depth ? bp[row * depth + col] : 0;
-  }
-  // plane rows past 8k stay zero for the whole walk
-  for (int e = depth * kI8Ld + threadIdx.x; e < Kp * kI8Ld; e += blockDim.x)
-    planes[e] = 0;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  int* acc_t = scratch + warp * kFragM * kFragN;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long lane0 = tile * kI8Lanes;
-    const long long mine = lane0 + threadIdx.x;
-    for (int j = 0; j < k; ++j) {
-      const uint32_t v =
-          mine < n4 ? __ldg(x + static_cast<long long>(j) * n4 + mine) : 0u;
+  // A fragment register r of tile (mt, ks): Bp row 16mt + g + 8(r & 1),
+  // plane rows (s, j) = (4(r >> 1) + e, t + 4ks) in byte e
+  uint32_t a[MS][KS][4];
 #pragma unroll
-      for (int s = 0; s < 8; ++s)
-        *reinterpret_cast<uint32_t*>(planes + (s * k + j) * kI8Ld +
-                                     4 * threadIdx.x) = (v >> s) & 0x01010101u;
-    }
-    __syncthreads();  // planes complete (and, the first time, a_t)
-
-    for (int t = warp; t < m * NT; t += nwarps) {
-      const int i = t / NT, ni = t % NT;
-      wmma::fragment<wmma::accumulator, kFragM, kFragN, kFragK, int> acc;
-      wmma::fill_fragment(acc, 0);
-      for (int kt = 0; kt < KT; ++kt) {
-        wmma::fragment<wmma::matrix_a, kFragM, kFragN, kFragK, signed char,
-                       wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, kFragM, kFragN, kFragK, signed char,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, a_t + (i * KT + kt) * kFragM * kFragK,
-                               kFragK);
-        wmma::load_matrix_sync(
-            fb, planes + kt * kFragK * kI8Ld + ni * kFragN, kI8Ld);
-        wmma::mma_sync(acc, fa, fb, acc);
+  for (int mt = 0; mt < MS; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 16 * mt + g + 8 * (r & 1), j = t + 4 * ks;
+        uint32_t word = 0u;
+        if (row < rows && j < k) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            word |= static_cast<uint32_t>(
+                        bp[row * depth + (4 * (r >> 1) + e) * k + j] & 1)
+                    << (8 * e);
+        }
+        a[mt][ks][r] = word;
       }
-      // column-major: column c's 8 rows are 32 contiguous bytes
-      wmma::store_matrix_sync(acc_t, acc, kFragM, wmma::mem_col_major);
-      __syncwarp();
-      // column `lane` is byte lane % 4 of block lane ni * 8 + lane / 4
-      const int4 lo = *reinterpret_cast<const int4*>(acc_t + lane * kFragM);
-      const int4 hi =
-          *reinterpret_cast<const int4*>(acc_t + lane * kFragM + 4);
-      uint32_t word =
-          (lo.x & 1) | (lo.y & 1) << 1 | (lo.z & 1) << 2 | (lo.w & 1) << 3 |
-          (hi.x & 1) << 4 | (hi.y & 1) << 5 | (hi.z & 1) << 6 |
-          (hi.w & 1) << 7;
-      word <<= 8 * (lane & 3);
-      word |= __shfl_xor_sync(0xffffffffu, word, 1);
-      word |= __shfl_xor_sync(0xffffffffu, word, 2);
-      const long long n = lane0 + ni * (kFragN / 4) + lane / 4;
-      if ((lane & 3) == 0 && n < n4)
-        out[static_cast<long long>(i) * n4 + n] = word;
-      __syncwarp();  // acc_t is read before the next tile's store
+
+  const int my_n = lane_id % 8;  // lane within an 8-lane group
+  const int my_t = my_n / 2, my_p = my_n % 2;
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (blockDim.x / 32);
+  const long long spans = (n4 + kI8WarpLanes - 1) / kI8WarpLanes;
+  for (long long span = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+       span < spans; span += warps) {
+    const long long lane0 = span * kI8WarpLanes;
+    // x[t + 4ks] of lane lane0 + 8c + g: column g of group c's B fragments
+    uint32_t v[kI8Groups][KS];
+#pragma unroll
+    for (int c = 0; c < kI8Groups; ++c)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const long long lane = lane0 + 8 * c + g;
+        const int j = t + 4 * ks;
+        v[c][ks] = lane < n4 && j < k
+                       ? __ldg(x + static_cast<long long>(j) * n4 + lane)
+                       : 0u;
+      }
+#pragma unroll
+    for (int c = 0; c < kI8Groups; ++c) {
+      uint32_t word[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) word[q] = 0u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        uint32_t bf[KS][2];
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const uint32_t byte = v[c][ks] >> (8 * b);
+          bf[ks][0] = spread4(byte & 0xFu);
+          bf[ks][1] = spread4((byte >> 4) & 0xFu);
+        }
+        uint32_t mine[Q];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) mine[q] = 0u;
+#pragma unroll
+        for (int mt = 0; mt < MS; ++mt) {
+          int acc[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+            mma_s8(acc, a[mt][ks], bf[ks][0], bf[ks][1]);
+          // bit 4g' + t' of bal[2h + p]: parity of bit-row 16mt + 8h + g'
+          // (bit g' of output row 2mt + h), column 2t' + p
+          uint32_t bal[4];
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci)
+            bal[ci] = __ballot_sync(0xffffffffu, acc[ci] & 1);
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int i = lane_id / 8 + 4 * q;
+            if (i / 2 == mt) {
+              const uint32_t lo = my_p ? bal[1] : bal[0];
+              const uint32_t hi = my_p ? bal[3] : bal[2];
+              mine[q] = (i % 2) ? hi : lo;
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < Q; ++q) word[q] |= gather8(mine[q], my_t) << (8 * b);
+      }
+      const long long lane = lane0 + 8 * c + my_n;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int i = lane_id / 8 + 4 * q;
+        if (i < m && lane < n4)
+          out[static_cast<long long>(i) * n4 + lane] = word[q];
+      }
     }
-    __syncthreads();  // planes are read before the next tile rewrites them
   }
+}
+
+template <int KS, int MS>
+int launch_int8(const void* x, const void* bp, void* out, int k, int m,
+                long long n4, cudaStream_t s) {
+  const long long spans = (n4 + kI8WarpLanes - 1) / kI8WarpLanes;
+  const long long items = (spans + kI8Threads / 32 - 1) / (kI8Threads / 32);
+  int blocks = 0;
+  const int rc = resident_blocks(sweep_int8_kernel<KS, MS>, kI8Threads, 0,
+                                 items, &blocks);
+  if (rc != 0) return rc;
+  sweep_int8_kernel<KS, MS><<<blocks, kI8Threads, 0, s>>>(
+      static_cast<const uint32_t*>(x), static_cast<const int8_t*>(bp),
+      static_cast<uint32_t*>(out), k, m, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KS>
+int launch_int8_tiles(const void* x, const void* bp, void* out, int k, int m,
+                      long long n4, cudaStream_t s) {
+  switch ((m + 1) / 2) {
+    case 1: return launch_int8<KS, 1>(x, bp, out, k, m, n4, s);
+    case 2: return launch_int8<KS, 2>(x, bp, out, k, m, n4, s);
+    case 3: return launch_int8<KS, 3>(x, bp, out, k, m, n4, s);
+    case 4: return launch_int8<KS, 4>(x, bp, out, k, m, n4, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -492,21 +552,18 @@ int sweep_pipelined_w8(const void* x, const void* masks, void* out, int k,
 }
 
 // x [k, n4] lanes; bp [8m, 8k] int8 0/1, shift-major (column s*k + j is bit
-// s of chunk j); out [m, n4]
+// s of chunk j); out [m, n4]; k <= 16, m <= 8
 int sweep_int8_4dot(const void* x, const void* bp, void* out, int k, int m,
                     long long n4, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = int8_smem_bytes(k, m);
-  int rc = allow_smem(sweep_int8_kernel, smem);
-  if (rc != 0) return rc;
-  const long long ntiles = (n4 + kI8Lanes - 1) / kI8Lanes;
-  int blocks = 0;
-  rc = resident_blocks(sweep_int8_kernel, kI8Threads, smem, ntiles, &blocks);
-  if (rc != 0) return rc;
-  sweep_int8_kernel<<<blocks, kI8Threads, smem, s>>>(
-      static_cast<const uint32_t*>(x), static_cast<const int8_t*>(bp),
-      static_cast<uint32_t*>(out), k, m, n4, ntiles);
-  return static_cast<int>(cudaGetLastError());
+  if (m < 1 || m > 8) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((k + 3) / 4) {
+    case 1: return launch_int8_tiles<1>(x, bp, out, k, m, n4, s);
+    case 2: return launch_int8_tiles<2>(x, bp, out, k, m, n4, s);
+    case 3: return launch_int8_tiles<3>(x, bp, out, k, m, n4, s);
+    case 4: return launch_int8_tiles<4>(x, bp, out, k, m, n4, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

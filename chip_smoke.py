@@ -85,7 +85,7 @@ SWEEP_REPLACES = {
     "sweep_int8_4dot": "experiments/kernel_r4.py:76",
 }
 #: lanes per row: the sweep's 8 MiB chunks, and a ragged width that is no
-#: multiple of 4 lanes, of the pipelined tile or of the int8 block's tile
+#: multiple of 4 lanes, of the pipelined tile or of a warp's 32 int8 lanes
 SWEEP_N4 = (8 << 20) // cuda_gf.LANE_BYTES
 RAGGED_N4 = 100003
 
@@ -200,8 +200,9 @@ def phase_kernels(reg, dev, gen, flush) -> dict:
 
 
 def _sweep_cases(dev):
-    """name -> (kernel, plain version, library call or None) over lanes x,
-    for reed_sol_van k=8 m=4 w=8 as the sweep runs it."""
+    """name -> (kernel, plain version, library call or None, bytes of its
+    coding table) over lanes x, for reed_sol_van k=8 m=4 w=8 as the sweep
+    runs it."""
     bits = matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, 8), 8)
     masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(dev)
     bp = torch.from_numpy(

@@ -135,7 +135,7 @@ def _unaligned(x):
     (3, 2, 4099, False),   # int8 contraction padded: 24 plane rows in 32
     (12, 6, 1, True),      # one lane
     (16, 8, 333, True),    # the widest code the int8 kernel takes
-    (5, 7, 4096, True),    # odd m: half of the last 16-row tile of Bp
+    (7, 5, 4096, True),    # odd m: half of the last 16-row tile of Bp
 ])
 def test_sweep_kernels_match_plain_versions(dev, k, m, n4, aligned):
     rs = np.random.RandomState(k * 1000 + n4)
