@@ -1,4 +1,4 @@
-"""The kernel sweep's four kernels: wrappers, launch counters, plain twins.
+"""The kernel sweep's seven kernels: wrappers, launch counters, plain twins.
 
 Port of the TPU kernels that ``tools/ec_kernel_sweep.py`` and
 ``experiments/kernel_r4.py`` time beside the production w=8 product.  Each
@@ -13,12 +13,17 @@ copy_rows           ec_kernel_sweep._copy_kernel (:117)             sweep_copy
 extract_rows        ec_kernel_sweep._extract_only_kernel (:121)     sweep_extract
 pipelined_w8        ec_kernel_sweep._pipelined_call (:76)           sweep_pipelined_w8
 int8_4dot           kernel_r4._kernel_int8_4dot (:76)               sweep_int8_4dot
+bf16_4dot           kernel_r4._kernel_bf16_4dot (:52), bfloat16     sweep_bf16_4dot
+f32_4dot            kernel_r4._kernel_bf16_4dot (:52), float32      sweep_f32_4dot
+bf16_blockdiag      kernel_r4._kernel_bf16_blockdiag (:100)         sweep_bf16_blockdiag
 ==================  ==============================================  =========
 
 Operands are int32 lanes of four little-endian bytes, ``[rows, n4]``, as in
 :mod:`cuda_gf`.  ``pipelined_w8`` takes the lane masks of
-``cuda_gf.prep_matrix_w8``; ``int8_4dot`` takes the shift-major 0/1
-bitmatrix of :func:`prep_shift_major_w8` as int8.
+``cuda_gf.prep_matrix_w8``; ``int8_4dot``, ``bf16_4dot`` and ``f32_4dot``
+take the shift-major 0/1 bitmatrix of :func:`prep_shift_major_w8` in their
+product's operand type (int8, bfloat16, float32); ``bf16_blockdiag`` takes
+the block-diagonal table of :func:`prep_blockdiag_w8` as bfloat16.
 
 A wrapper launches its kernel for a CUDA tensor, or raises; for a CPU
 tensor it runs the plain PyTorch version beside it (``*_plain``), in exact
@@ -41,7 +46,8 @@ SOURCE = "sweep_kernels.cu"
 #: zeroes them with :func:`reset_launches` and reads them after)
 launches: Dict[str, int] = {
     "sweep_copy": 0, "sweep_extract": 0, "sweep_pipelined_w8": 0,
-    "sweep_int8_4dot": 0,
+    "sweep_int8_4dot": 0, "sweep_bf16_4dot": 0, "sweep_f32_4dot": 0,
+    "sweep_bf16_blockdiag": 0,
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -51,15 +57,26 @@ _SIGNATURES = {
     "sweep_extract": (_P, _P, _I, _L, _P),
     "sweep_pipelined_w8": (_P, _P, _P, _I, _I, _L, _I, _P),
     "sweep_int8_4dot": (_P, _P, _P, _I, _I, _L, _P),
+    "sweep_bf16_4dot": (_P, _P, _P, _I, _I, _L, _P),
+    "sweep_f32_4dot": (_P, _P, _P, _I, _I, _L, _P),
+    "sweep_bf16_blockdiag": (_P, _P, _P, _I, _I, _L, _P),
 }
 
 #: the fields the extraction probe keeps of each shifted lane
 _FIELDS = 0x00010001
 #: lanes per stage of ``pipelined_w8`` unless the caller picks another
 DEFAULT_TILE = 1024
-#: the widest code ``int8_4dot`` takes: its kernel keeps Bp's fragments in
-#: registers, ceil(k/4) by ceil(m/2) of them
-INT8_MAX_K, INT8_MAX_M = 16, 8
+#: single-plane product kernel -> (its table's dtype, the widest k, the
+#: widest m): each kernel keeps Bp's fragments in registers, at most 64 of
+#: them a thread
+DOT_KERNELS = {
+    "sweep_int8_4dot": (torch.int8, 16, 8),
+    "sweep_bf16_4dot": (torch.bfloat16, 16, 4),
+    "sweep_f32_4dot": (torch.float32, 8, 4),
+}
+#: the widest m ``bf16_blockdiag`` takes: a thread keeps the accumulators
+#: of all 2m row tiles of four 8-lane groups, 32m floats
+BLOCKDIAG_MAX_M = 4
 
 
 def reset_launches() -> None:
@@ -84,6 +101,25 @@ def prep_shift_major_w8(bitmatrix: np.ndarray, k: int) -> np.ndarray:
     R = bitmatrix.shape[0]
     cols = np.asarray(bitmatrix, np.float32).reshape(R, k, 8)
     return np.ascontiguousarray(cols.transpose(0, 2, 1).reshape(R, 8 * k))
+
+
+def prep_blockdiag_w8(bitmatrix: np.ndarray, k: int, m: int) -> np.ndarray:
+    """[m*8, k*8] jerasure bitmatrix -> [32m, 32k] float32 block-diagonal
+    table: block b < 4 (rows b*8m.., columns b*8k..) is
+    :func:`prep_shift_major_w8`, the rest zero.  A copy of the table
+    ``kernel_r4.build_variants`` builds inline."""
+    bp = prep_shift_major_w8(bitmatrix, k)
+    blk = np.zeros((4 * 8 * m, 4 * 8 * k), np.float32)
+    for b in range(cuda_gf.LANE_BYTES):
+        blk[b * 8 * m:(b + 1) * 8 * m, b * 8 * k:(b + 1) * 8 * k] = bp
+    return blk
+
+
+def blockdiag_smem_bytes(k: int, m: int) -> int:
+    """Shared memory of one ``sweep_bf16_blockdiag`` block: the table's 32m
+    rows, each 128 ceil(k/4) bf16 (its columns in the kernel's K order)
+    and 16 bytes of padding."""
+    return 32 * m * (128 * -(-k // 4) + 8) * 2
 
 
 # ---------------------------------------------------------------------------
@@ -113,23 +149,48 @@ def extract_plain(x: torch.Tensor, m: int) -> torch.Tensor:
 pipelined_w8_plain = cuda_gf.matrix_encode_w8_plain
 
 
+def _pack_parity(acc: torch.Tensor, m: int) -> torch.Tensor:
+    """acc [4, 8m, n4] float64 sums, row 8i + l of byte position b ->
+    lanes [m, n4] whose bit l of byte b of row i is acc[b, 8i + l] & 1."""
+    n4 = acc.shape[-1]
+    shifts = torch.arange(8, dtype=torch.int32, device=acc.device)
+    bits = (acc.to(torch.int32) & 1).view(4, m, 8, n4)
+    bytes_ = (bits << shifts.view(1, 1, 8, 1)).sum(2).to(torch.uint8)
+    return bytes_.permute(1, 2, 0).contiguous().view(
+        m, n4 * cuda_gf.LANE_BYTES).view(torch.int32)
+
+
+def _planes(x: torch.Tensor, b: int) -> torch.Tensor:
+    """[8k, n4] float64 planes of byte position b: row s*k + j is
+    (x[j] >> (8b + s)) & 1."""
+    shifts = torch.arange(8, dtype=torch.int32, device=x.device)
+    planes = (x.unsqueeze(0) >> (8 * b + shifts).view(8, 1, 1)) & 1
+    return planes.reshape(8 * x.shape[0], x.shape[1]).to(torch.float64)
+
+
 def int8_4dot_plain(bp: torch.Tensor, x: torch.Tensor,
                     k: int, m: int) -> torch.Tensor:
     """For each byte position b < 4: planes[s*k + j] = (x[j] >> (8b+s)) &
     1; acc = bp @ planes; bit l of byte b of output row i = acc[8i+l] & 1.
-    The product runs in float64 (sums <= 8k, exact)."""
+    The product runs in float64 (sums <= 8k, exact), whatever bp's type."""
     B = bp.to(torch.float64)
-    n4 = x.shape[1]
-    shifts = torch.arange(8, dtype=torch.int32, device=x.device)
-    out = torch.empty((m, n4, cuda_gf.LANE_BYTES), dtype=torch.uint8,
-                      device=x.device)
-    for b in range(cuda_gf.LANE_BYTES):
-        # [8, k, n4] -> [8k, n4], row s*k + j
-        planes = (x.unsqueeze(0) >> (8 * b + shifts).view(8, 1, 1)) & 1
-        acc = B @ planes.reshape(8 * k, n4).to(torch.float64)
-        bits = (acc.to(torch.int32) & 1).view(m, 8, n4)
-        out[:, :, b] = (bits << shifts.view(1, 8, 1)).sum(1).to(torch.uint8)
-    return out.view(m, n4 * cuda_gf.LANE_BYTES).view(torch.int32)
+    return _pack_parity(torch.stack(
+        [B @ _planes(x, b) for b in range(cuda_gf.LANE_BYTES)]), m)
+
+
+#: the bf16 and f32 rows compute the int8 row's function with other
+#: operand types; in float64 the three are one computation
+bf16_4dot_plain = f32_4dot_plain = int8_4dot_plain
+
+
+def bf16_blockdiag_plain(bblk: torch.Tensor, x: torch.Tensor,
+                         k: int, m: int) -> torch.Tensor:
+    """All 32k plane rows at once, row b*8k + s*k + j = (x[j] >> (8b+s)) &
+    1; acc = bblk @ planes, [32m, n4]; bit l of byte b of output row i =
+    acc[b*8m + 8i + l] & 1.  In float64 (sums <= 8k, exact)."""
+    planes = torch.cat([_planes(x, b) for b in range(cuda_gf.LANE_BYTES)])
+    acc = bblk.to(torch.float64) @ planes
+    return _pack_parity(acc.view(4, 8 * m, x.shape[1]), m)
 
 
 # ---------------------------------------------------------------------------
@@ -214,22 +275,72 @@ def pipelined_w8(masks: torch.Tensor, x: torch.Tensor, k: int, m: int,
     return out
 
 
+def _dot_operands(name: str, table: torch.Tensor, dtype: torch.dtype,
+                  table_shape: tuple, x: torch.Tensor, k: int,
+                  m: int) -> torch.device:
+    device = _check(name, table=(table, dtype), lanes=(x, torch.int32))
+    if tuple(table.shape) != table_shape or x.shape[0] != k:
+        raise ValueError(f"{name}: table {tuple(table.shape)} and lanes "
+                         f"{tuple(x.shape)} do not fit k={k} m={m}")
+    return device
+
+
+def _dot_run(name: str, device: torch.device, table: torch.Tensor,
+             x: torch.Tensor, k: int, m: int, plain) -> torch.Tensor:
+    """The product's kernel on the card, its plain version on the CPU."""
+    if device.type == "cpu":
+        return plain(table, x, k, m)
+    out = torch.empty((m, x.shape[1]), dtype=torch.int32, device=device)
+    if x.shape[1]:
+        _launch(name, device, x.data_ptr(), table.data_ptr(), out.data_ptr(),
+                k, m, x.shape[1])
+    return out
+
+
+def _single_plane(name: str, bp: torch.Tensor, x: torch.Tensor, k: int,
+                  m: int, plain) -> torch.Tensor:
+    dtype, max_k, max_m = DOT_KERNELS[name]
+    device = _dot_operands(name, bp, dtype, (8 * m, 8 * k), x, k, m)
+    if not (1 <= k <= max_k and 1 <= m <= max_m):
+        raise ValueError(f"{name}: k={k} m={m}; the kernel takes "
+                         f"k <= {max_k} and m <= {max_m}")
+    return _dot_run(name, device, bp, x, k, m, plain)
+
+
 def int8_4dot(bp: torch.Tensor, x: torch.Tensor, k: int,
               m: int) -> torch.Tensor:
     """bp [8m, 8k] int8 0/1 (``prep_shift_major_w8``) x lanes [k, n4] ->
     parity lanes [m, n4], on the int8 tensor cores."""
-    device = _check("sweep_int8_4dot", bp=(bp, torch.int8),
-                    lanes=(x, torch.int32))
-    if tuple(bp.shape) != (8 * m, 8 * k) or x.shape[0] != k:
-        raise ValueError(f"sweep_int8_4dot: bitmatrix {tuple(bp.shape)} and "
-                         f"lanes {tuple(x.shape)} do not fit k={k} m={m}")
-    if not (1 <= k <= INT8_MAX_K and 1 <= m <= INT8_MAX_M):
-        raise ValueError(f"sweep_int8_4dot: k={k} m={m}; the kernel takes "
-                         f"k <= {INT8_MAX_K} and m <= {INT8_MAX_M}")
-    if device.type == "cpu":
-        return int8_4dot_plain(bp, x, k, m)
-    out = torch.empty((m, x.shape[1]), dtype=torch.int32, device=device)
-    if x.shape[1]:
-        _launch("sweep_int8_4dot", device, x.data_ptr(), bp.data_ptr(),
-                out.data_ptr(), k, m, x.shape[1])
-    return out
+    return _single_plane("sweep_int8_4dot", bp, x, k, m, int8_4dot_plain)
+
+
+def bf16_4dot(bp: torch.Tensor, x: torch.Tensor, k: int,
+              m: int) -> torch.Tensor:
+    """bp [8m, 8k] bfloat16 0/1 x lanes [k, n4] -> parity lanes [m, n4], on
+    the bf16 tensor cores (float32 accumulators)."""
+    return _single_plane("sweep_bf16_4dot", bp, x, k, m, bf16_4dot_plain)
+
+
+def f32_4dot(bp: torch.Tensor, x: torch.Tensor, k: int,
+             m: int) -> torch.Tensor:
+    """bp [8m, 8k] float32 0/1 x lanes [k, n4] -> parity lanes [m, n4], on
+    the TF32 tensor cores (float32 accumulators)."""
+    return _single_plane("sweep_f32_4dot", bp, x, k, m, f32_4dot_plain)
+
+
+def bf16_blockdiag(bblk: torch.Tensor, x: torch.Tensor, k: int,
+                   m: int) -> torch.Tensor:
+    """bblk [32m, 32k] bfloat16 (``prep_blockdiag_w8``) x lanes [k, n4] ->
+    parity lanes [m, n4]: one dense bf16 product over the four byte
+    positions, its table staged in shared memory."""
+    name = "sweep_bf16_blockdiag"
+    device = _dot_operands(name, bblk, torch.bfloat16, (32 * m, 32 * k), x,
+                           k, m)
+    if not (k >= 1 and 1 <= m <= BLOCKDIAG_MAX_M):
+        raise ValueError(f"{name}: k={k} m={m}; the kernel takes "
+                         f"m <= {BLOCKDIAG_MAX_M}")
+    smem = blockdiag_smem_bytes(k, m)
+    if smem > cuda_gf.SMEM_LIMIT:
+        raise ValueError(f"{name}: k={k} m={m} stages {smem} bytes of "
+                         f"table, over {cuda_gf.SMEM_LIMIT}")
+    return _dot_run(name, device, bblk, x, k, m, bf16_blockdiag_plain)

@@ -7,19 +7,24 @@ reed_sol_van k=8 m=4 w=8 over ``--size-mib`` MiB chunks (lanes
 [8, size/4]):
 
   variants  base (the production ``gf2_matrix_w8``), pipelined
-            (``sweep_pipelined_w8``: double-buffered ``cp.async`` staging)
-            and int8_4dot (``sweep_int8_4dot``: int8 tensor cores), each
-            gated against ``gf2_matrix_w8``'s output
+            (``sweep_pipelined_w8``: double-buffered ``cp.async`` staging),
+            and one tensor-core product per byte position in three operand
+            types: int8_4dot (``sweep_int8_4dot``), bf16_4dot
+            (``sweep_bf16_4dot``) and f32_4dot (``sweep_f32_4dot``, TF32);
+            bf16_blockdiag (``sweep_bf16_blockdiag``: one dense bf16
+            product with the block-diagonal [32m, 32k] table); each gated
+            against ``gf2_matrix_w8``'s output
   split     copy_control (``sweep_copy``: rows < m copied) and
             extract_only (``sweep_extract``: the bit-plane extraction
             alone), each gated against its plain PyTorch version
 
 Each row prints the payload rate (k * chunk bytes over the mean time,
 GiB/s, the JAX tool's unit), the mean ms, the least time an H100 SXM could
-take for the same work and the share of it reached.  Times are CUDA events
-around ``--iters`` back-to-back launches (one CUDA graph) after one warm
-launch; at the default 8 MiB the 64 MiB input is larger than the card's
-50 MB L2.
+take for the same work (bytes, or the product's operations at its
+operand type's tensor-core rate) and the share of it reached.  Times are
+CUDA events around ``--iters`` back-to-back launches (one CUDA graph)
+after one warm launch; at the default 8 MiB the 64 MiB input is larger
+than the card's 50 MB L2.
 
 Run:
     python -m ceph_tpu_torch.tools.ec_kernel_sweep [--size-mib 8]
@@ -28,10 +33,9 @@ Run:
 
 The card is the default and the tool raises without one.  ``--device cpu``
 runs the plain versions at a shrunk size and says that its numbers are
-not the card's.  The JAX tool's ``precision`` stage and its bf16_4dot,
-f32_4dot, bf16_blockdiag and xornet variants are not ported yet (ROADMAP.md,
-queue 2): naming one exits with code 2.  A variant that differs from its
-oracle exits with code 1.
+not the card's.  The JAX tool's ``precision`` stage and its xornet
+variant are not ported yet (ROADMAP.md, queue 2): naming one exits with
+code 2.  A variant that differs from its oracle exits with code 1.
 """
 
 from __future__ import annotations
@@ -50,42 +54,66 @@ from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 
 K, M, W = 8, 4, 8
 
-#: H100 SXM published rates (NVIDIA data sheet) at the 700 W limit
+#: H100 SXM published rates (NVIDIA data sheet; dense tensor-core rates)
+#: at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
+#: tensor-core kernel -> (its operand type, the card's rate for it)
+TENSOR_OPS = {
+    "sweep_int8_4dot": ("int8", INT8_OPS_PER_S),
+    "sweep_bf16_4dot": ("bf16", BF16_OPS_PER_S),
+    "sweep_f32_4dot": ("tf32", TF32_OPS_PER_S),
+    "sweep_bf16_blockdiag": ("bf16", BF16_OPS_PER_S),
+}
 
 #: chunk bytes of a ``--device cpu`` run, whatever ``--size-mib`` says
 CPU_CHUNK = 256 << 10
 
 #: row -> the kernel it times
 VARIANTS = {"base": "gf2_matrix_w8", "pipelined": "sweep_pipelined_w8",
-            "int8_4dot": "sweep_int8_4dot"}
+            "int8_4dot": "sweep_int8_4dot", "bf16_4dot": "sweep_bf16_4dot",
+            "f32_4dot": "sweep_f32_4dot",
+            "bf16_blockdiag": "sweep_bf16_blockdiag"}
 PROBES = {"copy_control": "sweep_copy", "extract_only": "sweep_extract"}
 STAGES = ("variants", "split")
 #: names of the JAX tool that have no kernel on the card yet
-NOT_PORTED = ("precision", "bf16_4dot", "f32_4dot", "bf16_blockdiag",
-              "xornet")
+NOT_PORTED = ("precision", "xornet")
 
 
 def work(kernel: str, k: int, m: int, n4: int,
          table_bytes: int = 0) -> tuple[int, int]:
-    """(bytes, int8 operations) one call of ``kernel`` must move and do
-    over lanes [k, n4]: each input byte read once, each output byte
-    written once; the int8 product's multiply-adds count two operations."""
+    """(bytes, tensor-core operations) one call of ``kernel`` must move and
+    do over lanes [k, n4]: each input byte read once, each output byte
+    written once; for a tensor-core kernel, the operations the function
+    needs, four [8m, 8k] x [8k, n4] products with each multiply-add
+    counted twice, whatever more a kernel chooses to do (the block-diagonal
+    product's zero blocks)."""
     lane_row = n4 * cuda_gf.LANE_BYTES
     if kernel in ("sweep_copy", "sweep_extract"):
         return 2 * m * lane_row, 0
-    ops = 2 * 4 * (8 * m) * (8 * k) * n4 if kernel == "sweep_int8_4dot" else 0
+    ops = 2 * 4 * (8 * m) * (8 * k) * n4 if kernel in TENSOR_OPS else 0
     return (k + m) * lane_row + table_bytes, ops
 
 
-def bound_ms(nbytes: int, int8_ops: int = 0) -> tuple[float, str]:
+def bound_ms(nbytes: int, ops: int = 0,
+             ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
     """Least time on an H100 SXM, ms, and what sets it ("bytes" or
-    "operations"): the larger of bytes over the memory rate and int8
-    operations over the tensor cores' rate."""
+    "operations"): the larger of bytes over the memory rate and operations
+    over the tensor cores' rate for their type (int8 unless named)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = int8_ops / INT8_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
+def kernel_bound_ms(kernel: str, k: int, m: int, n4: int,
+                    table_bytes: int = 0) -> tuple[float, str, int, int]:
+    """(bound ms, what sets it, bytes, operations) of one call of
+    ``kernel``, its operations priced at its operand type's rate."""
+    nbytes, ops = work(kernel, k, m, n4, table_bytes)
+    rate = TENSOR_OPS.get(kernel, ("int8", INT8_OPS_PER_S))[1]
+    return (*bound_ms(nbytes, ops, rate), nbytes, ops)
 
 
 def time_ms(fn, iters: int, device: torch.device) -> float:
@@ -127,9 +155,14 @@ def _parse(argv):
     ap.add_argument("--tile", type=int, default=sweep_gf.DEFAULT_TILE,
                     help="lanes per shared-memory stage of the pipelined "
                          "kernel (a multiple of 4)")
-    ap.add_argument("--stage", default=",".join(STAGES))
+    ap.add_argument("--stage", default=",".join(STAGES),
+                    help=f"comma-separated stages (default all: "
+                         f"{', '.join(STAGES)}); the JAX tool's precision "
+                         "stage is not ported yet")
     ap.add_argument("--only", default="",
-                    help="comma-separated rows to run (default all)")
+                    help=f"comma-separated rows to run (default all: "
+                         f"{', '.join([*VARIANTS, *PROBES])}); the JAX "
+                         "tool's xornet row is not ported yet")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions, smoke "
                          "test only)")
@@ -179,8 +212,14 @@ def main(argv=None) -> int:
     d32 = torch.from_numpy(data_np.view(np.int32)).to(device)
     n4 = d32.shape[1]
     masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(device)
-    bp = torch.from_numpy(
-        sweep_gf.prep_shift_major_w8(bits, K).astype(np.int8)).to(device)
+    bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, K)).to(device)
+    bp = bp32.to(torch.int8)
+    bp16 = bp32.to(torch.bfloat16)
+    bblk = torch.from_numpy(sweep_gf.prep_blockdiag_w8(bits, K, M)).to(
+        device, torch.bfloat16)
+    # row -> its coding table, made once outside the timed calls
+    tables = {"base": masks, "pipelined": masks, "int8_4dot": bp,
+              "bf16_4dot": bp16, "f32_4dot": bp32, "bf16_blockdiag": bblk}
     print(f"reed_sol_van k={K} m={M} w={W}, lanes [{K}, {n4}], "
           f"{args.iters} iters, tile {args.tile}", flush=True)
 
@@ -189,10 +228,9 @@ def main(argv=None) -> int:
             print(f"{name:14s} MISMATCH against {oracle}", flush=True)
             return 1
         kernel = {**VARIANTS, **PROBES}[name]
-        table = {"base": masks, "pipelined": masks, "int8_4dot": bp}.get(name)
-        nbytes, ops = work(kernel, K, M, n4,
-                           0 if table is None else table.nbytes)
-        bound, by = bound_ms(nbytes, ops)
+        table = tables.get(name)
+        bound, by, _, _ = kernel_bound_ms(kernel, K, M, n4,
+                                          0 if table is None else table.nbytes)
         ms = time_ms(fn, args.iters, device)
         gibs = data_np.nbytes / (ms / 1e3) / 2**30
         # the bound is the card's: a CPU row does not stand beside it
@@ -213,6 +251,10 @@ def main(argv=None) -> int:
             "pipelined": lambda: sweep_gf.pipelined_w8(masks, d32, K, M,
                                                        args.tile),
             "int8_4dot": lambda: sweep_gf.int8_4dot(bp, d32, K, M),
+            "bf16_4dot": lambda: sweep_gf.bf16_4dot(bp16, d32, K, M),
+            "f32_4dot": lambda: sweep_gf.f32_4dot(bp32, d32, K, M),
+            "bf16_blockdiag": lambda: sweep_gf.bf16_blockdiag(bblk, d32, K,
+                                                              M),
         }
         for name, fn in calls.items():
             if name in keep:

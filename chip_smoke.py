@@ -22,10 +22,10 @@ Phases (any failure raises and exits non-zero):
    rise during its profile.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased).
-5. The kernel sweep's four kernels (``csrc/sweep_kernels.cu``) against
+5. The kernel sweep's seven kernels (``csrc/sweep_kernels.cu``) against
    their plain versions at the sweep's shape, lanes [8, 2097152], and at a
    ragged one; then the port's kernel sweep (``ec_kernel_sweep.main``) at
-   8 MiB chunks, which must exit 0 with every row bit-exact.  These four
+   8 MiB chunks, which must exit 0 with every row bit-exact.  These seven
    kernels' launches are counted during the sweep.
 
 Both kernel sources build at once, one ``nvcc`` each.  It prints the
@@ -83,6 +83,19 @@ SWEEP_REPLACES = {
     "sweep_extract": "tools/ec_kernel_sweep.py:121",
     "sweep_pipelined_w8": "tools/ec_kernel_sweep.py:76",
     "sweep_int8_4dot": "experiments/kernel_r4.py:76",
+    "sweep_bf16_4dot": "experiments/kernel_r4.py:52",
+    "sweep_f32_4dot": "experiments/kernel_r4.py:52",
+    "sweep_bf16_blockdiag": "experiments/kernel_r4.py:100",
+}
+#: why a sweep kernel has no library call to time beside it
+_PRODUCT = "no single PyTorch call computes extraction + product + parity"
+NO_LIBRARY = {
+    "sweep_extract": "no single PyTorch call computes the 16 shifted "
+                     "field sums",
+    "sweep_pipelined_w8": "no single PyTorch call computes a GF(2) "
+                          "bitmatrix product",
+    **dict.fromkeys(("sweep_int8_4dot", "sweep_bf16_4dot", "sweep_f32_4dot",
+                     "sweep_bf16_blockdiag"), _PRODUCT),
 }
 #: lanes per row: the sweep's 8 MiB chunks, and a ragged width that is no
 #: multiple of 4 lanes, of the pipelined tile or of a warp's 32 int8 lanes
@@ -205,8 +218,10 @@ def _sweep_cases(dev):
     runs it."""
     bits = matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, 8), 8)
     masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(dev)
-    bp = torch.from_numpy(
-        sweep_gf.prep_shift_major_w8(bits, K).astype(np.int8)).to(dev)
+    bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, K)).to(dev)
+    bp, bp16 = bp32.to(torch.int8), bp32.to(torch.bfloat16)
+    bblk = torch.from_numpy(sweep_gf.prep_blockdiag_w8(bits, K, M)).to(
+        dev, torch.bfloat16)
     tile = sweep_gf.DEFAULT_TILE
     return {
         "sweep_copy": (lambda x: sweep_gf.copy_rows(x, M),
@@ -221,6 +236,16 @@ def _sweep_cases(dev):
         "sweep_int8_4dot": (lambda x: sweep_gf.int8_4dot(bp, x, K, M),
                             lambda x: sweep_gf.int8_4dot_plain(bp, x, K, M),
                             None, bp.nbytes),
+        "sweep_bf16_4dot": (lambda x: sweep_gf.bf16_4dot(bp16, x, K, M),
+                            lambda x: sweep_gf.bf16_4dot_plain(bp16, x, K, M),
+                            None, bp16.nbytes),
+        "sweep_f32_4dot": (lambda x: sweep_gf.f32_4dot(bp32, x, K, M),
+                           lambda x: sweep_gf.f32_4dot_plain(bp32, x, K, M),
+                           None, bp32.nbytes),
+        "sweep_bf16_blockdiag": (
+            lambda x: sweep_gf.bf16_blockdiag(bblk, x, K, M),
+            lambda x: sweep_gf.bf16_blockdiag_plain(bblk, x, K, M), None,
+            bblk.nbytes),
     }
 
 
@@ -250,8 +275,8 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
                 print(f"[sweep-kernel] {name} lanes {tuple(x.shape)}: "
                       "bit-exact (ragged)", flush=True)
                 continue
-            nbytes, ops = ec_kernel_sweep.work(name, K, M, n4, table_bytes)
-            bound, by = ec_kernel_sweep.bound_ms(nbytes, ops)
+            bound, by, nbytes, ops = ec_kernel_sweep.kernel_bound_ms(
+                name, K, M, n4, table_bytes)
             ms = _time_ms(lambda: kern(x), 20, flush)
             plain_ms = _time_ms(lambda: plain(x), 3, flush)
             library_ms = (None if library is None
@@ -264,10 +289,12 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
             }
             lib_note = (f"library x[:m].clone() {library_ms:.4f} ms"
                         if library_ms is not None else
-                        "library_ms null: no single PyTorch call computes it")
+                        f"library_ms null: {NO_LIBRARY[name]}")
+            ops_note = (f", {ops} {ec_kernel_sweep.TENSOR_OPS[name][0]} ops"
+                        if ops else "")
             print(f"[sweep-kernel] {name} lanes {tuple(x.shape)}: bit-exact, "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by}; {nbytes} bytes, {ops} int8 ops), "
+                  f"{bound:.4f} ms ({by}; {nbytes} bytes{ops_note}), "
                   f"{lib_note}", flush=True)
         del x
     return results

@@ -106,7 +106,7 @@ def test_cuda_plugin_matches_numpy_jerasure(dev, profile):
         assert all(np.array_equal(got[c], exp[c]) for c in exp)
 
 
-# -- the kernel sweep's four kernels -----------------------------------------
+# -- the kernel sweep's seven kernels ----------------------------------------
 
 
 def _sweep_operands(k, m, dev):
@@ -155,6 +155,46 @@ def test_sweep_kernels_match_plain_versions(dev, k, m, n4, aligned):
         assert torch.equal(got, want)
 
 
+def _tensor_core_cases(k, m, dev):
+    """name -> (kernel wrapper, plain version, table on the card)."""
+    B = bitmatrix.matrix_to_bitmatrix(
+        reed_sol.vandermonde_coding_matrix(k, m, 8), 8)
+    bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(B, k)).to(dev)
+    bblk = torch.from_numpy(sweep_gf.prep_blockdiag_w8(B, k, m)).to(
+        dev, torch.bfloat16)
+    return {
+        "sweep_bf16_4dot": (sweep_gf.bf16_4dot, sweep_gf.bf16_4dot_plain,
+                            bp.to(torch.bfloat16)),
+        "sweep_f32_4dot": (sweep_gf.f32_4dot, sweep_gf.f32_4dot_plain, bp),
+        "sweep_bf16_blockdiag": (sweep_gf.bf16_blockdiag,
+                                 sweep_gf.bf16_blockdiag_plain, bblk),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["sweep_bf16_4dot", "sweep_f32_4dot",
+                                    "sweep_bf16_blockdiag"])
+@pytest.mark.parametrize("k,m,n4,aligned", [
+    (8, 4, 4096, True),    # the sweep's code
+    (8, 4, 100003, True),  # ragged: no multiple of a warp's 32 lanes
+    (8, 4, 4096, False),   # a pointer off the 16-byte grid
+    (3, 2, 4099, False),   # K-steps half padded, one m-tile
+    (5, 3, 1000, True),    # k not a multiple of 4, half of the last m-tile
+    (8, 4, 1, True),       # one lane
+    (None, None, 777, True),  # the widest code the wrapper takes
+])
+def test_tensor_core_kernels_match_plain_versions(dev, kernel, k, m, n4,
+                                                   aligned):
+    if k is None:
+        k, m = {"sweep_bf16_4dot": (16, 4), "sweep_f32_4dot": (8, 4),
+                "sweep_bf16_blockdiag": (28, 4)}[kernel]
+    rs = np.random.RandomState(k * 1000 + n4)
+    d = _lanes(rs, k, n4, dev)
+    if not aligned:
+        d = _unaligned(d)
+    wrapper, plain, table = _tensor_core_cases(k, m, dev)[kernel]
+    assert torch.equal(wrapper(table, d, k, m), plain(table, d, k, m))
+
+
 @pytest.mark.parametrize("tile", [4, 1000, 3072])
 def test_pipelined_kernel_at_any_tile(dev, tile):
     # a tile smaller than a block's threads, one that is no multiple of
@@ -179,6 +219,8 @@ def test_sweep_wrappers_count_launches_and_refuse_mixed_devices(dev):
     sweep_gf.extract_rows(d, 2)
     sweep_gf.pipelined_w8(masks, d, 4, 2)
     sweep_gf.int8_4dot(bp, d, 4, 2)
+    for wrapper, _, table in _tensor_core_cases(4, 2, dev).values():
+        wrapper(table, d, 4, 2)
     assert all(sweep_gf.launches[n] == before[n] + 1 for n in before)
 
 

@@ -37,6 +37,20 @@ def _data(seed, k, n4=N4):
     return rs.randint(0, 256, (k, n4 * 4), dtype=np.uint8).view(np.int32)
 
 
+def _tables(bits, k, m):
+    """Tensor-core row -> (wrapper, plain version, its table on the CPU)."""
+    bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, k))
+    bblk = torch.from_numpy(sweep_gf.prep_blockdiag_w8(bits, k, m))
+    return {
+        "bf16_4dot": (sweep_gf.bf16_4dot, sweep_gf.bf16_4dot_plain,
+                      bp.to(torch.bfloat16)),
+        "f32_4dot": (sweep_gf.f32_4dot, sweep_gf.f32_4dot_plain, bp),
+        "bf16_blockdiag": (sweep_gf.bf16_blockdiag,
+                           sweep_gf.bf16_blockdiag_plain,
+                           bblk.to(torch.bfloat16)),
+    }
+
+
 def _production(bits, d32, k, m, tile=TILE):
     """The JAX package's production w=8 kernel (``_matrix_kernel``)."""
     Bp = jnp.asarray(pallas_gf.prep_matrix_w8(bits, k))
@@ -54,6 +68,20 @@ def test_prep_shift_major_matches_pallas_prep(k, m):
     theirs = pallas_gf.prep_matrix_w8(
         j_bitmatrix.matrix_to_bitmatrix(
             j_reed_sol.vandermonde_coding_matrix(k, m, 8), 8), k)
+    assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("k,m", [(8, 4), (3, 2)])
+def test_prep_blockdiag_matches_kernel_r4_table(k, m):
+    # kernel_r4.build_variants builds its table inline (:188-192); rebuilt
+    # here the same way from the JAX package's prep
+    Bp = pallas_gf.prep_matrix_w8(
+        j_bitmatrix.matrix_to_bitmatrix(
+            j_reed_sol.vandermonde_coding_matrix(k, m, 8), 8), k)
+    theirs = np.zeros((4 * m * 8, 4 * 8 * k), np.float32)
+    for b in range(4):
+        theirs[b * m * 8:(b + 1) * m * 8, b * 8 * k:(b + 1) * 8 * k] = Bp
+    ours = sweep_gf.prep_blockdiag_w8(_bits(k, m), k, m)
     assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
 
 
@@ -96,6 +124,30 @@ def test_int8_4dot_plain_pads_other_shapes(k, m, n4):
     bp = torch.from_numpy(
         sweep_gf.prep_shift_major_w8(bits, k).astype(np.int8))
     ours = sweep_gf.int8_4dot_plain(bp, torch.from_numpy(d32), k, m).numpy()
+    assert np.array_equal(ours, _production(bits, d32, k, m, 128))
+
+
+@pytest.mark.parametrize("row", ["bf16_4dot", "f32_4dot", "bf16_blockdiag"])
+def test_tensor_core_rows_match_kernel_r4_and_production(row):
+    bits, d32 = _bits(8, 4), _data(4, 8)
+    with pltpu.force_tpu_interpret_mode():
+        theirs = np.asarray(kernel_r4.build_variants(bits, TILE)[row](
+            jnp.asarray(d32)))
+    wrapper, plain, table = _tables(bits, 8, 4)[row]
+    x = torch.from_numpy(d32)
+    ours = wrapper(table, x, 8, 4).numpy()
+    assert np.array_equal(ours, theirs)
+    assert np.array_equal(plain(table, x, 8, 4).numpy(), theirs)
+    assert np.array_equal(ours, _production(bits, d32, 8, 4))
+
+
+@pytest.mark.parametrize("row", ["bf16_4dot", "f32_4dot", "bf16_blockdiag"])
+@pytest.mark.parametrize("k,m,n4", [(3, 2, 1000), (5, 3, 129)])
+def test_tensor_core_plain_versions_pad_other_shapes(row, k, m, n4):
+    # odd K-steps (k not a multiple of 4) and half an m-tile (odd m)
+    bits, d32 = _bits(k, m), _data(k + n4, k, n4)
+    _, plain, table = _tables(bits, k, m)[row]
+    ours = plain(table, torch.from_numpy(d32), k, m).numpy()
     assert np.array_equal(ours, _production(bits, d32, k, m, 128))
 
 
@@ -151,11 +203,51 @@ def test_sweep_wrappers_check_their_operands():
     assert sweep_gf.pipelined_w8(masks, d, 4, 2, tile=4).shape == (2, 16)
 
 
+def test_tensor_core_wrappers_check_their_operands():
+    tables = _tables(_bits(4, 2), 4, 2)
+    d = torch.zeros((4, 16), dtype=torch.int32)
+    for row, (wrapper, _, table) in tables.items():
+        with pytest.raises(TypeError):  # no kernel takes float16
+            wrapper(table.to(torch.float16), d, 4, 2)
+        with pytest.raises(ValueError):  # the table of another m
+            wrapper(table[:8].contiguous(), d, 4, 2)
+        with pytest.raises(ValueError):
+            wrapper(table, d[:3], 4, 2)
+        assert wrapper(table, d, 4, 2).shape == (2, 16), row
+
+    def zeros(rows, cols, dtype, k):
+        return (torch.zeros((rows, cols), dtype=dtype),
+                torch.zeros((k, 8), dtype=torch.int32))
+
+    # the register fragments: bf16 k <= 16 m <= 4, TF32 k <= 8 m <= 4; the
+    # block-diagonal accumulators m <= 4, its staged table <= 227 KiB
+    for wrapper, dtype, k, m in ((sweep_gf.bf16_4dot, torch.bfloat16, 17, 1),
+                                 (sweep_gf.bf16_4dot, torch.bfloat16, 4, 5),
+                                 (sweep_gf.f32_4dot, torch.float32, 9, 1),
+                                 (sweep_gf.f32_4dot, torch.float32, 4, 5)):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            wrapper(*zeros(8 * m, 8 * k, dtype, k), k, m)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        sweep_gf.bf16_blockdiag(*zeros(160, 128, torch.bfloat16, 4), 4, 5)
+    with pytest.raises(ValueError, match="bytes of table"):
+        sweep_gf.bf16_blockdiag(*zeros(128, 32 * 29, torch.bfloat16, 29), 29,
+                                4)
+    # the widest k of each, which the card tests run
+    assert sweep_gf.bf16_4dot(*zeros(32, 128, torch.bfloat16, 16), 16,
+                              4).shape == (4, 8)
+    assert sweep_gf.f32_4dot(*zeros(32, 64, torch.float32, 8), 8,
+                             4).shape == (4, 8)
+    assert sweep_gf.bf16_blockdiag(*zeros(128, 32 * 28, torch.bfloat16, 28),
+                                   28, 4).shape == (4, 8)
+
+
 def test_cpu_runs_plain_versions_without_counting_launches():
     before = dict(sweep_gf.launches)
     d = torch.from_numpy(_data(3, 4, 8))
     sweep_gf.copy_rows(d, 2)
     sweep_gf.extract_rows(d, 2)
+    for wrapper, _, table in _tables(_bits(4, 2), 4, 2).values():
+        wrapper(table, d, 4, 2)
     assert sweep_gf.launches == before
 
 
@@ -170,6 +262,22 @@ def test_bounds_of_the_sweep_shape():
         assert by == "bytes" and round(got, 4) == ms
     _, ops = ec_kernel_sweep.work("sweep_int8_4dot", 8, 4, n4)
     assert round(ec_kernel_sweep.bound_ms(0, ops)[0], 4) == 0.0174
+
+
+@pytest.mark.parametrize("kernel,table_bytes,ms", [
+    ("sweep_int8_4dot", 2048, 0.0300),
+    ("sweep_bf16_4dot", 4096, 0.0347),
+    ("sweep_f32_4dot", 8192, 0.0694),
+    # the function's operations, not the dense product's 4x
+    ("sweep_bf16_blockdiag", 65536, 0.0347),
+])
+def test_tensor_core_bounds_at_their_rates(kernel, table_bytes, ms):
+    got, by, nbytes, ops = ec_kernel_sweep.kernel_bound_ms(
+        kernel, 8, 4, 2097152, table_bytes)
+    assert ops == 2 * 4 * 32 * 64 * 2097152
+    assert nbytes == 12 * (8 << 20) + table_bytes
+    assert round(got, 4) == ms
+    assert by == ("bytes" if kernel == "sweep_int8_4dot" else "operations")
 
 
 # -- the port's tool -------------------------------------------------------------
@@ -193,9 +301,6 @@ def test_sweep_tool_defaults_to_the_card(monkeypatch):
 @pytest.mark.parametrize("argv", [
     ["--stage", "precision"],
     ["--stage", "variants,precision"],
-    ["--only", "bf16_4dot"],
-    ["--only", "f32_4dot"],
-    ["--only", "base,bf16_blockdiag"],
     ["--only", "xornet"],
     ["--stage", "nonesuch"],
     ["--only", "nonesuch"],
@@ -207,6 +312,20 @@ def test_sweep_tool_refuses_what_is_not_ported(argv, capsys):
     assert "bit-exact" not in captured.out
     if "nonesuch" not in argv and "--tile" not in argv:
         assert "ROADMAP.md" in captured.err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--only", "bf16_4dot"],
+    ["--only", "f32_4dot"],
+    ["--only", "base,bf16_blockdiag"],
+])
+def test_sweep_tool_runs_the_tensor_core_rows(argv, capsys):
+    assert ec_kernel_sweep.main(["--device", "cpu", "--size-mib", "1",
+                                 "--iters", "1", *argv]) == 0
+    out = capsys.readouterr().out
+    for row in argv[1].split(","):
+        assert f"{row:14s} bit-exact" in out
+    assert "MISMATCH" not in out
 
 
 def test_sweep_tool_exits_1_on_a_mismatch(monkeypatch, capsys):
