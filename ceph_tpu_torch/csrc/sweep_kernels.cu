@@ -15,6 +15,13 @@
 //                       (:52) with dtype float32
 //   sweep_bf16_blockdiag  replaces experiments/kernel_r4.py
 //                       _kernel_bf16_blockdiag (:100)
+//   sweep_prec_f32      replaces experiments/kernel_r4.py _kernel_prec (:315)
+//                       at precision HIGHEST
+//   sweep_prec_tf32x3   the same at precision HIGH
+//   sweep_prec_tf32     the same at precision DEFAULT
+//
+// (sweep_xornet, the sweep's static XOR network, is csrc/xornet_kernel.cu:
+// its network is generated per bitmatrix.)
 //
 // Each computes what its TPU kernel computes, not the way the TPU does it;
 // the note above each kernel says what bounds it on this card and what its
@@ -471,23 +478,19 @@ struct Tf32Op {
   }
 };
 
+// Bp's A fragments, loaded once and kept in registers for a whole walk:
+// register r of tile (mt, ks = H*jq + h) holds Bp row 16mt + g + 8(r & 1),
+// plane rows (s, j) = (P*h + E*(r >> 1) + e, t + 4jq) in element e; zero
+// past the 8m rows or the k inputs
 template <class Op, int JQ, int MS>
-__global__ void __launch_bounds__(kDotThreads)
-sweep_4dot_kernel(const uint32_t* __restrict__ x,
-                  const typename Op::Bits* __restrict__ bp,
-                  uint32_t* __restrict__ out, int k, int m, long long n4) {
+__device__ __forceinline__ void load_a_frags(
+    const typename Op::Bits* __restrict__ bp, int k, int m,
+    uint32_t (&a)[MS][JQ * (8 / Op::P)][4]) {
   constexpr int P = Op::P, H = 8 / P, KS = JQ * H;
   constexpr int E = P / 2, EB = 32 / E;  // elements a register, their bits
-  // output rows a thread packs: (lane / 8) + 4q for q < Q
-  constexpr int Q = (MS + 1) / 2;
   const int lane_id = threadIdx.x % 32;
   const int g = lane_id / 4, t = lane_id % 4;
   const int rows = 8 * m, depth = 8 * k;
-
-  // A fragment register r of tile (mt, ks = H*jq + h): Bp row 16mt + g +
-  // 8(r & 1), plane rows (s, j) = (P*h + E*(r >> 1) + e, t + 4jq) in
-  // element e
-  uint32_t a[MS][KS][4];
 #pragma unroll
   for (int mt = 0; mt < MS; ++mt)
 #pragma unroll
@@ -506,6 +509,41 @@ sweep_4dot_kernel(const uint32_t* __restrict__ x,
         }
         a[mt][ks][r] = word;
       }
+}
+
+// x[t + 4jq] of lanes lane0 + 8c + g, c < kDotGroups: column g of each
+// 8-lane group's B fragments (0 past n4 or k)
+template <int JQ>
+__device__ __forceinline__ void load_b_lanes(
+    const uint32_t* __restrict__ x, int k, long long n4, long long lane0,
+    uint32_t (&v)[kDotGroups][JQ]) {
+  const int lane_id = threadIdx.x % 32;
+  const int g = lane_id / 4, t = lane_id % 4;
+#pragma unroll
+  for (int c = 0; c < kDotGroups; ++c)
+#pragma unroll
+    for (int jq = 0; jq < JQ; ++jq) {
+      const long long lane = lane0 + 8 * c + g;
+      const int j = t + 4 * jq;
+      v[c][jq] = lane < n4 && j < k
+                     ? __ldg(x + static_cast<long long>(j) * n4 + lane)
+                     : 0u;
+    }
+}
+
+template <class Op, int JQ, int MS>
+__global__ void __launch_bounds__(kDotThreads)
+sweep_4dot_kernel(const uint32_t* __restrict__ x,
+                  const typename Op::Bits* __restrict__ bp,
+                  uint32_t* __restrict__ out, int k, int m, long long n4) {
+  constexpr int P = Op::P, H = 8 / P, KS = JQ * H;
+  constexpr int E = P / 2;  // elements a register
+  // output rows a thread packs: (lane / 8) + 4q for q < Q
+  constexpr int Q = (MS + 1) / 2;
+  const int lane_id = threadIdx.x % 32;
+
+  uint32_t a[MS][KS][4];
+  load_a_frags<Op, JQ, MS>(bp, k, m, a);
 
   const int my_n = lane_id % 8;  // lane within an 8-lane group
   const int my_t = my_n / 2, my_p = my_n % 2;
@@ -515,18 +553,8 @@ sweep_4dot_kernel(const uint32_t* __restrict__ x,
   for (long long span = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
        span < spans; span += warps) {
     const long long lane0 = span * kDotWarpLanes;
-    // x[t + 4jq] of lane lane0 + 8c + g: column g of group c's B fragments
     uint32_t v[kDotGroups][JQ];
-#pragma unroll
-    for (int c = 0; c < kDotGroups; ++c)
-#pragma unroll
-      for (int jq = 0; jq < JQ; ++jq) {
-        const long long lane = lane0 + 8 * c + g;
-        const int j = t + 4 * jq;
-        v[c][jq] = lane < n4 && j < k
-                       ? __ldg(x + static_cast<long long>(j) * n4 + lane)
-                       : 0u;
-      }
+    load_b_lanes<JQ>(x, k, n4, lane0, v);
 #pragma unroll
     for (int c = 0; c < kDotGroups; ++c) {
       uint32_t word[Q];
@@ -788,6 +816,281 @@ int launch_blockdiag(const void* x, const void* bblk, void* out, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// sweep_prec_f32, sweep_prec_tf32x3, sweep_prec_tf32: the production
+// product's field sums at three precisions (the sweep's precision stage)
+// ---------------------------------------------------------------------------
+//
+// Replace experiments/kernel_r4.py _kernel_prec (:315) as main_prec (:341)
+// runs it: pallas_gf._matrix_kernel's arithmetic with the dots' precision
+// exposed.  lo[s*k + j] = (x[j] >> s) & 0x00010001 and hi[s*k + j] =
+// (x[j] >> (8 + s)) & 0x00010001 as floats (0, 1, 65536, 65537: bit s of
+// bytes 0 and 2, or of bytes 1 and 3); accL = Bp @ lo, accH = Bp @ hi (Bp
+// the shift-major 0/1 float32 bitmatrix [8m, 8k]); z = accL + (accH << 8)
+// holds the four byte positions' counts in its four bytes; bit l of byte b
+// of output row i is bit 8b of z[8i + l].  Every count is at most 8k, so z
+// is exact wherever the planes are (sums <= 8k * 65537 < 2^24).
+//
+//   JAX precision  kernel             route on Hopper                exact?
+//   HIGHEST        sweep_prec_f32     FFMA on the CUDA cores         yes
+//   HIGH           sweep_prec_tf32x3  split TF32 on mma.sync         yes
+//   DEFAULT        sweep_prec_tf32    one TF32 pass on mma.sync      no
+//
+// sweep_prec_tf32 rounds each plane with cvt.rna.tf32.f32: 65537 = 0x10001
+// needs 17 significant bits, TF32 keeps 11, so it becomes 65536 and bytes 0
+// and 1 lose the count of that plane -- as the TPU's one bf16 pass at
+// DEFAULT does, which is why the JAX tool expects that row to MISMATCH.
+// sweep_prec_tf32x3 splits each plane b into b_big = cvt.rna(b) and b_small
+// = cvt.rna(b - b_big) and accumulates Bp * b_big + Bp * b_small in float32:
+// exact.  3xTF32's third pass, Bp_small * b_big, multiplies zeros here --
+// Bp is 0 or 1, exact in TF32 -- so the kernel skips it; the wrapper checks
+// on the host that the table holds only 0 and 1.
+//
+// The tile: the JAX BlockSpec width (4096 or 16384 lanes) is here the lanes
+// a block takes per step of its walk over a persistent grid (tiles i, i +
+// gridDim.x, ...), so both tiles run on as many blocks as fit on the card;
+// at 16384 and 2097152 lanes only 128 tiles exist, and 128 blocks work.
+//
+// Bound on the card: the function's 2 * 2 * 8m * 8k * n4 operations (two
+// products, a multiply-add counted twice) at the float32 rate of the CUDA
+// cores (67 TFLOP/s) for sweep_prec_f32, at the TF32 tensor-core rate (495
+// TFLOP/s) for the other two, or the (k + m) * n4 * 4 bytes at 3.35 TB/s,
+// whichever is longer: operations at k=8 m=4 for sweep_prec_f32 (0.2564
+// ms), operations for the TF32 kernels (0.0347 ms, bytes 0.0300).
+//
+// sweep_prec_f32 design: one thread per lane.  Bp sits in shared memory
+// transposed, [8k][8m] (row j*8 + s holds column s*k + j), so for input row
+// j and plane s the 8m coefficients are consecutive and every warp reads
+// them as broadcast 16-byte loads: one LDS.128 feeds 8 FFMA (4 rows, lo and
+// hi).  The thread keeps 16m float accumulators (8m each for accL and
+// accH), walks the k input rows with one coalesced 4-byte load each, and
+// turns each field into a float with an OR of 2^23's exponent and one FADD
+// (no I2F).  Shared memory: the widest table, 16 * 8 * 8m floats (32 KiB
+// at m = 8), static.
+//
+// sweep_prec_tf32x3 and sweep_prec_tf32 design: sweep_f32_4dot's (Tf32Op
+// m16n8k8, Bp's fragments in registers, one input lane a thread builds its
+// B fragments from), with two products in place of four: K-step (jq, h)
+// takes planes s = 2h and 2h + 1 of rows j = t + 4jq from bits 8*half + 2h
+// of the lane.  The epilogue differs: each accumulator carries four parity
+// bits (bit 8b of z), not one, so a ballot per register would take four
+// ballots and four 8-bit gathers.  Instead each thread converts its
+// accumulators (F2I), forms z & 0x01010101 at its own bit-row g (shifted
+// left by g), and three xor-shuffles across the 8 threads of equal t OR the
+// eight bit-rows of an output row together: the finished word, 3 shuffles
+// and 3 ORs a register.  Thread g < 4 of each quad column stores register
+// g's word (row 2mt + g/2, lane 2t + g%2).
+
+// float32 of the masked field bits u < 2^23, exactly: 2^23's exponent
+// ORed in gives 2^23 + u, and the FADD removes 2^23
+__device__ __forceinline__ float field_float(uint32_t u) {
+  return __uint_as_float(u | 0x4B000000u) - 8388608.0f;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// precision policies: a plane value -> the B operand of each mma pass
+struct PrecTf32 {  // DEFAULT: one pass, the plane rounded to TF32
+  static constexpr int kPasses = 1;
+  __device__ static void split(float v, uint32_t (&b)[kPasses]) {
+    b[0] = tf32_rna(v);
+  }
+};
+
+struct PrecTf32x3 {  // HIGH: b_big, then b_small (Bp_small is zero)
+  static constexpr int kPasses = 2;
+  __device__ static void split(float v, uint32_t (&b)[kPasses]) {
+    b[0] = tf32_rna(v);
+    b[1] = tf32_rna(v - __uint_as_float(b[0]));
+  }
+};
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+sweep_prec_f32_kernel(const uint32_t* __restrict__ x,
+                      const float* __restrict__ bp,
+                      uint32_t* __restrict__ out, int k, long long n4,
+                      int T) {
+  constexpr int R = 8 * M;  // bit-rows
+  __shared__ __align__(16) float sbp[16 * 8 * R];
+  const int depth = 8 * k;
+  for (int idx = threadIdx.x; idx < depth * R; idx += blockDim.x) {
+    const int col = idx / R, r = idx % R;  // col = j*8 + s
+    sbp[idx] = bp[r * depth + (col % 8) * k + col / 8];
+  }
+  __syncthreads();
+
+  const long long ntiles = (n4 + T - 1) / T;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long end = (tile + 1) * T < n4 ? (tile + 1) * T : n4;
+    for (long long lane = tile * T + threadIdx.x; lane < end;
+         lane += blockDim.x) {
+      float accL[R], accH[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) accL[r] = accH[r] = 0.0f;
+      for (int j = 0; j < k; ++j) {
+        const uint32_t v = __ldg(x + static_cast<long long>(j) * n4 + lane);
+        const float4* col = reinterpret_cast<const float4*>(sbp + j * 8 * R);
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          const float lo = field_float((v >> s) & 0x00010001u);
+          const float hi = field_float((v >> (8 + s)) & 0x00010001u);
+#pragma unroll
+          for (int q = 0; q < R / 4; ++q) {
+            const float4 b = col[s * (R / 4) + q];
+            accL[4 * q] = fmaf(b.x, lo, accL[4 * q]);
+            accL[4 * q + 1] = fmaf(b.y, lo, accL[4 * q + 1]);
+            accL[4 * q + 2] = fmaf(b.z, lo, accL[4 * q + 2]);
+            accL[4 * q + 3] = fmaf(b.w, lo, accL[4 * q + 3]);
+            accH[4 * q] = fmaf(b.x, hi, accH[4 * q]);
+            accH[4 * q + 1] = fmaf(b.y, hi, accH[4 * q + 1]);
+            accH[4 * q + 2] = fmaf(b.z, hi, accH[4 * q + 2]);
+            accH[4 * q + 3] = fmaf(b.w, hi, accH[4 * q + 3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        uint32_t word = 0u;
+#pragma unroll
+        for (int l = 0; l < 8; ++l) {
+          const uint32_t z = __float2uint_rn(accL[8 * i + l]) +
+                             (__float2uint_rn(accH[8 * i + l]) << 8);
+          word |= (z & 0x01010101u) << l;
+        }
+        out[static_cast<long long>(i) * n4 + lane] = word;
+      }
+    }
+  }
+}
+
+template <int M>
+int launch_prec_f32(const void* x, const void* bp, void* out, int k,
+                    long long n4, int T, cudaStream_t s) {
+  const long long ntiles = (n4 + T - 1) / T;
+  int blocks = 0;
+  const int rc = resident_blocks(sweep_prec_f32_kernel<M>, kThreads, 0,
+                                 ntiles, &blocks);
+  if (rc != 0) return rc;
+  sweep_prec_f32_kernel<M><<<blocks, kThreads, 0, s>>>(
+      static_cast<const uint32_t*>(x), static_cast<const float*>(bp),
+      static_cast<uint32_t*>(out), k, n4, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Prec, int JQ, int MS>
+__global__ void __launch_bounds__(kDotThreads)
+sweep_prec_tf32_kernel(const uint32_t* __restrict__ x,
+                       const uint32_t* __restrict__ bp,
+                       uint32_t* __restrict__ out, int k, int m,
+                       long long n4, int T) {
+  using Op = Tf32Op;
+  constexpr int H = 8 / Op::P, KS = JQ * H;
+  const int lane_id = threadIdx.x % 32;
+  const int g = lane_id / 4, t = lane_id % 4;
+
+  uint32_t a[MS][KS][4];
+  load_a_frags<Op, JQ, MS>(bp, k, m, a);
+
+  const long long ntiles = (n4 + T - 1) / T;
+  const int spans = T / kDotWarpLanes, warps = blockDim.x / 32;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    for (int sp = threadIdx.x / 32; sp < spans; sp += warps) {
+      const long long lane0 =
+          tile * T + static_cast<long long>(sp) * kDotWarpLanes;
+      if (lane0 >= n4) break;
+      uint32_t v[kDotGroups][JQ];
+      load_b_lanes<JQ>(x, k, n4, lane0, v);
+#pragma unroll
+      for (int c = 0; c < kDotGroups; ++c) {
+        float acc[2][MS][4] = {};
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const uint32_t bits = v[c][ks / H] >> (8 * half + 2 * (ks % H));
+            uint32_t b0[Prec::kPasses], b1[Prec::kPasses];
+            Prec::split(field_float(bits & 0x00010001u), b0);
+            Prec::split(field_float((bits >> 1) & 0x00010001u), b1);
+#pragma unroll
+            for (int pass = 0; pass < Prec::kPasses; ++pass)
+#pragma unroll
+              for (int mt = 0; mt < MS; ++mt)
+                Op::mma(acc[half][mt], a[mt][ks], b0[pass], b1[pass]);
+          }
+#pragma unroll
+        for (int mt = 0; mt < MS; ++mt) {
+          // word[2h + p]: output row 2mt + h, lane 2t + p of group c
+          uint32_t word[4];
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci) {
+            const uint32_t z = __float2uint_rn(acc[0][mt][ci]) +
+                               (__float2uint_rn(acc[1][mt][ci]) << 8);
+            uint32_t w = (z & 0x01010101u) << g;
+            w |= __shfl_xor_sync(0xffffffffu, w, 4);
+            w |= __shfl_xor_sync(0xffffffffu, w, 8);
+            w |= __shfl_xor_sync(0xffffffffu, w, 16);
+            word[ci] = w;
+          }
+          if (g < 4) {
+            const int row = 2 * mt + g / 2;
+            const long long lane = lane0 + 8 * c + 2 * t + g % 2;
+            const uint32_t mine = g == 0   ? word[0]
+                                  : g == 1 ? word[1]
+                                  : g == 2 ? word[2]
+                                           : word[3];
+            if (row < m && lane < n4)
+              out[static_cast<long long>(row) * n4 + lane] = mine;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <class Prec, int JQ, int MS>
+int launch_prec_tf32(const void* x, const void* bp, void* out, int k, int m,
+                     long long n4, int T, cudaStream_t s) {
+  const long long ntiles = (n4 + T - 1) / T;
+  int blocks = 0;
+  const int rc = resident_blocks(sweep_prec_tf32_kernel<Prec, JQ, MS>,
+                                 kDotThreads, 0, ntiles, &blocks);
+  if (rc != 0) return rc;
+  sweep_prec_tf32_kernel<Prec, JQ, MS><<<blocks, kDotThreads, 0, s>>>(
+      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(bp),
+      static_cast<uint32_t*>(out), k, m, n4, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance for ceil(k/4) = jq and ceil(m/2) = ms, or an error beyond
+// Tf32Op's limits (k <= 8, m <= 4)
+template <class Prec, int JQ = 1, int MS = 1>
+int dispatch_prec(int jq, int ms, const void* x, const void* bp, void* out,
+                  int k, int m, long long n4, int T, cudaStream_t s) {
+  if (jq == JQ && ms == MS)
+    return launch_prec_tf32<Prec, JQ, MS>(x, bp, out, k, m, n4, T, s);
+  if constexpr (MS < Tf32Op::kMaxMS)
+    return dispatch_prec<Prec, JQ, MS + 1>(jq, ms, x, bp, out, k, m, n4, T,
+                                           s);
+  else if constexpr (JQ < Tf32Op::kMaxJQ)
+    return dispatch_prec<Prec, JQ + 1, 1>(jq, ms, x, bp, out, k, m, n4, T,
+                                          s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class Prec>
+int run_prec_tf32(const void* x, const void* bp, void* out, int k, int m,
+                  long long n4, int T, void* stream) {
+  if (T <= 0 || T % kDotWarpLanes != 0 || k < 1 || m < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_prec<Prec>((k + 3) / 4, (m + 1) / 2, x, bp, out, k, m, n4,
+                             T, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -852,6 +1155,40 @@ int sweep_bf16_blockdiag(const void* x, const void* bblk, void* out, int k,
     case 4: return launch_blockdiag<4>(x, bblk, out, k, n4, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x [k, n4] lanes; bp [8m, 8k] float32 0/1, shift-major; out [m, n4]; T
+// lanes a block takes per step, a positive multiple of 32
+
+// HIGHEST: FFMA; k <= 16, m <= 8
+int sweep_prec_f32(const void* x, const void* bp, void* out, int k, int m,
+                   long long n4, int T, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T <= 0 || T % 32 != 0 || k < 1 || k > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (m) {
+    case 1: return launch_prec_f32<1>(x, bp, out, k, n4, T, s);
+    case 2: return launch_prec_f32<2>(x, bp, out, k, n4, T, s);
+    case 3: return launch_prec_f32<3>(x, bp, out, k, n4, T, s);
+    case 4: return launch_prec_f32<4>(x, bp, out, k, n4, T, s);
+    case 5: return launch_prec_f32<5>(x, bp, out, k, n4, T, s);
+    case 6: return launch_prec_f32<6>(x, bp, out, k, n4, T, s);
+    case 7: return launch_prec_f32<7>(x, bp, out, k, n4, T, s);
+    case 8: return launch_prec_f32<8>(x, bp, out, k, n4, T, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// HIGH: split TF32 (Bp must hold only 0 and 1); k <= 8, m <= 4
+int sweep_prec_tf32x3(const void* x, const void* bp, void* out, int k,
+                      int m, long long n4, int T, void* stream) {
+  return run_prec_tf32<PrecTf32x3>(x, bp, out, k, m, n4, T, stream);
+}
+
+// DEFAULT: one TF32 pass; k <= 8, m <= 4
+int sweep_prec_tf32(const void* x, const void* bp, void* out, int k, int m,
+                    long long n4, int T, void* stream) {
+  return run_prec_tf32<PrecTf32>(x, bp, out, k, m, n4, T, stream);
 }
 
 }  // extern "C"

@@ -34,7 +34,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,11 +64,18 @@ SMEM_LIMIT = 227 * 1024
 _GROUP_ROWS = {"gf2_matrix_w8": 8, "gf2_matrix_w16": 16, "gf2_packet": 8}
 
 _lib_lock = threading.Lock()
-#: source file name -> its loaded library
-_libs: Dict[str, ctypes.CDLL] = {}
-#: source file name -> nvcc's output (ptxas register and shared-memory
-#: report), kept beside each library as ``<library>.log``
+#: (source file name, build digest) -> its loaded library
+_libs: Dict[Tuple[str, str], ctypes.CDLL] = {}
+#: library file name -> nvcc's output (ptxas register, spill and
+#: shared-memory report), kept beside each library as ``<library>.log``
 build_logs: Dict[str, str] = {}
+#: a header generated for one build: (file name, text).  The source
+#: ``#include``\ s it; it is written to ``build/gen-<digest>/`` and that
+#: directory is passed to nvcc with ``-I``
+Generated = Optional[Tuple[str, str]]
+#: (source file name, generated header) -> its build digest, hashed once a
+#: process (a launch looks its library up here)
+_digests: Dict[Tuple[str, Generated], str] = {}
 #: argument types of the three entry points of ``gf_kernels.cu``
 _SIGNATURES = dict.fromkeys(launches, (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -96,56 +103,91 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(source: str = SOURCE.name) -> Path:
+def source_digest(source: str, generated: Generated = None) -> str:
+    """sha256 over ``csrc/<source>``, the generated header (name and text)
+    if there is one, and ``NVCC_FLAGS``: what a build depends on."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    if generated is not None:
+        name, text = generated
+        h.update(b"\0" + name.encode() + b"\0" + text.encode())
+    h.update(b"\0" + " ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def _write_once(path: Path, text: str) -> None:
+    """Write ``path`` unless it exists, atomically (builds may race)."""
+    if path.exists():
+        return
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(
+        f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
+def build(source: str = SOURCE.name, generated: Generated = None) -> Path:
     """Compile ``csrc/<source>`` into ``build/`` and return the library
-    path.  The library is keyed by the source's digest and the flags, so an
-    edited source rebuilds; builds of different sources may run at once."""
+    path.  The library is keyed by :func:`source_digest`, so an edited
+    source, another generated header or other flags rebuild; builds of
+    different sources may run at once.  A ``generated`` header is written
+    to ``build/gen-<digest>/`` and found there through ``-I``."""
     path = CSRC / source
-    src = path.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = source_digest(source, generated)
     lib = BUILD_DIR / f"lib{path.stem}-{digest[:16]}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         if log.exists():
-            build_logs[source] = log.read_text()
+            build_logs[lib.name] = log.read_text()
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    include = []
+    if generated is not None:
+        gen_dir = BUILD_DIR / f"gen-{digest}"
+        _write_once(gen_dir / generated[0], generated[1])
+        include = ["-I", str(gen_dir)]
     tmp = lib.with_name(
         f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(path)],
+        [_nvcc(), *NVCC_FLAGS, *include, "-o", str(tmp), str(path)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {path}:\n{proc.stderr}")
-    build_logs[source] = proc.stdout + proc.stderr
-    log.write_text(build_logs[source])
+    build_logs[lib.name] = proc.stdout + proc.stderr
+    log.write_text(build_logs[lib.name])
     os.replace(tmp, lib)
     return lib
 
 
-def load(source: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
-    """The library built from ``csrc/<source>``, loaded once per process,
-    with ``signatures`` (entry point -> ctypes argument types) applied;
-    every entry point returns a CUDA error code."""
+def load(source: str, signatures: Dict[str, tuple],
+         generated: Generated = None) -> ctypes.CDLL:
+    """The library built from ``csrc/<source>`` (and ``generated``),
+    loaded once per process and build digest, with ``signatures`` (entry
+    point -> ctypes argument types) applied; every entry point returns a
+    CUDA error code."""
     with _lib_lock:
-        lib = _libs.get(source)
+        digest = _digests.get((source, generated))
+        if digest is None:
+            digest = _digests[(source, generated)] = source_digest(
+                source, generated)
+        key = (source, digest)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
+            lib = ctypes.CDLL(str(build(source, generated)))
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
-            _libs[source] = lib
+            _libs[key] = lib
         return lib
 
 
 def launch(source: str, signatures: Dict[str, tuple],
            counts: Dict[str, int], name: str, device: torch.device,
-           *args) -> None:
-    """Launch entry point ``name`` of ``csrc/<source>`` with ``args`` on
-    ``device``'s current stream, raise on a CUDA error, and count the
-    launch in ``counts``."""
-    fn = getattr(load(source, signatures), name)
+           *args, generated: Generated = None) -> None:
+    """Launch entry point ``name`` of ``csrc/<source>`` (built with
+    ``generated``) with ``args`` on ``device``'s current stream, raise on a
+    CUDA error, and count the launch in ``counts``."""
+    fn = getattr(load(source, signatures, generated), name)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:

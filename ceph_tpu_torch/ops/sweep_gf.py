@@ -1,10 +1,9 @@
-"""The kernel sweep's seven kernels: wrappers, launch counters, plain twins.
+"""The kernel sweep's eleven kernels: wrappers, launch counters, plain twins.
 
 Port of the TPU kernels that ``tools/ec_kernel_sweep.py`` and
 ``experiments/kernel_r4.py`` time beside the production w=8 product.  Each
-has a counterpart written by hand in CUDA C++ for Hopper
-(``csrc/sweep_kernels.cu``, ``sm_90a``), built and loaded like the codec
-kernels (:func:`cuda_gf.load`):
+has a counterpart written by hand in CUDA C++ for Hopper (``sm_90a``),
+built and loaded like the codec kernels (:func:`cuda_gf.load`):
 
 ==================  ==============================================  =========
 wrapper             replaces                                        kernel
@@ -16,14 +15,24 @@ int8_4dot           kernel_r4._kernel_int8_4dot (:76)               sweep_int8_4
 bf16_4dot           kernel_r4._kernel_bf16_4dot (:52), bfloat16     sweep_bf16_4dot
 f32_4dot            kernel_r4._kernel_bf16_4dot (:52), float32      sweep_f32_4dot
 bf16_blockdiag      kernel_r4._kernel_bf16_blockdiag (:100)         sweep_bf16_blockdiag
+make_xornet(...)    kernel_r4._make_xornet_kernel (:129)            sweep_xornet
+prec_product        kernel_r4._kernel_prec (:315), HIGHEST          sweep_prec_f32
+prec_product        kernel_r4._kernel_prec (:315), HIGH             sweep_prec_tf32x3
+prec_product        kernel_r4._kernel_prec (:315), DEFAULT          sweep_prec_tf32
 ==================  ==============================================  =========
+
+``sweep_xornet`` lives in ``csrc/xornet_kernel.cu``, a frame that includes
+a network generated per bitmatrix (:func:`xornet_source`); the others in
+``csrc/sweep_kernels.cu``.
 
 Operands are int32 lanes of four little-endian bytes, ``[rows, n4]``, as in
 :mod:`cuda_gf`.  ``pipelined_w8`` takes the lane masks of
 ``cuda_gf.prep_matrix_w8``; ``int8_4dot``, ``bf16_4dot`` and ``f32_4dot``
 take the shift-major 0/1 bitmatrix of :func:`prep_shift_major_w8` in their
-product's operand type (int8, bfloat16, float32); ``bf16_blockdiag`` takes
-the block-diagonal table of :func:`prep_blockdiag_w8` as bfloat16.
+product's operand type (int8, bfloat16, float32), and ``prec_product``
+takes it as float32; ``bf16_blockdiag`` takes the block-diagonal table of
+:func:`prep_blockdiag_w8` as bfloat16; ``make_xornet`` takes the jerasure
+bitmatrix itself and compiles it into its kernel.
 
 A wrapper launches its kernel for a CUDA tensor, or raises; for a CPU
 tensor it runs the plain PyTorch version beside it (``*_plain``), in exact
@@ -33,6 +42,7 @@ integer or float64 arithmetic.  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Dict
 
 import numpy as np
@@ -47,7 +57,8 @@ SOURCE = "sweep_kernels.cu"
 launches: Dict[str, int] = {
     "sweep_copy": 0, "sweep_extract": 0, "sweep_pipelined_w8": 0,
     "sweep_int8_4dot": 0, "sweep_bf16_4dot": 0, "sweep_f32_4dot": 0,
-    "sweep_bf16_blockdiag": 0,
+    "sweep_bf16_blockdiag": 0, "sweep_xornet": 0, "sweep_prec_f32": 0,
+    "sweep_prec_tf32x3": 0, "sweep_prec_tf32": 0,
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -60,10 +71,36 @@ _SIGNATURES = {
     "sweep_bf16_4dot": (_P, _P, _P, _I, _I, _L, _P),
     "sweep_f32_4dot": (_P, _P, _P, _I, _I, _L, _P),
     "sweep_bf16_blockdiag": (_P, _P, _P, _I, _I, _L, _P),
+    "sweep_prec_f32": (_P, _P, _P, _I, _I, _L, _I, _P),
+    "sweep_prec_tf32x3": (_P, _P, _P, _I, _I, _L, _I, _P),
+    "sweep_prec_tf32": (_P, _P, _P, _I, _I, _L, _I, _P),
 }
 
-#: the fields the extraction probe keeps of each shifted lane
+#: the static XOR network's frame, and the header it includes
+XORNET_SOURCE = "xornet_kernel.cu"
+XORNET_HEADER = "xornet_net.h"
+_XORNET_SIGNATURES = {"sweep_xornet": (_P, _P, _L, _P)}
+#: the widest code whose network ``sweep_xornet`` builds: a thread keeps
+#: one lane of 4 lanes of each input row and the 8m accumulators in
+#: registers
+XORNET_MAX_K, XORNET_MAX_M = 16, 8
+
+#: JAX precision name -> the kernel that computes ``_kernel_prec`` at it
+PREC_KERNELS = {"HIGHEST": "sweep_prec_f32", "HIGH": "sweep_prec_tf32x3",
+                "DEFAULT": "sweep_prec_tf32"}
+#: precision kernel -> (the widest k, the widest m): the FFMA kernel keeps
+#: 16m accumulators a thread and stages Bp in shared memory; the TF32
+#: kernels keep Bp's fragments in registers as ``sweep_f32_4dot`` does
+PREC_LIMITS = {"sweep_prec_f32": (16, 8), "sweep_prec_tf32x3": (8, 4),
+               "sweep_prec_tf32": (8, 4)}
+#: the JAX tool's tiles (``main_prec``): lanes a block takes per step
+PREC_TILES = (4096, 16384)
+
+#: the fields the extraction probe and the precision product keep of each
+#: shifted lane
 _FIELDS = 0x00010001
+#: bit 0 of each byte of a lane: one bit plane of the XOR network
+_BYTE_BIT0 = 0x01010101
 #: lanes per stage of ``pipelined_w8`` unless the caller picks another
 DEFAULT_TILE = 1024
 #: single-plane product kernel -> (its table's dtype, the widest k, the
@@ -113,6 +150,51 @@ def prep_blockdiag_w8(bitmatrix: np.ndarray, k: int, m: int) -> np.ndarray:
     for b in range(cuda_gf.LANE_BYTES):
         blk[b * 8 * m:(b + 1) * 8 * m, b * 8 * k:(b + 1) * 8 * k] = bp
     return blk
+
+
+def _support(bitmatrix: np.ndarray, k: int, m: int) -> np.ndarray:
+    """[8m, 8k] 0/1 bool of a w=8 jerasure bitmatrix (column j*8 + s is
+    bit s of input row j), or ValueError."""
+    bits = np.asarray(bitmatrix)
+    if bits.shape != (8 * m, 8 * k):
+        raise ValueError(f"bitmatrix {bits.shape} does not fit k={k} m={m} "
+                         f"w=8 ({8 * m}, {8 * k})")
+    if not np.isin(bits, (0, 1)).all():
+        raise ValueError("bitmatrix entries must be 0 or 1")
+    return bits.astype(bool)
+
+
+def xornet_source(bitmatrix: np.ndarray, k: int, m: int) -> str:
+    """The header ``csrc/xornet_kernel.cu`` includes for one [8m, 8k]
+    bitmatrix: ``XORNET_K``, ``XORNET_M`` and ``xornet_network``, the
+    static XOR network as straight-line statements, input-major: for each
+    input row j and each bit s that some bit-row uses, the plane
+    ``(x[j] >> s) & 0x01010101`` XORed into those bit-rows' accumulators.
+    Deterministic: the same bitmatrix gives the same text (and library)."""
+    B = _support(bitmatrix, k, m)
+    lines = [
+        "// Generated by ceph_tpu_torch.ops.sweep_gf.xornet_source from one",
+        f"// [{8 * m}, {8 * k}] w=8 bitmatrix ({int(B.sum())} ones); the "
+        "static XOR",
+        "// network that csrc/xornet_kernel.cu runs.  Do not edit.",
+        "#pragma once",
+        f"#define XORNET_K {k}",
+        f"#define XORNET_M {m}",
+        "__device__ __forceinline__ void xornet_network(",
+        "    const uint32_t (&x)[XORNET_K], uint32_t (&z)[8 * XORNET_M]) {",
+    ]
+    body = []
+    for j in range(k):
+        for s in range(8):
+            rows = np.flatnonzero(B[:, j * 8 + s])
+            if rows.size:
+                body.append(f"  q = (x[{j}] >> {s}) & 0x01010101u;")
+                body.append("  " + " ".join(f"z[{r}] ^= q;" for r in rows))
+    if body:
+        lines += ["  uint32_t q;", *body]
+    else:
+        lines.append("  (void)x; (void)z;")
+    return "\n".join([*lines, "}", ""])
 
 
 def blockdiag_smem_bytes(k: int, m: int) -> int:
@@ -191,6 +273,60 @@ def bf16_blockdiag_plain(bblk: torch.Tensor, x: torch.Tensor,
     planes = torch.cat([_planes(x, b) for b in range(cuda_gf.LANE_BYTES)])
     acc = bblk.to(torch.float64) @ planes
     return _pack_parity(acc.view(4, 8 * m, x.shape[1]), m)
+
+
+def xornet_plain(bitmatrix: np.ndarray, x: torch.Tensor, k: int,
+                 m: int) -> torch.Tensor:
+    """Bit-row (i, l) = XOR over the support (j, s) of bitmatrix row 8i +
+    l of the planes (x[j] >> s) & 0x01010101; output row i = OR over l of
+    bit-row (i, l) << l.  Int32 throughout, one plane at a time."""
+    B = _support(bitmatrix, k, m)
+    out = torch.zeros((m, x.shape[1]), dtype=torch.int32, device=x.device)
+    for i in range(m):
+        for l in range(8):
+            z = torch.zeros_like(out[0])
+            for col in np.flatnonzero(B[8 * i + l]):
+                j, s = divmod(int(col), 8)
+                z ^= (x[j] >> s) & _BYTE_BIT0
+            out[i] |= z << l
+    return out
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds: 65537 -> 65536."""
+    bits = v.to(torch.float32).view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def prec_plain(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
+               precision: str) -> torch.Tensor:
+    """``_kernel_prec``'s function: planes lo[s*k + j] = (x[j] >> s) &
+    0x00010001 and hi[s*k + j] = (x[j] >> (8 + s)) & 0x00010001 (values 0,
+    1, 65536, 65537), accL = bp @ lo, accH = bp @ hi, z = accL + (accH <<
+    8), bit l of byte b of output row i = bit 8b of z[8i + l].  In float64;
+    at ``"DEFAULT"`` the planes are first rounded to TF32 (one pass of a
+    reduced-precision product: 65537 becomes 65536), at ``"HIGHEST"`` and
+    ``"HIGH"`` they stay exact."""
+    if precision not in PREC_KERNELS:
+        raise ValueError(f"precision {precision!r} is not one of "
+                         f"{', '.join(PREC_KERNELS)}")
+    shifts = torch.arange(8, dtype=torch.int32, device=x.device).view(8, 1, 1)
+    B = bp.to(torch.float64)
+    acc = []
+    for base in (0, 8):
+        planes = ((x.unsqueeze(0) >> (base + shifts)) & _FIELDS).reshape(
+            8 * k, x.shape[1]).to(torch.float32)
+        if precision == "DEFAULT":
+            planes = _tf32_rna(planes)
+        # sums <= 8k * 65537 < 2^24 (k <= 16): exact in float32 too; z
+        # is wanted mod 2^32, where each byte holds one field's count
+        acc.append((B @ planes.to(torch.float64)).to(torch.int32))
+    pb = ((acc[0] + (acc[1] << 8)) & _BYTE_BIT0).view(m, 8, x.shape[1])
+    out = torch.zeros((m, x.shape[1]), dtype=torch.int32, device=x.device)
+    for l in range(8):
+        out |= pb[:, l] << l
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -344,3 +480,82 @@ def bf16_blockdiag(bblk: torch.Tensor, x: torch.Tensor, k: int,
         raise ValueError(f"{name}: k={k} m={m} stages {smem} bytes of "
                          f"table, over {cuda_gf.SMEM_LIMIT}")
     return _dot_run(name, device, bblk, x, k, m, bf16_blockdiag_plain)
+
+
+def make_xornet(bitmatrix: np.ndarray, k: int, m: int):
+    """The static XOR network of one [8m, 8k] w=8 jerasure bitmatrix:
+    ``fn(x)`` maps lanes [k, n4] int32 to parity lanes [m, n4].  On a CUDA
+    tensor it launches ``sweep_xornet`` from the library built for this
+    bitmatrix (:func:`xornet_source`; built at first use, one library per
+    bitmatrix); on a CPU tensor it runs :func:`xornet_plain`."""
+    name = "sweep_xornet"
+    if not (1 <= k <= XORNET_MAX_K and 1 <= m <= XORNET_MAX_M):
+        raise ValueError(f"{name}: k={k} m={m}; the network is built for "
+                         f"k <= {XORNET_MAX_K} and m <= {XORNET_MAX_M}")
+    bits = _support(bitmatrix, k, m).astype(np.uint8)
+    generated = (XORNET_HEADER, xornet_source(bits, k, m))
+
+    def xornet(x: torch.Tensor) -> torch.Tensor:
+        device = _check(name, lanes=(x, torch.int32))
+        if x.shape[0] != k:
+            raise ValueError(f"{name}: lanes {tuple(x.shape)} do not fit "
+                             f"k={k}")
+        if device.type == "cpu":
+            return xornet_plain(bits, x, k, m)
+        out = torch.empty((m, x.shape[1]), dtype=torch.int32, device=device)
+        if x.shape[1]:
+            cuda_gf.launch(XORNET_SOURCE, _XORNET_SIGNATURES, launches, name,
+                           device, x.data_ptr(), out.data_ptr(), x.shape[1],
+                           generated=generated)
+        return out
+
+    xornet.generated = generated
+    return xornet
+
+
+#: id of a float32 table found to hold only 0 and 1 -> (a weak reference
+#: to it, its version then): checked once, outside any CUDA graph capture
+_binary_tables: Dict[int, tuple] = {}
+
+
+def _check_binary(name: str, bp: torch.Tensor) -> None:
+    """Raise unless ``bp`` holds only 0 and 1, which the TF32 kernels need
+    (Bp exact in TF32, so the split product may skip Bp_small).  Read on
+    the host once per table and version."""
+    seen = _binary_tables.get(id(bp))
+    if seen is not None and seen[0]() is bp and seen[1] == bp._version:
+        return
+    if not bool(((bp == 0) | (bp == 1)).all()):
+        raise ValueError(f"{name}: the table must hold only 0 and 1")
+    _binary_tables[id(bp)] = (weakref.ref(bp), bp._version)
+
+
+def prec_product(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
+                 precision: str, tile: int = PREC_TILES[0]) -> torch.Tensor:
+    """bp [8m, 8k] float32 0/1 (``prep_shift_major_w8``) x lanes [k, n4] ->
+    parity lanes [m, n4]: ``_kernel_prec``'s field-sum product at JAX
+    ``precision`` "HIGHEST" (``sweep_prec_f32``, FFMA), "HIGH"
+    (``sweep_prec_tf32x3``, split TF32) or "DEFAULT" (``sweep_prec_tf32``,
+    one TF32 pass, which rounds the plane value 65537 to 65536 as the TPU's
+    one bf16 pass does).  A block takes ``tile`` lanes (a positive multiple
+    of 32) per step of its walk."""
+    if precision not in PREC_KERNELS:
+        raise ValueError(f"precision {precision!r} is not one of "
+                         f"{', '.join(PREC_KERNELS)}")
+    name = PREC_KERNELS[precision]
+    device = _dot_operands(name, bp, torch.float32, (8 * m, 8 * k), x, k, m)
+    max_k, max_m = PREC_LIMITS[name]
+    if not (1 <= k <= max_k and 1 <= m <= max_m):
+        raise ValueError(f"{name}: k={k} m={m}; the kernel takes "
+                         f"k <= {max_k} and m <= {max_m}")
+    if tile <= 0 or tile % 32:
+        raise ValueError(f"{name}: tile {tile} is not a positive multiple "
+                         "of 32 lanes")
+    _check_binary(name, bp)
+    if device.type == "cpu":
+        return prec_plain(bp, x, k, m, precision)
+    out = torch.empty((m, x.shape[1]), dtype=torch.int32, device=device)
+    if x.shape[1]:
+        _launch(name, device, x.data_ptr(), bp.data_ptr(), out.data_ptr(),
+                k, m, x.shape[1], tile)
+    return out

@@ -12,8 +12,19 @@ reed_sol_van k=8 m=4 w=8 over ``--size-mib`` MiB chunks (lanes
             types: int8_4dot (``sweep_int8_4dot``), bf16_4dot
             (``sweep_bf16_4dot``) and f32_4dot (``sweep_f32_4dot``, TF32);
             bf16_blockdiag (``sweep_bf16_blockdiag``: one dense bf16
-            product with the block-diagonal [32m, 32k] table); each gated
-            against ``gf2_matrix_w8``'s output
+            product with the block-diagonal [32m, 32k] table); xornet
+            (``sweep_xornet``: a static XOR network with the bitmatrix
+            compiled in, built once per bitmatrix); each gated against
+            ``gf2_matrix_w8``'s output
+  precision the production product's f32 field sums (``_kernel_prec``)
+            at JAX precision HIGHEST (``sweep_prec_f32``, FFMA), HIGH
+            (``sweep_prec_tf32x3``, split TF32) and DEFAULT
+            (``sweep_prec_tf32``, one TF32 pass), each at tile 4096 and
+            16384 (lanes a block takes per step); each row is gated against
+            its own plain version (``prec_plain``), then compared with
+            ``gf2_matrix_w8``: HIGHEST and HIGH must be bit-exact, DEFAULT
+            is expected to MISMATCH (one reduced-precision pass rounds the
+            plane value 65537 to 65536, as the TPU's one bf16 pass does)
   split     copy_control (``sweep_copy``: rows < m copied) and
             extract_only (``sweep_extract``: the bit-plane extraction
             alone), each gated against its plain PyTorch version
@@ -21,21 +32,21 @@ reed_sol_van k=8 m=4 w=8 over ``--size-mib`` MiB chunks (lanes
 Each row prints the payload rate (k * chunk bytes over the mean time,
 GiB/s, the JAX tool's unit), the mean ms, the least time an H100 SXM could
 take for the same work (bytes, or the product's operations at its
-operand type's tensor-core rate) and the share of it reached.  Times are
+operand type's rate) and the share of it reached.  Times are
 CUDA events around ``--iters`` back-to-back launches (one CUDA graph)
 after one warm launch; at the default 8 MiB the 64 MiB input is larger
 than the card's 50 MB L2.
 
 Run:
     python -m ceph_tpu_torch.tools.ec_kernel_sweep [--size-mib 8]
-        [--iters 512] [--tile 1024] [--stage variants,split]
+        [--iters 512] [--tile 1024] [--stage variants,precision,split]
         [--only base,pipelined] [--device cuda]
 
 The card is the default and the tool raises without one.  ``--device cpu``
 runs the plain versions at a shrunk size and says that its numbers are
-not the card's.  The JAX tool's ``precision`` stage and its xornet
-variant are not ported yet (ROADMAP.md, queue 2): naming one exits with
-code 2.  A variant that differs from its oracle exits with code 1.
+not the card's.  A row that differs from its oracle exits with code 1 (a
+DEFAULT precision row only if it differs from its own plain version); an
+unknown stage or row, or a bad ``--tile``, exits with code 2.
 """
 
 from __future__ import annotations
@@ -54,19 +65,28 @@ from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 
 K, M, W = 8, 4, 8
 
-#: H100 SXM published rates (NVIDIA data sheet; dense tensor-core rates)
-#: at the 700 W limit
+#: H100 SXM published rates (NVIDIA data sheet; dense tensor-core rates,
+#: and float32 on the CUDA cores) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
 TF32_OPS_PER_S = 495e12
-#: tensor-core kernel -> (its operand type, the card's rate for it)
-TENSOR_OPS = {
+FP32_OPS_PER_S = 67e12
+#: product kernel -> (its operand type, the card's rate for it)
+OP_RATES = {
     "sweep_int8_4dot": ("int8", INT8_OPS_PER_S),
     "sweep_bf16_4dot": ("bf16", BF16_OPS_PER_S),
     "sweep_f32_4dot": ("tf32", TF32_OPS_PER_S),
     "sweep_bf16_blockdiag": ("bf16", BF16_OPS_PER_S),
+    "sweep_prec_f32": ("fp32", FP32_OPS_PER_S),
+    "sweep_prec_tf32x3": ("tf32", TF32_OPS_PER_S),
+    "sweep_prec_tf32": ("tf32", TF32_OPS_PER_S),
 }
+#: [8m, 8k] x [8k, n4] products the function of each product kernel needs:
+#: one per byte position, or lo and hi field planes
+PRODUCTS = {**dict.fromkeys(("sweep_int8_4dot", "sweep_bf16_4dot",
+                             "sweep_f32_4dot", "sweep_bf16_blockdiag"), 4),
+            **dict.fromkeys(sweep_gf.PREC_KERNELS.values(), 2)}
 
 #: chunk bytes of a ``--device cpu`` run, whatever ``--size-mib`` says
 CPU_CHUNK = 256 << 10
@@ -75,25 +95,28 @@ CPU_CHUNK = 256 << 10
 VARIANTS = {"base": "gf2_matrix_w8", "pipelined": "sweep_pipelined_w8",
             "int8_4dot": "sweep_int8_4dot", "bf16_4dot": "sweep_bf16_4dot",
             "f32_4dot": "sweep_f32_4dot",
-            "bf16_blockdiag": "sweep_bf16_blockdiag"}
+            "bf16_blockdiag": "sweep_bf16_blockdiag", "xornet": "sweep_xornet"}
 PROBES = {"copy_control": "sweep_copy", "extract_only": "sweep_extract"}
-STAGES = ("variants", "split")
-#: names of the JAX tool that have no kernel on the card yet
-NOT_PORTED = ("precision", "xornet")
+#: precision stage rows, in the JAX tool's order: (precision, tile)
+PRECISION_ROWS = tuple((p, t) for p in sweep_gf.PREC_KERNELS
+                       for t in sweep_gf.PREC_TILES)
+STAGES = ("variants", "precision", "split")
 
 
 def work(kernel: str, k: int, m: int, n4: int,
          table_bytes: int = 0) -> tuple[int, int]:
-    """(bytes, tensor-core operations) one call of ``kernel`` must move and
-    do over lanes [k, n4]: each input byte read once, each output byte
-    written once; for a tensor-core kernel, the operations the function
-    needs, four [8m, 8k] x [8k, n4] products with each multiply-add
+    """(bytes, operations) one call of ``kernel`` must move and do over
+    lanes [k, n4]: each input byte read once, each output byte written
+    once; for a product kernel, the operations the function needs, its
+    ``PRODUCTS`` [8m, 8k] x [8k, n4] products with each multiply-add
     counted twice, whatever more a kernel chooses to do (the block-diagonal
-    product's zero blocks)."""
+    product's zero blocks).  The bit-sliced kernels and the XOR network
+    count no operations: the data sheet gives no rate for bitwise integer
+    work."""
     lane_row = n4 * cuda_gf.LANE_BYTES
     if kernel in ("sweep_copy", "sweep_extract"):
         return 2 * m * lane_row, 0
-    ops = 2 * 4 * (8 * m) * (8 * k) * n4 if kernel in TENSOR_OPS else 0
+    ops = 2 * PRODUCTS.get(kernel, 0) * (8 * m) * (8 * k) * n4
     return (k + m) * lane_row + table_bytes, ops
 
 
@@ -101,7 +124,7 @@ def bound_ms(nbytes: int, ops: int = 0,
              ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
     """Least time on an H100 SXM, ms, and what sets it ("bytes" or
     "operations"): the larger of bytes over the memory rate and operations
-    over the tensor cores' rate for their type (int8 unless named)."""
+    over the card's rate for their type (int8 tensor cores unless named)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / ops_per_s * 1e3
     return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
@@ -112,7 +135,7 @@ def kernel_bound_ms(kernel: str, k: int, m: int, n4: int,
     """(bound ms, what sets it, bytes, operations) of one call of
     ``kernel``, its operations priced at its operand type's rate."""
     nbytes, ops = work(kernel, k, m, n4, table_bytes)
-    rate = TENSOR_OPS.get(kernel, ("int8", INT8_OPS_PER_S))[1]
+    rate = OP_RATES.get(kernel, ("int8", INT8_OPS_PER_S))[1]
     return (*bound_ms(nbytes, ops, rate), nbytes, ops)
 
 
@@ -157,12 +180,11 @@ def _parse(argv):
                          "kernel (a multiple of 4)")
     ap.add_argument("--stage", default=",".join(STAGES),
                     help=f"comma-separated stages (default all: "
-                         f"{', '.join(STAGES)}); the JAX tool's precision "
-                         "stage is not ported yet")
+                         f"{', '.join(STAGES)})")
     ap.add_argument("--only", default="",
-                    help=f"comma-separated rows to run (default all: "
-                         f"{', '.join([*VARIANTS, *PROBES])}); the JAX "
-                         "tool's xornet row is not ported yet")
+                    help=f"comma-separated variant and probe rows to run "
+                         f"(default all: {', '.join([*VARIANTS, *PROBES])}); "
+                         "naming any skips the precision stage")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions, smoke "
                          "test only)")
@@ -170,10 +192,6 @@ def _parse(argv):
 
 
 def _refused(stages, only, tile) -> str:
-    for name in stages + only:
-        if name in NOT_PORTED:
-            return (f"{name!r} has no kernel on the card yet; ROADMAP.md, "
-                    "queue 2 lists it")
     for name in stages:
         if name not in STAGES:
             return f"no stage {name!r} (stages: {', '.join(STAGES)})"
@@ -186,6 +204,26 @@ def _refused(stages, only, tile) -> str:
         return (f"--tile {tile} is not a positive multiple of 4 whose two "
                 "stages fit in shared memory")
     return ""
+
+
+def _precision_row(prec, tile, bp32, d32, plain, ref, timed) -> int:
+    """One row of the precision stage: the kernel against its plain
+    version (a difference exits 1), then against ``gf2_matrix_w8`` (a
+    difference exits 1 at HIGHEST and HIGH; at DEFAULT it is the expected
+    result), then timed."""
+    label = f"{'prec=' + prec:12s} {'tile=' + str(tile):10s}"
+    kernel = sweep_gf.PREC_KERNELS[prec]
+
+    def fn():
+        return sweep_gf.prec_product(bp32, d32, K, M, prec, tile)
+
+    if not torch.equal(fn(), plain):
+        print(f"{label} {kernel} differs from prec_plain", flush=True)
+        return 1
+    exact = torch.equal(plain, ref)
+    timed(label, "bit-exact" if exact else "MISMATCH ", kernel, fn,
+          bp32.nbytes)
+    return 0 if exact or prec == "DEFAULT" else 1
 
 
 def main(argv=None) -> int:
@@ -217,27 +255,30 @@ def main(argv=None) -> int:
     bp16 = bp32.to(torch.bfloat16)
     bblk = torch.from_numpy(sweep_gf.prep_blockdiag_w8(bits, K, M)).to(
         device, torch.bfloat16)
+    xornet = sweep_gf.make_xornet(bits, K, M)
     # row -> its coding table, made once outside the timed calls
     tables = {"base": masks, "pipelined": masks, "int8_4dot": bp,
               "bf16_4dot": bp16, "f32_4dot": bp32, "bf16_blockdiag": bblk}
     print(f"reed_sol_van k={K} m={M} w={W}, lanes [{K}, {n4}], "
           f"{args.iters} iters, tile {args.tile}", flush=True)
 
-    def row(name, fn, want, oracle) -> int:
-        if not torch.equal(fn(), want):
-            print(f"{name:14s} MISMATCH against {oracle}", flush=True)
-            return 1
-        kernel = {**VARIANTS, **PROBES}[name]
-        table = tables.get(name)
-        bound, by, _, _ = kernel_bound_ms(kernel, K, M, n4,
-                                          0 if table is None else table.nbytes)
+    def timed(label, verdict, kernel, fn, table_bytes) -> None:
+        bound, by, _, _ = kernel_bound_ms(kernel, K, M, n4, table_bytes)
         ms = time_ms(fn, args.iters, device)
         gibs = data_np.nbytes / (ms / 1e3) / 2**30
         # the bound is the card's: a CPU row does not stand beside it
         against = (f"  bound {bound:.4f} ms ({by})  {bound / ms:7.1%} of "
                    "bound" if on_card else "  (cpu)")
-        print(f"{name:14s} bit-exact {gibs:9.2f} GiB/s  {ms:.4f} ms{against}",
+        print(f"{label} {verdict} {gibs:9.2f} GiB/s  {ms:.4f} ms{against}",
               flush=True)
+
+    def row(name, fn, want, oracle) -> int:
+        if not torch.equal(fn(), want):
+            print(f"{name:14s} MISMATCH against {oracle}", flush=True)
+            return 1
+        table = tables.get(name)
+        timed(f"{name:14s}", "bit-exact", {**VARIANTS, **PROBES}[name], fn,
+              0 if table is None else table.nbytes)
         return 0
 
     rc = 0
@@ -255,10 +296,20 @@ def main(argv=None) -> int:
             "f32_4dot": lambda: sweep_gf.f32_4dot(bp32, d32, K, M),
             "bf16_blockdiag": lambda: sweep_gf.bf16_blockdiag(bblk, d32, K,
                                                               M),
+            "xornet": lambda: xornet(d32),
         }
         for name, fn in calls.items():
             if name in keep:
                 rc |= row(name, fn, ref, "gf2_matrix_w8")
+    if "precision" in stages and not only:
+        print("== precision x tile (gated against prec_plain, then compared "
+              "with gf2_matrix_w8) ==", flush=True)
+        ref = cuda_gf.matrix_encode_w8(masks, d32, K, M)
+        for prec in sweep_gf.PREC_KERNELS:
+            plain = sweep_gf.prec_plain(bp32, d32, K, M, prec)
+            for tile in sweep_gf.PREC_TILES:
+                rc |= _precision_row(prec, tile, bp32, d32, plain, ref, timed)
+            del plain
     if "split" in stages and keep & set(PROBES):
         print("== split-cost probes (gated against their plain versions) ==",
               flush=True)

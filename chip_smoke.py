@@ -22,14 +22,20 @@ Phases (any failure raises and exits non-zero):
    rise during its profile.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased).
-5. The kernel sweep's seven kernels (``csrc/sweep_kernels.cu``) against
-   their plain versions at the sweep's shape, lanes [8, 2097152], and at a
-   ragged one; then the port's kernel sweep (``ec_kernel_sweep.main``) at
-   8 MiB chunks, which must exit 0 with every row bit-exact.  These seven
-   kernels' launches are counted during the sweep.
+5. The kernel sweep's eleven kernels (``csrc/sweep_kernels.cu`` and
+   ``csrc/xornet_kernel.cu``) against their plain versions at the sweep's
+   shape, lanes [8, 2097152], and at a ragged one: ``sweep_xornet`` for
+   reed_sol_van and for cauchy_good k=8 m=4 (a second library, built for
+   that bitmatrix), the three ``sweep_prec_*`` kernels at tiles 4096 and
+   16384.  Then the port's kernel sweep (``ec_kernel_sweep.main``, all
+   three stages) at 8 MiB chunks, which must exit 0 with every variant
+   and probe row bit-exact, the HIGHEST and HIGH precision rows bit-exact
+   and the DEFAULT rows MISMATCH.  These eleven kernels' launches are
+   counted during the sweep.
 
-Both kernel sources build at once, one ``nvcc`` each.  It prints the
-``kernels`` JSON line and, last, the device line.
+The kernel sources build at once, one ``nvcc`` each (the XOR network's for
+reed_sol_van k=8 m=4).  It prints the ``kernels`` JSON line and, last, the
+device line.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ceph_tpu_torch.matrices import reed_sol
+from ceph_tpu_torch.matrices import cauchy, reed_sol
 from ceph_tpu_torch.matrices.bitmatrix import matrix_to_bitmatrix
 from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 from ceph_tpu_torch.ops.pipeline import DeviceStream
@@ -86,7 +92,12 @@ SWEEP_REPLACES = {
     "sweep_bf16_4dot": "experiments/kernel_r4.py:52",
     "sweep_f32_4dot": "experiments/kernel_r4.py:52",
     "sweep_bf16_blockdiag": "experiments/kernel_r4.py:100",
+    "sweep_xornet": "experiments/kernel_r4.py:129",
+    "sweep_prec_f32": "experiments/kernel_r4.py:315",
+    "sweep_prec_tf32x3": "experiments/kernel_r4.py:315",
+    "sweep_prec_tf32": "experiments/kernel_r4.py:315",
 }
+XORNET_SOURCE_PATH = "ceph_tpu_torch/csrc/xornet_kernel.cu"
 #: why a sweep kernel has no library call to time beside it
 _PRODUCT = "no single PyTorch call computes extraction + product + parity"
 NO_LIBRARY = {
@@ -95,7 +106,10 @@ NO_LIBRARY = {
     "sweep_pipelined_w8": "no single PyTorch call computes a GF(2) "
                           "bitmatrix product",
     **dict.fromkeys(("sweep_int8_4dot", "sweep_bf16_4dot", "sweep_f32_4dot",
-                     "sweep_bf16_blockdiag"), _PRODUCT),
+                     "sweep_bf16_blockdiag", "sweep_prec_f32",
+                     "sweep_prec_tf32x3", "sweep_prec_tf32"), _PRODUCT),
+    "sweep_xornet": "no single PyTorch call computes a GF(2) bitmatrix "
+                    "product",
 }
 #: lanes per row: the sweep's 8 MiB chunks, and a ragged width that is no
 #: multiple of 4 lanes, of the pipelined tile or of a warp's 32 int8 lanes
@@ -212,11 +226,16 @@ def phase_kernels(reg, dev, gen, flush) -> dict:
     return results
 
 
+def _sweep_bits():
+    return matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, 8), 8)
+
+
 def _sweep_cases(dev):
     """name -> (kernel, plain version, library call or None, bytes of its
     coding table) over lanes x, for reed_sol_van k=8 m=4 w=8 as the sweep
-    runs it."""
-    bits = matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, 8), 8)
+    runs it (the precision kernels at tile 4096)."""
+    bits = _sweep_bits()
+    xornet = sweep_gf.make_xornet(bits, K, M)
     masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(dev)
     bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, K)).to(dev)
     bp, bp16 = bp32.to(torch.int8), bp32.to(torch.bfloat16)
@@ -246,6 +265,35 @@ def _sweep_cases(dev):
             lambda x: sweep_gf.bf16_blockdiag(bblk, x, K, M),
             lambda x: sweep_gf.bf16_blockdiag_plain(bblk, x, K, M), None,
             bblk.nbytes),
+        "sweep_xornet": (xornet,
+                         lambda x: sweep_gf.xornet_plain(bits, x, K, M),
+                         None, 0),
+        **{name: (
+            lambda x, p=prec: sweep_gf.prec_product(bp32, x, K, M, p,
+                                                    sweep_gf.PREC_TILES[0]),
+            lambda x, p=prec: sweep_gf.prec_plain(bp32, x, K, M, p), None,
+            bp32.nbytes) for prec, name in sweep_gf.PREC_KERNELS.items()},
+    }
+
+
+def _sweep_more_cases(dev):
+    """name -> [(label, kernel, plain version)]: the same kernels at the
+    other precision tile, and the XOR network of a second bitmatrix
+    (cauchy_good k=8 m=4 w=8: another generated library)."""
+    bits = matrix_to_bitmatrix(cauchy.good_general_coding_matrix(K, M, 8), 8)
+    xornet = sweep_gf.make_xornet(bits, K, M)
+    bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(_sweep_bits(),
+                                                         K)).to(dev)
+    tile = sweep_gf.PREC_TILES[1]
+    return {
+        "sweep_xornet": [(
+            "cauchy_good k=8 m=4", xornet,
+            lambda x: sweep_gf.xornet_plain(bits, x, K, M))],
+        **{name: [(
+            f"tile {tile}",
+            lambda x, p=prec: sweep_gf.prec_product(bp32, x, K, M, p, tile),
+            lambda x, p=prec: sweep_gf.prec_plain(bp32, x, K, M, p))]
+           for prec, name in sweep_gf.PREC_KERNELS.items()},
     }
 
 
@@ -253,7 +301,7 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
     """Each sweep kernel against its plain version on the card, bit-exact,
     at the sweep's lanes [8, 2097152] (timed) and at a ragged width."""
     results = {}
-    cases = _sweep_cases(dev)
+    cases, more = _sweep_cases(dev), _sweep_more_cases(dev)
     for n4 in (SWEEP_N4, RAGGED_N4):
         x = torch.randint(0, 256, (K, n4 * cuda_gf.LANE_BYTES),
                           dtype=torch.uint8, device=dev, generator=gen
@@ -271,6 +319,19 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
             assert torch.equal(a, b), \
                 f"{name}: kernel != plain version at lanes {tuple(x.shape)}"
             del a, b, err
+            more_notes = []
+            for label, more_kern, more_plain in more.get(name, ()):
+                assert torch.equal(more_kern(x), more_plain(x)), \
+                    f"{name} ({label}): kernel != plain version at lanes " \
+                    f"{tuple(x.shape)}"
+                note = f"{label} bit-exact"
+                if n4 == SWEEP_N4:
+                    ms = _time_ms(lambda: more_kern(x), 20, flush)
+                    note += f" {ms:.4f} ms"
+                more_notes.append(note)
+            if more_notes:
+                print(f"[sweep-kernel] {name} lanes {tuple(x.shape)}: "
+                      f"{'; '.join(more_notes)}", flush=True)
             if n4 != SWEEP_N4:
                 print(f"[sweep-kernel] {name} lanes {tuple(x.shape)}: "
                       "bit-exact (ragged)", flush=True)
@@ -282,7 +343,9 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
             library_ms = (None if library is None
                           else _time_ms(lambda: library(x), 20, flush))
             results[name] = {
-                "name": name, "route": "cuda", "source": SWEEP_SOURCE,
+                "name": name, "route": "cuda",
+                "source": (XORNET_SOURCE_PATH if name == "sweep_xornet"
+                           else SWEEP_SOURCE),
                 "replaces": SWEEP_REPLACES[name], "max_abs_err": max_abs_err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": library_ms,
@@ -290,7 +353,7 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
             lib_note = (f"library x[:m].clone() {library_ms:.4f} ms"
                         if library_ms is not None else
                         f"library_ms null: {NO_LIBRARY[name]}")
-            ops_note = (f", {ops} {ec_kernel_sweep.TENSOR_OPS[name][0]} ops"
+            ops_note = (f", {ops} {ec_kernel_sweep.OP_RATES[name][0]} ops"
                         if ops else "")
             print(f"[sweep-kernel] {name} lanes {tuple(x.shape)}: bit-exact, "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -301,9 +364,9 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
 
 
 def phase_sweep(card: str) -> dict:
-    """The port's kernel sweep at 8 MiB chunks; the sweep kernels'
-    launches, counted from zero over this run."""
-    argv = ["--size-mib", "8", "--iters", "48", "--stage", "variants,split"]
+    """The port's kernel sweep at 8 MiB chunks, all three stages; the
+    sweep kernels' launches, counted from zero over this run."""
+    argv = ["--size-mib", "8", "--iters", "48"]
     sweep_gf.reset_launches()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -316,6 +379,12 @@ def phase_sweep(card: str) -> dict:
     for row in (*ec_kernel_sweep.VARIANTS, *ec_kernel_sweep.PROBES):
         assert any(line.split()[:2] == [row, "bit-exact"] for line in out), \
             f"ec_kernel_sweep: no bit-exact {row} row"
+    for prec, tile in ec_kernel_sweep.PRECISION_ROWS:
+        # one reduced-precision pass cannot hold 65537: DEFAULT mismatches
+        want = [f"prec={prec}", f"tile={tile}",
+                "MISMATCH" if prec == "DEFAULT" else "bit-exact"]
+        assert any(line.split()[:3] == want for line in out), \
+            f"ec_kernel_sweep: no {' '.join(want)} row"
     print(f"[sweep] {' '.join(argv)} exited 0; launches {launched}; card "
           f"{card}", flush=True)
     return launched
@@ -406,14 +475,16 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
-    sources = (cuda_gf.SOURCE.name, sweep_gf.SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(cuda_gf.build, sources))
+    builds = ((cuda_gf.SOURCE.name, None), (sweep_gf.SOURCE, None),
+              (sweep_gf.XORNET_SOURCE,
+               sweep_gf.make_xornet(_sweep_bits(), K, M).generated))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda b: cuda_gf.build(*b), builds))
     print(f"[build] {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{' '.join(cuda_gf.NVCC_FLAGS)})", flush=True)
-    for source in sources:
-        print(cuda_gf.build_logs.get(source, "").strip(), flush=True)
+    for lib in libs:
+        print(cuda_gf.build_logs.get(lib.name, "").strip(), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

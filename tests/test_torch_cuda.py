@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from ceph_tpu_torch.matrices import bitmatrix, reed_sol
+from ceph_tpu_torch.matrices import bitmatrix, cauchy, reed_sol
 from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 from ceph_tpu_torch.plugins import registry
 from ceph_tpu_torch.tools import ec_kernel_sweep
@@ -214,6 +214,10 @@ def test_sweep_wrappers_count_launches_and_refuse_mixed_devices(dev):
         sweep_gf.int8_4dot(bp.cpu(), d, 4, 2)
     with pytest.raises(ValueError):
         sweep_gf.pipelined_w8(masks.cpu(), d, 4, 2)
+    bp32 = bp.to(torch.float32)
+    with pytest.raises(ValueError):
+        sweep_gf.prec_product(bp32.cpu(), d, 4, 2, "HIGH")
+    xornet = sweep_gf.make_xornet(_code_bits("reed_sol_van", 4, 2), 4, 2)
     before = dict(sweep_gf.launches)
     sweep_gf.copy_rows(d, 2)
     sweep_gf.extract_rows(d, 2)
@@ -221,7 +225,103 @@ def test_sweep_wrappers_count_launches_and_refuse_mixed_devices(dev):
     sweep_gf.int8_4dot(bp, d, 4, 2)
     for wrapper, _, table in _tensor_core_cases(4, 2, dev).values():
         wrapper(table, d, 4, 2)
+    xornet(d)
+    for prec in sweep_gf.PREC_KERNELS:
+        sweep_gf.prec_product(bp32, d, 4, 2, prec)
     assert all(sweep_gf.launches[n] == before[n] + 1 for n in before)
+
+
+# -- the static XOR network and the precision stage ---------------------------
+
+
+def _code_bits(code, k, m):
+    coding = {"reed_sol_van": reed_sol.vandermonde_coding_matrix,
+              "cauchy_good": cauchy.good_general_coding_matrix}[code]
+    return bitmatrix.matrix_to_bitmatrix(coding(k, m, 8), 8)
+
+
+@pytest.mark.parametrize("code", ["reed_sol_van", "cauchy_good"])
+@pytest.mark.parametrize("k,m,n4,aligned", [
+    (8, 4, 4096, True),     # 16-byte loads and stores
+    (8, 4, 100003, True),   # ragged: the one-lane form
+    (8, 4, 4096, False),    # a pointer off the 16-byte grid
+    (3, 2, 1001, True),
+    (16, 8, 777, True),     # the widest network
+])
+def test_xornet_kernel_matches_plain_version(dev, code, k, m, n4, aligned):
+    rs = np.random.RandomState(k * 1000 + n4)
+    d = _lanes(rs, k, n4, dev)
+    if not aligned:
+        d = _unaligned(d)
+    bits = _code_bits(code, k, m)
+    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k)).to(dev)
+    got = sweep_gf.make_xornet(bits, k, m)(d)
+    assert torch.equal(got, sweep_gf.xornet_plain(bits, d, k, m))
+    assert torch.equal(got, cuda_gf.matrix_encode_w8(masks, d, k, m))
+
+
+def test_xornet_builds_one_library_per_bitmatrix(dev):
+    d = _lanes(np.random.RandomState(1), 8, 4096, dev)
+    libs = set()
+    for code in ("reed_sol_van", "cauchy_good"):
+        fn = sweep_gf.make_xornet(_code_bits(code, 8, 4), 8, 4)
+        fn(d)
+        libs.add(cuda_gf.build(sweep_gf.XORNET_SOURCE, fn.generated).name)
+    assert len(libs) == 2
+    assert all(name.startswith("libxornet_kernel-") for name in libs)
+
+
+@pytest.mark.parametrize("prec", ["HIGHEST", "HIGH", "DEFAULT"])
+@pytest.mark.parametrize("tile", [4096, 16384])
+@pytest.mark.parametrize("k,m,n4,aligned", [
+    (8, 4, 4096, True),      # the sweep's code
+    (8, 4, 100003, True),    # ragged: no multiple of a tile or of 32 lanes
+    (8, 4, 4096, False),     # a pointer off the 16-byte grid
+    (3, 2, 4099, True),      # K-steps half padded, one m-tile
+    (5, 3, 1000, True),      # half of the last m-tile
+    (8, 4, 1, True),         # one lane
+])
+def test_precision_kernels_match_prec_plain(dev, prec, tile, k, m, n4,
+                                            aligned):
+    rs = np.random.RandomState(k * 1000 + n4)
+    d = _lanes(rs, k, n4, dev)
+    if not aligned:
+        d = _unaligned(d)
+    bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(
+        _code_bits("reed_sol_van", k, m), k)).to(dev)
+    got = sweep_gf.prec_product(bp, d, k, m, prec, tile)
+    assert torch.equal(got, sweep_gf.prec_plain(bp, d, k, m, prec))
+    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(
+        _code_bits("reed_sol_van", k, m), k)).to(dev)
+    exact = torch.equal(got, cuda_gf.matrix_encode_w8(masks, d, k, m))
+    # one TF32 pass loses the plane value 65537's low field
+    assert exact if prec != "DEFAULT" else (n4 == 1 or not exact)
+
+
+def test_precision_f32_kernel_at_its_widest_code(dev):
+    d = _lanes(np.random.RandomState(7), 16, 5000, dev)
+    bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(
+        _code_bits("cauchy_good", 16, 8), 16)).to(dev)
+    assert torch.equal(sweep_gf.prec_product(bp, d, 16, 8, "HIGHEST", 4096),
+                       sweep_gf.prec_plain(bp, d, 16, 8, "HIGHEST"))
+
+
+def test_sweep_wrappers_refuse_what_their_kernels_do_not_take(dev):
+    d9 = torch.zeros((9, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        sweep_gf.prec_product(torch.zeros((32, 72), device=dev), d9, 9, 4,
+                              "HIGH")
+    d = torch.zeros((8, 64), dtype=torch.int32, device=dev)
+    bp = torch.zeros((32, 64), device=dev)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sweep_gf.prec_product(bp, d, 8, 4, "DEFAULT", tile=100)
+    with pytest.raises(ValueError, match="only 0 and 1"):
+        sweep_gf.prec_product(bp + 0.5, d, 8, 4, "HIGH")
+    with pytest.raises(ValueError, match="k <= 16 and m <= 8"):
+        sweep_gf.make_xornet(np.zeros((8, 136), np.uint8), 17, 1)
+    with pytest.raises(ValueError, match="do not fit"):
+        sweep_gf.make_xornet(_code_bits("reed_sol_van", 8, 4), 8, 4)(
+            d[:4].contiguous())
 
 
 def test_kernel_sweep_runs_on_the_card(dev, capsys):
@@ -229,3 +329,9 @@ def test_kernel_sweep_runs_on_the_card(dev, capsys):
     out = capsys.readouterr().out
     for row in (*ec_kernel_sweep.VARIANTS, *ec_kernel_sweep.PROBES):
         assert f"{row:14s} bit-exact" in out
+    prec_rows = [line.split() for line in out.splitlines()
+                 if line.startswith("prec=")]
+    assert [r[:2] for r in prec_rows] == [
+        [f"prec={p}", f"tile={t}"] for p, t in ec_kernel_sweep.PRECISION_ROWS]
+    for r in prec_rows:
+        assert r[2] == ("MISMATCH" if r[0] == "prec=DEFAULT" else "bit-exact")

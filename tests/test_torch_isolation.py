@@ -43,6 +43,19 @@ def test_port_files_import_no_jax_and_no_reference_package():
     assert not bad, bad
 
 
+def test_port_cuda_sources_include_only_toolkit_and_generated_headers():
+    # the kernels build from the checkout alone: CUDA runtime and C headers,
+    # and the XOR network's header that the port generates at build time
+    allowed = {"cuda_runtime.h", "stdint.h", "xornet_net.h"}
+    sources = sorted((PORT / "csrc").glob("*.cu"))
+    assert len(sources) >= 3
+    for path in sources:
+        included = {line.split()[1].strip('<>"')
+                    for line in path.read_text().splitlines()
+                    if line.startswith("#include")}
+        assert included <= allowed, (path.name, included - allowed)
+
+
 def test_forbidden_prefix_compares_whole_module_names():
     assert _forbidden("ceph_tpu") and _forbidden("ceph_tpu.ops.gf")
     assert _forbidden("jax.numpy") and not _forbidden("jaxtyping")

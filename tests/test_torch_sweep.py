@@ -299,9 +299,6 @@ def test_sweep_tool_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--stage", "precision"],
-    ["--stage", "variants,precision"],
-    ["--only", "xornet"],
     ["--stage", "nonesuch"],
     ["--only", "nonesuch"],
     ["--tile", "8000"],
@@ -310,8 +307,31 @@ def test_sweep_tool_refuses_what_is_not_ported(argv, capsys):
     assert ec_kernel_sweep.main(["--device", "cpu", *argv]) == 2
     captured = capsys.readouterr()
     assert "bit-exact" not in captured.out
-    if "nonesuch" not in argv and "--tile" not in argv:
-        assert "ROADMAP.md" in captured.err
+    assert "nonesuch" in captured.err or "--tile" in captured.err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--stage", "precision"],
+    ["--stage", "variants,precision"],
+    ["--only", "xornet"],
+])
+def test_sweep_tool_runs_the_precision_stage_and_xornet(argv, capsys):
+    assert ec_kernel_sweep.main(["--device", "cpu", "--size-mib", "1",
+                                 "--iters", "1", *argv]) == 0
+    out = capsys.readouterr().out
+    prec_rows = [line for line in out.splitlines()
+                 if line.startswith("prec=")]
+    if "--only" in argv:
+        assert f"{'xornet':14s} bit-exact" in out and not prec_rows
+        return
+    assert len(prec_rows) == len(ec_kernel_sweep.PRECISION_ROWS) == 6
+    for (prec, tile), line in zip(ec_kernel_sweep.PRECISION_ROWS, prec_rows):
+        assert line.split()[:3] == [
+            f"prec={prec}", f"tile={tile}",
+            "MISMATCH" if prec == "DEFAULT" else "bit-exact"], line
+    variants = "variants" in argv[1]
+    for row in ec_kernel_sweep.VARIANTS:
+        assert (f"{row:14s} bit-exact" in out) == variants
 
 
 @pytest.mark.parametrize("argv", [
