@@ -19,6 +19,12 @@
 //                       at precision HIGHEST
 //   sweep_prec_tf32x3   the same at precision HIGH
 //   sweep_prec_tf32     the same at precision DEFAULT
+//   sweep_split_f32     replaces experiments/kernel_r4_split.py _kernel_split
+//                       (:51) at precision HIGHEST, parts 2, 4 and 8
+//   sweep_extract_fold  replaces experiments/kernel_r4_probe.py
+//                       _extract_kernel (:38)
+//   sweep_planes_f32    replaces experiments/kernel_r4_probe.py _mxu_kernel
+//                       (:54)
 //
 // (sweep_xornet, the sweep's static XOR network, is csrc/xornet_kernel.cu:
 // its network is generated per bitmatrix.)
@@ -171,6 +177,130 @@ int launch_rows(const void* x, void* out, int m, long long n4,
   if (lanes % 4 == 0 && aligned16(x) && aligned16(out))
     return launch_map<Op, uint4>(x, out, lanes / 4, s);
   return launch_map<Op, uint32_t>(x, out, lanes, s);
+}
+
+// ---------------------------------------------------------------------------
+// sweep_extract_fold: every bit plane of all k rows, folded into m rows
+// ---------------------------------------------------------------------------
+//
+// Replaces experiments/kernel_r4_probe.py _extract_kernel (:38): the planes
+// lo[r] = (x[j] >> s) & 0x00010001 and hi[r] = (x[j] >> (8 + s)) &
+// 0x00010001 of row r = s*k + j, and out[i] = sum over r = i (mod m) of
+// lo[r] + hi[r], for m dividing 8k.  Each 16-bit field counts set bits: the
+// low field bits s and 8 + s of the lane's low half, the high field those of
+// its high half.  So the planes of one row whose r fall into one class are
+// one mask, and their sum is two popcounts.
+//
+// Bound on the card: memory, (k + m) * n4 * 4 bytes (it reads all k rows,
+// sweep_extract only m); the work is a few integer operations a lane and
+// plane class.  Design: the row maps' loop, grid-stride, 16-byte loads of
+// 4 lanes a thread (4-byte loads of one lane where n4 is no multiple of 4
+// or a pointer is not 16-byte aligned); each word of each row is loaded
+// once.  The fold's row index must stay
+// known at compile time, or the accumulators go to local memory: with M = m
+// and D = k mod m as template parameters, row r = s*k + j falls into class
+// (s*D + j) mod M, the loop over j steps by M, and the class of each plane
+// of each unrolled step is a constant.  Only D with M | 8D occur (m | 8k).
+// The sum is taken in uint32: each field collects at most 16k/m counts, far
+// below a carry; the wrapper refuses 16k/m * 65537 >= 2^24, where the TPU's
+// f32 sum would no longer be exact.
+
+// bits of a lane whose planes fall into class u: 0x01010101 << s for each s
+// with s*d = u (mod m)
+__host__ __device__ constexpr uint32_t fold_mask(int m, int d, int u) {
+  uint32_t mask = 0u;
+  for (int s = 0; s < 8; ++s)
+    if ((s * d) % m == u) mask |= 0x01010101u << s;
+  return mask;
+}
+
+// the two fields' counts of the bits of v under mask
+__device__ __forceinline__ uint32_t field_counts(uint32_t v, uint32_t mask) {
+  return static_cast<uint32_t>(__popc(v & mask & 0x0000FFFFu)) +
+         (static_cast<uint32_t>(__popc(v & mask & 0xFFFF0000u)) << 16);
+}
+
+// the load of L lanes
+template <int L> struct LanesOf { using T = uint32_t; };
+template <> struct LanesOf<4> { using T = uint4; };
+
+// L lanes a thread: 4 (one 16-byte load a row) or 1.  The accumulators
+// are L * M scalars, unpacked from each load: an array of uint4 would let
+// part of it go to local memory.
+template <int M, int D, int L>
+__global__ void __launch_bounds__(kThreads)
+sweep_extract_fold_kernel(const uint32_t* __restrict__ x,
+                          uint32_t* __restrict__ out, int k, long long n4) {
+  using T = typename LanesOf<L>::T;
+  const long long n = n4 / L;  // elements of T in a row
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += step) {
+    uint32_t acc[M][L] = {};
+    for (int j0 = 0; j0 < k; j0 += M) {
+#pragma unroll
+      for (int t = 0; t < M; ++t) {
+        if (j0 + t < k) {
+          const T v = __ldg(reinterpret_cast<const T*>(
+                                x + static_cast<long long>(j0 + t) * n4) +
+                            i);
+          uint32_t w[L];
+          if constexpr (L == 4) {
+            w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+          } else {
+            w[0] = v;
+          }
+#pragma unroll
+          for (int u = 0; u < M; ++u) {
+            const uint32_t mask = fold_mask(M, D, u);
+            if (mask != 0u)
+#pragma unroll
+              for (int c = 0; c < L; ++c)
+                acc[(t + u) % M][c] += field_counts(w[c], mask);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+      T* row = reinterpret_cast<T*>(out + static_cast<long long>(r) * n4);
+      if constexpr (L == 4)
+        row[i] = make_uint4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      else
+        row[i] = acc[r][0];
+    }
+  }
+}
+
+template <int M, int D, int L>
+int launch_fold_as(const void* x, void* out, int k, long long n4,
+                   cudaStream_t s) {
+  int blocks = 0;
+  const long long n = n4 / L;
+  const int rc = resident_blocks(sweep_extract_fold_kernel<M, D, L>,
+                                 kThreads, 0, (n + kThreads - 1) / kThreads,
+                                 &blocks);
+  if (rc != 0) return rc;
+  sweep_extract_fold_kernel<M, D, L><<<blocks, kThreads, 0, s>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), k, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance for d = k mod M, or an error
+template <int M, int D = 0>
+int launch_fold(int d, const void* x, void* out, int k, long long n4,
+                cudaStream_t s) {
+  if constexpr ((8 * D) % M == 0) {
+    if (d == D) {
+      if (n4 % 4 == 0 && aligned16(x) && aligned16(out))
+        return launch_fold_as<M, D, 4>(x, out, k, n4, s);
+      return launch_fold_as<M, D, 1>(x, out, k, n4, s);
+    }
+  }
+  if constexpr (D + 1 < M)
+    return launch_fold<M, D + 1>(d, x, out, k, n4, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -880,6 +1010,35 @@ int launch_blockdiag(const void* x, const void* bblk, void* out, int k,
 // eight bit-rows of an output row together: the finished word, 3 shuffles
 // and 3 ORs a register.  Thread g < 4 of each quad column stores register
 // g's word (row 2mt + g/2, lane 2t + g%2).
+//
+// sweep_planes_f32 replaces experiments/kernel_r4_probe.py _mxu_kernel
+// (:54): sweep_prec_f32's product and epilogue at HIGHEST over planes
+// extracted beforehand, float32 [2, 8k, n4] (lo rows s*k + j, then hi).
+// It is sweep_prec_f32's kernel with another source of planes (FromPlanes
+// in place of FromLanes): each plane value is one 4-byte load, and a warp's
+// load is one whole 128-byte line.  Bound: bytes, the planes are 64 times
+// the payload: (16k + m) * n4 * 4 bytes, 0.3305 ms at k=8 m=4 and 2097152
+// lanes, above the FFMA bound of 0.2564.  A thread keeps one lane: four
+// lanes a thread (16-byte loads) would need 4 x 16m accumulators.
+//
+// sweep_split_f32 replaces experiments/kernel_r4_split.py _kernel_split
+// (:51) at HIGHEST: sweep_prec_f32's function with each tile of T lanes cut
+// into PARTS column chunks of T/PARTS lanes.  On the TPU the chunks are
+// independent chains that let extraction overlap the products.  Here a
+// thread carries PARTS lanes, one of each chunk, T/PARTS apart (a warp's
+// loads stay coalesced), and runs their chains interleaved: PARTS times the
+// independent FFMA of sweep_prec_f32, for the tile-16384 launch whose 128
+// tiles keep one block of 8 warps an SM.  Registers: sweep_prec_f32's 16m
+// accumulators a lane times PARTS lanes do not fit, so a pass covers G
+// output rows of both halves (lo, hi) or, at PARTS 8, one row of one half:
+// 64 accumulators a thread whatever PARTS and m.  A pass takes all k rows;
+// k is a runtime argument, so the passes after the first read the words
+// again (from L1) and repeat the field conversions.  The halves can be
+// taken apart: bit 8b of z = accL + (accH << 8) is bit 0 or 16 of accL (b
+// = 0, 2) or of accH (b = 1, 3), since each count is < 256 and no carry
+// crosses a byte.  m is a runtime argument too (a pass indexes its own
+// accumulators only): one instance per PARTS.  Bound: sweep_prec_f32's,
+// operations, 0.2564 ms at k=8 m=4.
 
 // float32 of the masked field bits u < 2^23, exactly: 2^23's exponent
 // ORed in gives 2^23 + u, and the FADD removes 2^23
@@ -909,19 +1068,58 @@ struct PrecTf32x3 {  // HIGH: b_big, then b_small (Bp_small is zero)
   }
 };
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-sweep_prec_f32_kernel(const uint32_t* __restrict__ x,
-                      const float* __restrict__ bp,
-                      uint32_t* __restrict__ out, int k, long long n4,
-                      int T) {
-  constexpr int R = 8 * M;  // bit-rows
-  __shared__ __align__(16) float sbp[16 * 8 * R];
+// Bp [8m, 8k] into shared memory transposed, [8k][8m]: row j*8 + s holds
+// column s*k + j
+__device__ __forceinline__ void stage_bp_t(const float* __restrict__ bp,
+                                           int k, int R, float* sbp) {
   const int depth = 8 * k;
   for (int idx = threadIdx.x; idx < depth * R; idx += blockDim.x) {
     const int col = idx / R, r = idx % R;  // col = j*8 + s
     sbp[idx] = bp[r * depth + (col % 8) * k + col / 8];
   }
+}
+
+// where sweep_prec_f32_kernel takes plane s of input row j: extracted from
+// the lanes (sweep_prec_f32) or loaded as floats (sweep_planes_f32)
+struct FromLanes {
+  const uint32_t* x;  // [k, n4] lanes
+  using Row = uint32_t;
+  __device__ __forceinline__ Row row(int j, long long n4,
+                                     long long lane) const {
+    return __ldg(x + static_cast<long long>(j) * n4 + lane);
+  }
+  __device__ __forceinline__ float lo(Row v, int s) const {
+    return field_float((v >> s) & 0x00010001u);
+  }
+  __device__ __forceinline__ float hi(Row v, int s) const {
+    return field_float((v >> (8 + s)) & 0x00010001u);
+  }
+};
+
+struct FromPlanes {
+  const float* p;  // [2, 8k, n4]: lo rows s*k + j, then hi rows
+  long long step;  // k * n4: plane s to plane s + 1 of one input row
+  using Row = const float*;
+  __device__ __forceinline__ Row row(int j, long long n4,
+                                     long long lane) const {
+    return p + static_cast<long long>(j) * n4 + lane;
+  }
+  __device__ __forceinline__ float lo(Row r, int s) const {
+    return __ldg(r + s * step);
+  }
+  __device__ __forceinline__ float hi(Row r, int s) const {
+    return __ldg(r + (8 + s) * step);
+  }
+};
+
+template <int M, class Src>
+__global__ void __launch_bounds__(kThreads)
+sweep_prec_f32_kernel(const Src src, const float* __restrict__ bp,
+                      uint32_t* __restrict__ out, int k, long long n4,
+                      int T) {
+  constexpr int R = 8 * M;  // bit-rows
+  __shared__ __align__(16) float sbp[16 * 8 * R];
+  stage_bp_t(bp, k, R, sbp);
   __syncthreads();
 
   const long long ntiles = (n4 + T - 1) / T;
@@ -933,12 +1131,12 @@ sweep_prec_f32_kernel(const uint32_t* __restrict__ x,
 #pragma unroll
       for (int r = 0; r < R; ++r) accL[r] = accH[r] = 0.0f;
       for (int j = 0; j < k; ++j) {
-        const uint32_t v = __ldg(x + static_cast<long long>(j) * n4 + lane);
+        const typename Src::Row v = src.row(j, n4, lane);
         const float4* col = reinterpret_cast<const float4*>(sbp + j * 8 * R);
 #pragma unroll
         for (int s = 0; s < 8; ++s) {
-          const float lo = field_float((v >> s) & 0x00010001u);
-          const float hi = field_float((v >> (8 + s)) & 0x00010001u);
+          const float lo = src.lo(v, s);
+          const float hi = src.hi(v, s);
 #pragma unroll
           for (int q = 0; q < R / 4; ++q) {
             const float4 b = col[s * (R / 4) + q];
@@ -968,17 +1166,140 @@ sweep_prec_f32_kernel(const uint32_t* __restrict__ x,
   }
 }
 
-template <int M>
-int launch_prec_f32(const void* x, const void* bp, void* out, int k,
+template <int M, class Src>
+int launch_prec_f32(const Src& src, const void* bp, void* out, int k,
                     long long n4, int T, cudaStream_t s) {
   const long long ntiles = (n4 + T - 1) / T;
   int blocks = 0;
-  const int rc = resident_blocks(sweep_prec_f32_kernel<M>, kThreads, 0,
+  const int rc = resident_blocks(sweep_prec_f32_kernel<M, Src>, kThreads, 0,
                                  ntiles, &blocks);
   if (rc != 0) return rc;
-  sweep_prec_f32_kernel<M><<<blocks, kThreads, 0, s>>>(
+  sweep_prec_f32_kernel<M, Src><<<blocks, kThreads, 0, s>>>(
+      src, static_cast<const float*>(bp), static_cast<uint32_t*>(out), k, n4,
+      T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k <= 16, m <= 8, T a positive multiple of 32
+template <class Src>
+int run_prec_f32(const Src& src, const void* bp, void* out, int k, int m,
+                 long long n4, int T, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T <= 0 || T % 32 != 0 || k < 1 || k > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (m) {
+    case 1: return launch_prec_f32<1>(src, bp, out, k, n4, T, s);
+    case 2: return launch_prec_f32<2>(src, bp, out, k, n4, T, s);
+    case 3: return launch_prec_f32<3>(src, bp, out, k, n4, T, s);
+    case 4: return launch_prec_f32<4>(src, bp, out, k, n4, T, s);
+    case 5: return launch_prec_f32<5>(src, bp, out, k, n4, T, s);
+    case 6: return launch_prec_f32<6>(src, bp, out, k, n4, T, s);
+    case 7: return launch_prec_f32<7>(src, bp, out, k, n4, T, s);
+    case 8: return launch_prec_f32<8>(src, bp, out, k, n4, T, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int PARTS>
+__global__ void __launch_bounds__(kThreads)
+sweep_split_f32_kernel(const uint32_t* __restrict__ x,
+                       const float* __restrict__ bp,
+                       uint32_t* __restrict__ out, int k, int m, long long n4,
+                       int T) {
+  // a pass: NH halves of G output rows, 8G * NH * PARTS = 64 accumulators
+  constexpr int NH = PARTS == 8 ? 1 : 2;
+  constexpr int G = 8 / (PARTS * NH);
+  __shared__ __align__(16) float sbp[16 * 8 * 64];
+  const int R = 8 * m;  // bit-rows
+  stage_bp_t(bp, k, R, sbp);
+  __syncthreads();
+
+  const int span = T / PARTS;
+  const long long ntiles = (n4 + T - 1) / T;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    for (int c = threadIdx.x; c < span; c += blockDim.x) {
+      long long lane[PARTS];
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p)
+        lane[p] = tile * T + static_cast<long long>(p) * span + c;
+      if (lane[0] >= n4) break;
+#pragma unroll 1
+      for (int i0 = 0; i0 < m; i0 += G) {
+        uint32_t word[G][PARTS] = {};
+#pragma unroll 1
+        for (int h0 = 0; h0 < 2; h0 += NH) {
+          float acc[NH][PARTS][8 * G] = {};
+          for (int j = 0; j < k; ++j) {
+            uint32_t v[PARTS];
+#pragma unroll
+            for (int p = 0; p < PARTS; ++p)
+              v[p] = lane[p] < n4
+                         ? __ldg(x + static_cast<long long>(j) * n4 + lane[p])
+                         : 0u;
+            const float4* col =
+                reinterpret_cast<const float4*>(sbp + j * 8 * R + 8 * i0);
+#pragma unroll
+            for (int s = 0; s < 8; ++s) {
+              float f[NH][PARTS];
+#pragma unroll
+              for (int h = 0; h < NH; ++h)
+#pragma unroll
+                for (int p = 0; p < PARTS; ++p)
+                  f[h][p] = field_float((v[p] >> (8 * (h0 + h) + s)) &
+                                        0x00010001u);
+#pragma unroll
+              for (int q = 0; q < 2 * G; ++q) {
+                if (8 * i0 + 4 * q >= R) break;  // past row m - 1 (odd m)
+                const float4 b = col[s * (R / 4) + q];
+#pragma unroll
+                for (int h = 0; h < NH; ++h)
+#pragma unroll
+                  for (int p = 0; p < PARTS; ++p) {
+                    float(&a)[8 * G] = acc[h][p];
+                    a[4 * q] = fmaf(b.x, f[h][p], a[4 * q]);
+                    a[4 * q + 1] = fmaf(b.y, f[h][p], a[4 * q + 1]);
+                    a[4 * q + 2] = fmaf(b.z, f[h][p], a[4 * q + 2]);
+                    a[4 * q + 3] = fmaf(b.w, f[h][p], a[4 * q + 3]);
+                  }
+              }
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int l = 0; l < 8; ++l)
+#pragma unroll
+              for (int h = 0; h < NH; ++h)
+#pragma unroll
+                for (int p = 0; p < PARTS; ++p)
+                  word[g][p] |=
+                      (__float2uint_rn(acc[h][p][8 * g + l]) & 0x00010001u)
+                      << (8 * (h0 + h) + l);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (i0 + g >= m) break;
+#pragma unroll
+          for (int p = 0; p < PARTS; ++p)
+            if (lane[p] < n4)
+              out[static_cast<long long>(i0 + g) * n4 + lane[p]] = word[g][p];
+        }
+      }
+    }
+  }
+}
+
+template <int PARTS>
+int launch_split_f32(const void* x, const void* bp, void* out, int k, int m,
+                     long long n4, int T, cudaStream_t s) {
+  const long long ntiles = (n4 + T - 1) / T;
+  int blocks = 0;
+  const int rc = resident_blocks(sweep_split_f32_kernel<PARTS>, kThreads, 0,
+                                 ntiles, &blocks);
+  if (rc != 0) return rc;
+  sweep_split_f32_kernel<PARTS><<<blocks, kThreads, 0, s>>>(
       static_cast<const uint32_t*>(x), static_cast<const float*>(bp),
-      static_cast<uint32_t*>(out), k, n4, T);
+      static_cast<uint32_t*>(out), k, m, n4, T);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1163,18 +1484,54 @@ int sweep_bf16_blockdiag(const void* x, const void* bblk, void* out, int k,
 // HIGHEST: FFMA; k <= 16, m <= 8
 int sweep_prec_f32(const void* x, const void* bp, void* out, int k, int m,
                    long long n4, int T, void* stream) {
+  return run_prec_f32(FromLanes{static_cast<const uint32_t*>(x)}, bp, out, k,
+                      m, n4, T, stream);
+}
+
+// HIGHEST, FFMA, each tile of T lanes in parts column chunks (parts 2, 4
+// or 8; T a positive multiple of 32 * parts); k <= 16, m <= 8
+int sweep_split_f32(const void* x, const void* bp, void* out, int k, int m,
+                    long long n4, int T, int parts, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T <= 0 || T % 32 != 0 || k < 1 || k > 16)
+  if (T <= 0 || parts < 1 || T % (32 * parts) != 0 || k < 1 || k > 16 ||
+      m < 1 || m > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (parts) {
+    case 2: return launch_split_f32<2>(x, bp, out, k, m, n4, T, s);
+    case 4: return launch_split_f32<4>(x, bp, out, k, m, n4, T, s);
+    case 8: return launch_split_f32<8>(x, bp, out, k, m, n4, T, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// planes [2, 8k, n4] float32 (lo rows s*k + j, then hi rows), as
+// sweep_gf.field_planes builds them; bp as above; out [m, n4]; HIGHEST,
+// FFMA; k <= 16, m <= 8
+int sweep_planes_f32(const void* planes, const void* bp, void* out, int k,
+                     int m, long long n4, int T, void* stream) {
+  return run_prec_f32(FromPlanes{static_cast<const float*>(planes),
+                                 static_cast<long long>(k) * n4},
+                      bp, out, k, m, n4, T, stream);
+}
+
+// x [k, n4] lanes; out [m, n4] int32: the sum over planes r = s*k + j with
+// r = i (mod m) of (x[j] >> s) & 0x00010001 and (x[j] >> (8 + s)) &
+// 0x00010001; m <= 8 dividing 8k, and 16k/m * 65537 < 2^24
+int sweep_extract_fold(const void* x, void* out, int k, int m, long long n4,
+                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || m < 1 || m > 8 || (8 * k) % m != 0 ||
+      16LL * k / m * 65537 >= (1LL << 24))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (m) {
-    case 1: return launch_prec_f32<1>(x, bp, out, k, n4, T, s);
-    case 2: return launch_prec_f32<2>(x, bp, out, k, n4, T, s);
-    case 3: return launch_prec_f32<3>(x, bp, out, k, n4, T, s);
-    case 4: return launch_prec_f32<4>(x, bp, out, k, n4, T, s);
-    case 5: return launch_prec_f32<5>(x, bp, out, k, n4, T, s);
-    case 6: return launch_prec_f32<6>(x, bp, out, k, n4, T, s);
-    case 7: return launch_prec_f32<7>(x, bp, out, k, n4, T, s);
-    case 8: return launch_prec_f32<8>(x, bp, out, k, n4, T, s);
+    case 1: return launch_fold<1>(k % 1, x, out, k, n4, s);
+    case 2: return launch_fold<2>(k % 2, x, out, k, n4, s);
+    case 3: return launch_fold<3>(k % 3, x, out, k, n4, s);
+    case 4: return launch_fold<4>(k % 4, x, out, k, n4, s);
+    case 5: return launch_fold<5>(k % 5, x, out, k, n4, s);
+    case 6: return launch_fold<6>(k % 6, x, out, k, n4, s);
+    case 7: return launch_fold<7>(k % 7, x, out, k, n4, s);
+    case 8: return launch_fold<8>(k % 8, x, out, k, n4, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

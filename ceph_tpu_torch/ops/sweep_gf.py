@@ -1,8 +1,10 @@
-"""The kernel sweep's eleven kernels: wrappers, launch counters, plain twins.
+"""The kernel sweep's fourteen kernels: wrappers, launch counters, plain
+twins.
 
-Port of the TPU kernels that ``tools/ec_kernel_sweep.py`` and
-``experiments/kernel_r4.py`` time beside the production w=8 product.  Each
-has a counterpart written by hand in CUDA C++ for Hopper (``sm_90a``),
+Port of the TPU kernels that ``tools/ec_kernel_sweep.py``,
+``experiments/kernel_r4.py``, ``experiments/kernel_r4_split.py`` and
+``experiments/kernel_r4_probe.py`` time beside the production w=8 product.
+Each has a counterpart written by hand in CUDA C++ for Hopper (``sm_90a``),
 built and loaded like the codec kernels (:func:`cuda_gf.load`):
 
 ==================  ==============================================  =========
@@ -19,6 +21,9 @@ make_xornet(...)    kernel_r4._make_xornet_kernel (:129)            sweep_xornet
 prec_product        kernel_r4._kernel_prec (:315), HIGHEST          sweep_prec_f32
 prec_product        kernel_r4._kernel_prec (:315), HIGH             sweep_prec_tf32x3
 prec_product        kernel_r4._kernel_prec (:315), DEFAULT          sweep_prec_tf32
+split_product       kernel_r4_split._kernel_split (:51), HIGHEST    sweep_split_f32
+extract_fold        kernel_r4_probe._extract_kernel (:38)           sweep_extract_fold
+planes_product      kernel_r4_probe._mxu_kernel (:54)               sweep_planes_f32
 ==================  ==============================================  =========
 
 ``sweep_xornet`` lives in ``csrc/xornet_kernel.cu``, a frame that includes
@@ -29,8 +34,10 @@ Operands are int32 lanes of four little-endian bytes, ``[rows, n4]``, as in
 :mod:`cuda_gf`.  ``pipelined_w8`` takes the lane masks of
 ``cuda_gf.prep_matrix_w8``; ``int8_4dot``, ``bf16_4dot`` and ``f32_4dot``
 take the shift-major 0/1 bitmatrix of :func:`prep_shift_major_w8` in their
-product's operand type (int8, bfloat16, float32), and ``prec_product``
-takes it as float32; ``bf16_blockdiag`` takes the block-diagonal table of
+product's operand type (int8, bfloat16, float32), and ``prec_product``,
+``split_product`` and ``planes_product`` take it as float32
+(``planes_product`` with float32 planes [2, 8k, n4] of
+:func:`field_planes` in place of lanes); ``bf16_blockdiag`` takes the block-diagonal table of
 :func:`prep_blockdiag_w8` as bfloat16; ``make_xornet`` takes the jerasure
 bitmatrix itself and compiles it into its kernel.
 
@@ -58,7 +65,8 @@ launches: Dict[str, int] = {
     "sweep_copy": 0, "sweep_extract": 0, "sweep_pipelined_w8": 0,
     "sweep_int8_4dot": 0, "sweep_bf16_4dot": 0, "sweep_f32_4dot": 0,
     "sweep_bf16_blockdiag": 0, "sweep_xornet": 0, "sweep_prec_f32": 0,
-    "sweep_prec_tf32x3": 0, "sweep_prec_tf32": 0,
+    "sweep_prec_tf32x3": 0, "sweep_prec_tf32": 0, "sweep_split_f32": 0,
+    "sweep_extract_fold": 0, "sweep_planes_f32": 0,
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -74,6 +82,9 @@ _SIGNATURES = {
     "sweep_prec_f32": (_P, _P, _P, _I, _I, _L, _I, _P),
     "sweep_prec_tf32x3": (_P, _P, _P, _I, _I, _L, _I, _P),
     "sweep_prec_tf32": (_P, _P, _P, _I, _I, _L, _I, _P),
+    "sweep_split_f32": (_P, _P, _P, _I, _I, _L, _I, _I, _P),
+    "sweep_extract_fold": (_P, _P, _I, _I, _L, _P),
+    "sweep_planes_f32": (_P, _P, _P, _I, _I, _L, _I, _P),
 }
 
 #: the static XOR network's frame, and the header it includes
@@ -95,6 +106,12 @@ PREC_LIMITS = {"sweep_prec_f32": (16, 8), "sweep_prec_tf32x3": (8, 4),
                "sweep_prec_tf32": (8, 4)}
 #: the JAX tool's tiles (``main_prec``): lanes a block takes per step
 PREC_TILES = (4096, 16384)
+#: ``_kernel_split``'s column chunks a tile is cut into; above 1 only at
+#: HIGHEST (``sweep_split_f32``: FFMA, the limits of ``sweep_prec_f32``)
+SPLIT_PARTS = (1, 2, 4, 8)
+#: the widest m ``sweep_extract_fold`` takes: it keeps m accumulators a
+#: lane, indexed at compile time
+FOLD_MAX_M = 8
 
 #: the fields the extraction probe and the precision product keep of each
 #: shifted lane
@@ -299,6 +316,59 @@ def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def field_planes(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Lanes [k, n4] int32 -> float32 planes [2, 8k, n4] on ``x``'s device:
+    [0, s*k + j] = (x[j] >> s) & 0x00010001 and [1, s*k + j] = (x[j] >> (8
+    + s)) & 0x00010001, the operand ``planes_product`` takes (the host loop
+    of ``kernel_r4_probe.main``, :132-139)."""
+    if x.dim() != 2 or x.shape[0] != k:
+        raise ValueError(f"field_planes: lanes {tuple(x.shape)} do not fit "
+                         f"k={k}")
+    planes = torch.empty((2, 8 * k, x.shape[1]), dtype=torch.float32,
+                         device=x.device)
+    for half in range(2):
+        for s in range(8):
+            planes[half, s * k:(s + 1) * k] = (x >> (8 * half + s)) & _FIELDS
+    return planes
+
+
+def extract_fold_plain(x: torch.Tensor, k: int, m: int) -> torch.Tensor:
+    """``_extract_kernel``'s function: every plane row r = s*k + j of all k
+    rows, lo[r] + hi[r] (the fields of :func:`field_planes`), summed over r
+    = i (mod m) into output row i, in int32 (m divides 8k; each 16-bit
+    field collects at most 16k/m counts, so the sum equals the TPU's exact
+    f32 sum cast to int32)."""
+    shifts = torch.arange(8, dtype=torch.int32, device=x.device).view(8, 1, 1)
+    lanes = x.unsqueeze(0)
+    sums = ((lanes >> shifts) & _FIELDS) + ((lanes >> (8 + shifts)) & _FIELDS)
+    return sums.view(8 * k // m, m, x.shape[1]).sum(0, dtype=torch.int32)
+
+
+def _field_product(bp: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   m: int) -> torch.Tensor:
+    """accL = bp @ lo, accH = bp @ hi over float32 planes [8k, n4], in
+    float64; z = accL + (accH << 8); bit l of byte b of output row i = bit
+    8b of z[8i + l]."""
+    B = bp.to(torch.float64)
+    # sums <= 8k * 65537 < 2^24 (k <= 16): exact in float32 too; z is
+    # wanted mod 2^32, where each byte holds one field's count
+    accL, accH = ((B @ p.to(torch.float64)).to(torch.int32) for p in (lo, hi))
+    n4 = lo.shape[1]
+    pb = ((accL + (accH << 8)) & _BYTE_BIT0).view(m, 8, n4)
+    out = torch.zeros((m, n4), dtype=torch.int32, device=lo.device)
+    for l in range(8):
+        out |= pb[:, l] << l
+    return out
+
+
+def planes_plain(bp: torch.Tensor, planes: torch.Tensor, k: int,
+                 m: int) -> torch.Tensor:
+    """``_mxu_kernel``'s function: ``_kernel_prec``'s two HIGHEST products
+    and epilogue over planes [2, 8k, n4] made beforehand
+    (:func:`field_planes`)."""
+    return _field_product(bp, planes[0], planes[1], m)
+
+
 def prec_plain(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
                precision: str) -> torch.Tensor:
     """``_kernel_prec``'s function: planes lo[s*k + j] = (x[j] >> s) &
@@ -312,21 +382,21 @@ def prec_plain(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
         raise ValueError(f"precision {precision!r} is not one of "
                          f"{', '.join(PREC_KERNELS)}")
     shifts = torch.arange(8, dtype=torch.int32, device=x.device).view(8, 1, 1)
-    B = bp.to(torch.float64)
-    acc = []
+    planes = []
     for base in (0, 8):
-        planes = ((x.unsqueeze(0) >> (base + shifts)) & _FIELDS).reshape(
+        p = ((x.unsqueeze(0) >> (base + shifts)) & _FIELDS).reshape(
             8 * k, x.shape[1]).to(torch.float32)
-        if precision == "DEFAULT":
-            planes = _tf32_rna(planes)
-        # sums <= 8k * 65537 < 2^24 (k <= 16): exact in float32 too; z
-        # is wanted mod 2^32, where each byte holds one field's count
-        acc.append((B @ planes.to(torch.float64)).to(torch.int32))
-    pb = ((acc[0] + (acc[1] << 8)) & _BYTE_BIT0).view(m, 8, x.shape[1])
-    out = torch.zeros((m, x.shape[1]), dtype=torch.int32, device=x.device)
-    for l in range(8):
-        out |= pb[:, l] << l
-    return out
+        planes.append(_tf32_rna(p) if precision == "DEFAULT" else p)
+    return _field_product(bp, *planes, m)
+
+
+def split_plain(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
+                parts: int) -> torch.Tensor:
+    """``_kernel_split``'s function at HIGHEST: ``parts`` cuts each tile
+    into column chunks, which changes the schedule and not the function,
+    so every ``parts`` gives ``prec_plain``'s HIGHEST result."""
+    _split_parts("split_plain", parts)
+    return prec_plain(bp, x, k, m, "HIGHEST")
 
 
 # ---------------------------------------------------------------------------
@@ -558,4 +628,109 @@ def prec_product(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
     if x.shape[1]:
         _launch(name, device, x.data_ptr(), bp.data_ptr(), out.data_ptr(),
                 k, m, x.shape[1], tile)
+    return out
+
+
+def _split_parts(name: str, parts: int) -> None:
+    if parts not in SPLIT_PARTS:
+        raise ValueError(f"{name}: parts {parts} is not one of "
+                         f"{', '.join(map(str, SPLIT_PARTS))}")
+
+
+def split_product(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
+                  precision: str, parts: int,
+                  tile: int = PREC_TILES[1]) -> torch.Tensor:
+    """``_kernel_split``: bp [8m, 8k] float32 0/1 x lanes [k, n4] -> parity
+    lanes [m, n4], each tile of ``tile`` lanes cut into ``parts`` column
+    chunks.  At parts 1 the function is ``_kernel_prec``'s, so it is
+    :func:`prec_product` at any precision; parts 2, 4 and 8 run at
+    "HIGHEST" only (``sweep_split_f32``: a thread carries one lane of each
+    chunk, ``tile / parts`` lanes apart), with ``tile`` a positive
+    multiple of 32 * parts."""
+    name = "sweep_split_f32"
+    _split_parts(name, parts)
+    if parts == 1:
+        return prec_product(bp, x, k, m, precision, tile)
+    if precision != "HIGHEST":
+        raise ValueError(f"{name}: parts {parts} at precision {precision!r}; "
+                         "parts > 1 runs at HIGHEST only")
+    device = _dot_operands(name, bp, torch.float32, (8 * m, 8 * k), x, k, m)
+    max_k, max_m = PREC_LIMITS["sweep_prec_f32"]
+    if not (1 <= k <= max_k and 1 <= m <= max_m):
+        raise ValueError(f"{name}: k={k} m={m}; the kernel takes "
+                         f"k <= {max_k} and m <= {max_m}")
+    if tile <= 0 or tile % (32 * parts):
+        raise ValueError(f"{name}: tile {tile} is not a positive multiple "
+                         f"of 32 * parts = {32 * parts} lanes")
+    _check_binary(name, bp)
+    if device.type == "cpu":
+        return split_plain(bp, x, k, m, parts)
+    out = torch.empty((m, x.shape[1]), dtype=torch.int32, device=device)
+    if x.shape[1]:
+        _launch(name, device, x.data_ptr(), bp.data_ptr(), out.data_ptr(),
+                k, m, x.shape[1], tile, parts)
+    return out
+
+
+def extract_fold(x: torch.Tensor, k: int, m: int) -> torch.Tensor:
+    """``_extract_kernel``: lanes [k, n4] int32 -> [m, n4], the planes of
+    all k rows folded into m rows (:func:`extract_fold_plain`).  Takes m <=
+    ``FOLD_MAX_M`` dividing 8k, and refuses 16k/m * 65537 >= 2^24, where the
+    TPU's f32 sum is no longer exact."""
+    name = "sweep_extract_fold"
+    device = _check(name, lanes=(x, torch.int32))
+    if x.shape[0] != k:
+        raise ValueError(f"{name}: lanes {tuple(x.shape)} do not fit k={k}")
+    if not (k >= 1 and 1 <= m <= FOLD_MAX_M):
+        raise ValueError(f"{name}: k={k} m={m}; the kernel takes "
+                         f"m <= {FOLD_MAX_M}")
+    if (8 * k) % m:
+        raise ValueError(f"{name}: m={m} does not divide 8k={8 * k}")
+    if 16 * k // m * 65537 >= 1 << 24:
+        raise ValueError(f"{name}: 16k/m={16 * k // m} fields of up to 65537 "
+                         "reach 2^24, where a float32 sum is not exact")
+    if device.type == "cpu":
+        return extract_fold_plain(x, k, m)
+    out = torch.empty((m, x.shape[1]), dtype=torch.int32, device=device)
+    if x.shape[1]:
+        _launch(name, device, x.data_ptr(), out.data_ptr(), k, m, x.shape[1])
+    return out
+
+
+def planes_product(bp: torch.Tensor, planes: torch.Tensor, k: int, m: int,
+                   tile: int = PREC_TILES[0]) -> torch.Tensor:
+    """``_mxu_kernel``: bp [8m, 8k] float32 0/1 x planes [2, 8k, n4]
+    float32 (:func:`field_planes`) -> parity lanes [m, n4], the HIGHEST
+    product and epilogue of ``prec_product`` without the extraction
+    (``sweep_planes_f32``).  A block takes ``tile`` lanes (a positive
+    multiple of 32) per step of its walk."""
+    name = "sweep_planes_f32"
+    if planes.dtype != torch.float32:
+        raise TypeError(f"{name}: planes must be torch.float32, got "
+                        f"{planes.dtype}")
+    if (planes.dim() != 3 or tuple(planes.shape[:2]) != (2, 8 * k)
+            or not planes.is_contiguous()):
+        raise ValueError(f"{name}: planes must be a contiguous [2, {8 * k}, "
+                         f"n4] tensor, got {tuple(planes.shape)}")
+    device = _check(name, table=(bp, torch.float32),
+                    planes=(planes.view(16 * k, planes.shape[2]),
+                            torch.float32))
+    if tuple(bp.shape) != (8 * m, 8 * k):
+        raise ValueError(f"{name}: table {tuple(bp.shape)} does not fit k={k} "
+                         f"m={m}")
+    max_k, max_m = PREC_LIMITS["sweep_prec_f32"]
+    if not (1 <= k <= max_k and 1 <= m <= max_m):
+        raise ValueError(f"{name}: k={k} m={m}; the kernel takes "
+                         f"k <= {max_k} and m <= {max_m}")
+    if tile <= 0 or tile % 32:
+        raise ValueError(f"{name}: tile {tile} is not a positive multiple "
+                         "of 32 lanes")
+    _check_binary(name, bp)
+    if device.type == "cpu":
+        return planes_plain(bp, planes, k, m)
+    n4 = planes.shape[2]
+    out = torch.empty((m, n4), dtype=torch.int32, device=device)
+    if n4:
+        _launch(name, device, planes.data_ptr(), bp.data_ptr(),
+                out.data_ptr(), k, m, n4, tile)
     return out

@@ -81,12 +81,15 @@ OP_RATES = {
     "sweep_prec_f32": ("fp32", FP32_OPS_PER_S),
     "sweep_prec_tf32x3": ("tf32", TF32_OPS_PER_S),
     "sweep_prec_tf32": ("tf32", TF32_OPS_PER_S),
+    "sweep_split_f32": ("fp32", FP32_OPS_PER_S),
+    "sweep_planes_f32": ("fp32", FP32_OPS_PER_S),
 }
 #: [8m, 8k] x [8k, n4] products the function of each product kernel needs:
 #: one per byte position, or lo and hi field planes
 PRODUCTS = {**dict.fromkeys(("sweep_int8_4dot", "sweep_bf16_4dot",
                              "sweep_f32_4dot", "sweep_bf16_blockdiag"), 4),
-            **dict.fromkeys(sweep_gf.PREC_KERNELS.values(), 2)}
+            **dict.fromkeys((*sweep_gf.PREC_KERNELS.values(),
+                             "sweep_split_f32", "sweep_planes_f32"), 2)}
 
 #: chunk bytes of a ``--device cpu`` run, whatever ``--size-mib`` says
 CPU_CHUNK = 256 << 10
@@ -112,12 +115,16 @@ def work(kernel: str, k: int, m: int, n4: int,
     counted twice, whatever more a kernel chooses to do (the block-diagonal
     product's zero blocks).  The bit-sliced kernels and the XOR network
     count no operations: the data sheet gives no rate for bitwise integer
-    work."""
+    work.  ``sweep_extract_fold`` reads all k rows; ``sweep_planes_f32``
+    reads 2 * 8k rows of float32 planes in place of the k rows of lanes."""
     lane_row = n4 * cuda_gf.LANE_BYTES
     if kernel in ("sweep_copy", "sweep_extract"):
         return 2 * m * lane_row, 0
+    if kernel == "sweep_extract_fold":
+        return (k + m) * lane_row, 0
     ops = 2 * PRODUCTS.get(kernel, 0) * (8 * m) * (8 * k) * n4
-    return (k + m) * lane_row + table_bytes, ops
+    rows_in = 2 * 8 * k if kernel == "sweep_planes_f32" else k
+    return (rows_in + m) * lane_row + table_bytes, ops
 
 
 def bound_ms(nbytes: int, ops: int = 0,
@@ -169,12 +176,66 @@ def time_ms(fn, iters: int, device: torch.device) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _parse(argv):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def sweep_data(size_mib: int, device_name: str):
+    """(device, bitmatrix, data bytes [k, chunk] uint8, their lanes [k,
+    chunk/4] int32 on the device) of a run of the port's sweep tools:
+    reed_sol_van k=8 m=4 w=8 over ``size_mib`` MiB chunks of bytes seeded
+    as the JAX tools seed them.  Prints the device; on the CPU the chunk
+    shrinks to ``CPU_CHUNK`` and the line says the numbers are not the
+    card's."""
+    device = resolve_device(device_name)
+    if device.type == "cuda":
+        chunk = size_mib << 20
+        print(f"device: {torch.cuda.get_device_name(device)}", flush=True)
+    else:
+        chunk = min(size_mib << 20, CPU_CHUNK)
+        print(f"device: cpu  (NOT the card -- plain versions at {chunk} B "
+              "chunks; the numbers are smoke-test only)", flush=True)
+    bits = matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, W), W)
+    rng = np.random.RandomState(0)
+    data_np = rng.randint(0, 256, size=(K, chunk), dtype=np.uint8)
+    d32 = torch.from_numpy(data_np.view(np.int32)).to(device)
+    return device, bits, data_np, d32
+
+
+def row_timer(iters: int, device: torch.device, payload_bytes: int,
+              n4: int):
+    """``timed(label, verdict, kernel, fn, table_bytes)``: time ``fn`` over
+    ``iters`` calls (:func:`time_ms`) and print one row: the payload rate
+    (``payload_bytes`` over the mean time, the JAX tools' unit), the mean
+    ms and, on the card, the kernel's bound over lanes [K, n4] and the share
+    of it reached."""
+    on_card = device.type == "cuda"
+
+    def timed(label, verdict, kernel, fn, table_bytes) -> None:
+        bound, by, _, _ = kernel_bound_ms(kernel, K, M, n4, table_bytes)
+        ms = time_ms(fn, iters, device)
+        gibs = payload_bytes / (ms / 1e3) / 2**30
+        # the bound is the card's: a CPU row does not stand beside it
+        against = (f"  bound {bound:.4f} ms ({by})  {bound / ms:7.1%} of "
+                   "bound" if on_card else "  (cpu)")
+        print(f"{label} {verdict} {gibs:9.2f} GiB/s  {ms:.4f} ms{against}",
+              flush=True)
+
+    return timed
+
+
+def tool_parser(description: str) -> argparse.ArgumentParser:
+    """The arguments of every sweep tool (this one, ``kernel_r4_split``,
+    ``kernel_r4_probe``): ``--size-mib``, ``--iters``, ``--device``."""
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--size-mib", type=int, default=8,
                     help="chunk MiB per data row (default 8: lanes "
                          "[8, 2097152])")
     ap.add_argument("--iters", type=int, default=512)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (plain versions, smoke "
+                         "test only)")
+    return ap
+
+
+def _parse(argv):
+    ap = tool_parser(__doc__.splitlines()[0])
     ap.add_argument("--tile", type=int, default=sweep_gf.DEFAULT_TILE,
                     help="lanes per shared-memory stage of the pipelined "
                          "kernel (a multiple of 4)")
@@ -185,9 +246,6 @@ def _parse(argv):
                     help=f"comma-separated variant and probe rows to run "
                          f"(default all: {', '.join([*VARIANTS, *PROBES])}); "
                          "naming any skips the precision stage")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu (plain versions, smoke "
-                         "test only)")
     return ap.parse_args(argv)
 
 
@@ -234,20 +292,7 @@ def main(argv=None) -> int:
     if refused:
         print(f"ec_kernel_sweep: {refused}", file=sys.stderr)
         return 2
-    device = resolve_device(args.device)
-    on_card = device.type == "cuda"
-    if on_card:
-        chunk = args.size_mib << 20
-        print(f"device: {torch.cuda.get_device_name(device)}", flush=True)
-    else:
-        chunk = min(args.size_mib << 20, CPU_CHUNK)
-        print(f"device: cpu  (NOT the card -- plain versions at {chunk} B "
-              "chunks; the numbers are smoke-test only)", flush=True)
-
-    bits = matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, W), W)
-    rng = np.random.RandomState(0)
-    data_np = rng.randint(0, 256, size=(K, chunk), dtype=np.uint8)
-    d32 = torch.from_numpy(data_np.view(np.int32)).to(device)
+    device, bits, data_np, d32 = sweep_data(args.size_mib, args.device)
     n4 = d32.shape[1]
     masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(device)
     bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, K)).to(device)
@@ -261,16 +306,7 @@ def main(argv=None) -> int:
               "bf16_4dot": bp16, "f32_4dot": bp32, "bf16_blockdiag": bblk}
     print(f"reed_sol_van k={K} m={M} w={W}, lanes [{K}, {n4}], "
           f"{args.iters} iters, tile {args.tile}", flush=True)
-
-    def timed(label, verdict, kernel, fn, table_bytes) -> None:
-        bound, by, _, _ = kernel_bound_ms(kernel, K, M, n4, table_bytes)
-        ms = time_ms(fn, args.iters, device)
-        gibs = data_np.nbytes / (ms / 1e3) / 2**30
-        # the bound is the card's: a CPU row does not stand beside it
-        against = (f"  bound {bound:.4f} ms ({by})  {bound / ms:7.1%} of "
-                   "bound" if on_card else "  (cpu)")
-        print(f"{label} {verdict} {gibs:9.2f} GiB/s  {ms:.4f} ms{against}",
-              flush=True)
+    timed = row_timer(args.iters, device, data_np.nbytes, n4)
 
     def row(name, fn, want, oracle) -> int:
         if not torch.equal(fn(), want):

@@ -22,16 +22,24 @@ Phases (any failure raises and exits non-zero):
    rise during its profile.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased).
-5. The kernel sweep's eleven kernels (``csrc/sweep_kernels.cu`` and
+5. The fourteen sweep kernels (``csrc/sweep_kernels.cu`` and
    ``csrc/xornet_kernel.cu``) against their plain versions at the sweep's
    shape, lanes [8, 2097152], and at a ragged one: ``sweep_xornet`` for
    reed_sol_van and for cauchy_good k=8 m=4 (a second library, built for
    that bitmatrix), the three ``sweep_prec_*`` kernels at tiles 4096 and
-   16384.  Then the port's kernel sweep (``ec_kernel_sweep.main``, all
-   three stages) at 8 MiB chunks, which must exit 0 with every variant
-   and probe row bit-exact, the HIGHEST and HIGH precision rows bit-exact
-   and the DEFAULT rows MISMATCH.  These eleven kernels' launches are
-   counted during the sweep.
+   16384, ``sweep_split_f32`` at parts 2 (tile 8192) and parts 4 and 8
+   (tile 16384), ``sweep_planes_f32`` over the 1 GiB of ``field_planes``
+   (freed after use).  Then the port's kernel sweep
+   (``ec_kernel_sweep.main``, all three stages) at 8 MiB chunks, which
+   must exit 0 with every variant and probe row bit-exact, the HIGHEST and
+   HIGH precision rows bit-exact and the DEFAULT rows MISMATCH.  The first
+   eleven sweep kernels' launches are counted during the sweep.
+6. The port's split-chain and split-cost probes (``kernel_r4_split.main``,
+   ``kernel_r4_probe.main``) at 8 MiB chunks, each of which must exit 0:
+   split2, split4 and split8 bit-exact and split1 DEFAULT MISMATCH; full,
+   extract-only and mxu-only bit-exact.  ``sweep_split_f32``,
+   ``sweep_extract_fold`` and ``sweep_planes_f32``'s launches are counted
+   during these runs.
 
 The kernel sources build at once, one ``nvcc`` each (the XOR network's for
 reed_sol_van k=8 m=4).  It prints the ``kernels`` JSON line and, last, the
@@ -57,7 +65,8 @@ from ceph_tpu_torch.matrices.bitmatrix import matrix_to_bitmatrix
 from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 from ceph_tpu_torch.ops.pipeline import DeviceStream
 from ceph_tpu_torch.plugins import registry as registry_mod
-from ceph_tpu_torch.tools import ec_benchmark, ec_kernel_sweep
+from ceph_tpu_torch.tools import (ec_benchmark, ec_kernel_sweep,
+                                  kernel_r4_probe, kernel_r4_split)
 
 #: H100 SXM published memory rate (NVIDIA data sheet) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -96,18 +105,26 @@ SWEEP_REPLACES = {
     "sweep_prec_f32": "experiments/kernel_r4.py:315",
     "sweep_prec_tf32x3": "experiments/kernel_r4.py:315",
     "sweep_prec_tf32": "experiments/kernel_r4.py:315",
+    "sweep_split_f32": "experiments/kernel_r4_split.py:51",
+    "sweep_extract_fold": "experiments/kernel_r4_probe.py:38",
+    "sweep_planes_f32": "experiments/kernel_r4_probe.py:54",
 }
+#: the kernels that phase 6's probe tools run, and count
+PROBE_KERNELS = ("sweep_split_f32", "sweep_extract_fold", "sweep_planes_f32")
 XORNET_SOURCE_PATH = "ceph_tpu_torch/csrc/xornet_kernel.cu"
 #: why a sweep kernel has no library call to time beside it
 _PRODUCT = "no single PyTorch call computes extraction + product + parity"
 NO_LIBRARY = {
     "sweep_extract": "no single PyTorch call computes the 16 shifted "
                      "field sums",
+    "sweep_extract_fold": "no single PyTorch call computes the folded "
+                          "field sums",
     "sweep_pipelined_w8": "no single PyTorch call computes a GF(2) "
                           "bitmatrix product",
     **dict.fromkeys(("sweep_int8_4dot", "sweep_bf16_4dot", "sweep_f32_4dot",
                      "sweep_bf16_blockdiag", "sweep_prec_f32",
-                     "sweep_prec_tf32x3", "sweep_prec_tf32"), _PRODUCT),
+                     "sweep_prec_tf32x3", "sweep_prec_tf32",
+                     "sweep_split_f32", "sweep_planes_f32"), _PRODUCT),
     "sweep_xornet": "no single PyTorch call computes a GF(2) bitmatrix "
                     "product",
 }
@@ -232,8 +249,10 @@ def _sweep_bits():
 
 def _sweep_cases(dev):
     """name -> (kernel, plain version, library call or None, bytes of its
-    coding table) over lanes x, for reed_sol_van k=8 m=4 w=8 as the sweep
-    runs it (the precision kernels at tile 4096)."""
+    coding table) over lanes x (over ``PREP[name](x)`` where PREP names the
+    kernel), for reed_sol_van k=8 m=4 w=8 as the sweep and its probes run
+    it (the precision kernels at tile 4096, ``sweep_split_f32`` as split2:
+    parts 2, tile 8192)."""
     bits = _sweep_bits()
     xornet = sweep_gf.make_xornet(bits, K, M)
     masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(dev)
@@ -273,13 +292,31 @@ def _sweep_cases(dev):
                                                     sweep_gf.PREC_TILES[0]),
             lambda x, p=prec: sweep_gf.prec_plain(bp32, x, K, M, p), None,
             bp32.nbytes) for prec, name in sweep_gf.PREC_KERNELS.items()},
+        "sweep_split_f32": (
+            lambda x: sweep_gf.split_product(bp32, x, K, M, "HIGHEST", 2,
+                                             8192),
+            lambda x: sweep_gf.split_plain(bp32, x, K, M, 2), None,
+            bp32.nbytes),
+        "sweep_extract_fold": (lambda x: sweep_gf.extract_fold(x, K, M),
+                               lambda x: sweep_gf.extract_fold_plain(x, K, M),
+                               None, 0),
+        "sweep_planes_f32": (
+            lambda p: sweep_gf.planes_product(bp32, p, K, M,
+                                              kernel_r4_probe.PLANES_TILE),
+            lambda p: sweep_gf.planes_plain(bp32, p, K, M), None,
+            bp32.nbytes),
     }
+
+
+#: kernel -> its operand made from the lanes, outside the timed calls
+PREP = {"sweep_planes_f32": lambda x: sweep_gf.field_planes(x, K)}
 
 
 def _sweep_more_cases(dev):
     """name -> [(label, kernel, plain version)]: the same kernels at the
-    other precision tile, and the XOR network of a second bitmatrix
-    (cauchy_good k=8 m=4 w=8: another generated library)."""
+    other precision tile, ``sweep_split_f32`` at the probe's other parts,
+    and the XOR network of a second bitmatrix (cauchy_good k=8 m=4 w=8:
+    another generated library)."""
     bits = matrix_to_bitmatrix(cauchy.good_general_coding_matrix(K, M, 8), 8)
     xornet = sweep_gf.make_xornet(bits, K, M)
     bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(_sweep_bits(),
@@ -294,6 +331,12 @@ def _sweep_more_cases(dev):
             lambda x, p=prec: sweep_gf.prec_product(bp32, x, K, M, p, tile),
             lambda x, p=prec: sweep_gf.prec_plain(bp32, x, K, M, p))]
            for prec, name in sweep_gf.PREC_KERNELS.items()},
+        "sweep_split_f32": [(
+            f"parts {parts} tile {tile}",
+            lambda x, parts=parts: sweep_gf.split_product(
+                bp32, x, K, M, "HIGHEST", parts, tile),
+            lambda x, parts=parts: sweep_gf.split_plain(bp32, x, K, M, parts))
+            for parts in (4, 8)],
     }
 
 
@@ -307,10 +350,12 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
                           dtype=torch.uint8, device=dev, generator=gen
                           ).view(torch.int32)
         for name, (kern, plain, library, table_bytes) in cases.items():
-            a, b = kern(x), plain(x)
+            arg = PREP[name](x) if name in PREP else x
+            a, b = kern(arg), plain(arg)
             torch.cuda.synchronize()
-            # extract's lanes are counts; the other outputs are bytes
-            if name == "sweep_extract":
+            # the extraction probes' lanes are counts; the other outputs
+            # are bytes
+            if name in ("sweep_extract", "sweep_extract_fold"):
                 err = (a.long() - b.long()).abs()
             else:
                 err = (a.view(torch.uint8).int() - b.view(torch.uint8).int()
@@ -335,13 +380,15 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
             if n4 != SWEEP_N4:
                 print(f"[sweep-kernel] {name} lanes {tuple(x.shape)}: "
                       "bit-exact (ragged)", flush=True)
+                del arg
                 continue
             bound, by, nbytes, ops = ec_kernel_sweep.kernel_bound_ms(
                 name, K, M, n4, table_bytes)
-            ms = _time_ms(lambda: kern(x), 20, flush)
-            plain_ms = _time_ms(lambda: plain(x), 3, flush)
+            ms = _time_ms(lambda: kern(arg), 20, flush)
+            plain_ms = _time_ms(lambda: plain(arg), 3, flush)
             library_ms = (None if library is None
-                          else _time_ms(lambda: library(x), 20, flush))
+                          else _time_ms(lambda: library(arg), 20, flush))
+            del arg
             results[name] = {
                 "name": name, "route": "cuda",
                 "source": (XORNET_SOURCE_PATH if name == "sweep_xornet"
@@ -363,19 +410,27 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
     return results
 
 
+def _tool_lines(tool, argv) -> list:
+    """Run ``tool.main(argv)`` in-process; its output lines, printed with a
+    tag.  Fails unless it exits 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(argv)
+    out = buf.getvalue().strip().splitlines()
+    tag = tool.__name__.rsplit(".", 1)[-1]
+    for line in out:
+        print(f"[{tag}] {line}", flush=True)
+    assert rc == 0, f"{tag} exited {rc}"
+    return out
+
+
 def phase_sweep(card: str) -> dict:
     """The port's kernel sweep at 8 MiB chunks, all three stages; the
     sweep kernels' launches, counted from zero over this run."""
     argv = ["--size-mib", "8", "--iters", "48"]
     sweep_gf.reset_launches()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = ec_kernel_sweep.main(argv)
+    out = _tool_lines(ec_kernel_sweep, argv)
     launched = dict(sweep_gf.launches)
-    out = buf.getvalue().strip().splitlines()
-    for line in out:
-        print(f"[sweep] {line}", flush=True)
-    assert rc == 0, f"ec_kernel_sweep exited {rc}"
     for row in (*ec_kernel_sweep.VARIANTS, *ec_kernel_sweep.PROBES):
         assert any(line.split()[:2] == [row, "bit-exact"] for line in out), \
             f"ec_kernel_sweep: no bit-exact {row} row"
@@ -387,6 +442,28 @@ def phase_sweep(card: str) -> dict:
             f"ec_kernel_sweep: no {' '.join(want)} row"
     print(f"[sweep] {' '.join(argv)} exited 0; launches {launched}; card "
           f"{card}", flush=True)
+    return launched
+
+
+def phase_probes(card: str) -> dict:
+    """The port's split-chain and split-cost probes at 8 MiB chunks; the
+    launches of the kernels they add, counted from zero over these runs."""
+    argv = ["--size-mib", "8", "--iters", "48"]
+    sweep_gf.reset_launches()
+    out = _tool_lines(kernel_r4_split, argv)
+    for parts, tile, prec in kernel_r4_split.ROWS:
+        # one reduced-precision pass cannot hold 65537: DEFAULT mismatches
+        want = [f"split{parts}", f"tile={tile}", prec,
+                "MISMATCH" if prec == "DEFAULT" else "bit-exact"]
+        assert any(line.split()[:4] == want for line in out), \
+            f"kernel_r4_split: no {' '.join(want)} row"
+    out = _tool_lines(kernel_r4_probe, argv)
+    for row in kernel_r4_probe.ROWS:
+        assert any(line.startswith(f"{row:30s} bit-exact") for line in out), \
+            f"kernel_r4_probe: no bit-exact {row} row"
+    launched = {name: sweep_gf.launches[name] for name in PROBE_KERNELS}
+    print(f"[probes] {' '.join(argv)} exited 0 twice; launches {launched}; "
+          f"card {card}", flush=True)
     return launched
 
 
@@ -501,6 +578,7 @@ def main(argv=None) -> int:
     launched = dict(cuda_gf.launches)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
+    launched.update(phase_probes(card))
 
     for name, row in kernels.items():
         row["launches"] = launched[name]

@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-the ``cuda`` plugin against the numpy ``jerasure`` plugin, and the port's
-kernel sweep.
+the ``cuda`` plugin against the numpy ``jerasure`` plugin, the port's
+kernel sweep and its split-chain and split-cost probes.
 
 Marked ``cuda``; every test skips without a card.  Imports no JAX, so it
 also runs where JAX is not installed:
@@ -15,7 +15,7 @@ import torch
 from ceph_tpu_torch.matrices import bitmatrix, cauchy, reed_sol
 from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 from ceph_tpu_torch.plugins import registry
-from ceph_tpu_torch.tools import ec_kernel_sweep
+from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_probe, kernel_r4_split
 
 pytestmark = pytest.mark.cuda
 
@@ -228,6 +228,9 @@ def test_sweep_wrappers_count_launches_and_refuse_mixed_devices(dev):
     xornet(d)
     for prec in sweep_gf.PREC_KERNELS:
         sweep_gf.prec_product(bp32, d, 4, 2, prec)
+    sweep_gf.split_product(bp32, d, 4, 2, "HIGHEST", 2, 64)
+    sweep_gf.extract_fold(d, 4, 2)
+    sweep_gf.planes_product(bp32, sweep_gf.field_planes(d, 4), 4, 2)
     assert all(sweep_gf.launches[n] == before[n] + 1 for n in before)
 
 
@@ -335,3 +338,129 @@ def test_kernel_sweep_runs_on_the_card(dev, capsys):
         [f"prec={p}", f"tile={t}"] for p, t in ec_kernel_sweep.PRECISION_ROWS]
     for r in prec_rows:
         assert r[2] == ("MISMATCH" if r[0] == "prec=DEFAULT" else "bit-exact")
+
+
+# -- the split-chain and split-cost probes --------------------------------------
+
+
+def _prec_operands(code, k, m, dev):
+    bits = _code_bits(code, k, m)
+    bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, k)).to(dev)
+    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k)).to(dev)
+    return bp, masks
+
+
+@pytest.mark.parametrize("parts", [2, 4, 8])
+@pytest.mark.parametrize("k,m,n4,aligned", [
+    (8, 4, 4096, True),      # the probe's code
+    (8, 4, 100003, True),    # ragged: a last tile with empty chunks
+    (8, 4, 4096, False),     # a pointer off the 16-byte grid
+    (3, 2, 4099, True),
+    (5, 3, 1000, True),      # odd m: the last pass covers one row
+    (8, 4, 1, True),         # one lane
+    (16, 8, 777, True),      # the widest code the kernel takes
+    (7, 5, 333, False),
+])
+def test_split_kernel_matches_split_plain(dev, parts, k, m, n4, aligned):
+    rs = np.random.RandomState(k * 1000 + n4)
+    d = _lanes(rs, k, n4, dev)
+    if not aligned:
+        d = _unaligned(d)
+    bp, masks = _prec_operands("cauchy_good", k, m, dev)
+    want = sweep_gf.split_plain(bp, d, k, m, parts)
+    assert torch.equal(want, cuda_gf.matrix_encode_w8(masks, d, k, m))
+    # the smallest tile (chunks of one warp's 32 lanes, fewer than a
+    # block's threads) and the probe's two
+    for tile in (32 * parts, 8192, 16384):
+        got = sweep_gf.split_product(bp, d, k, m, "HIGHEST", parts, tile)
+        assert torch.equal(got, want), tile
+
+
+@pytest.mark.parametrize("prec", ["HIGHEST", "DEFAULT"])
+def test_split_parts_1_runs_the_precision_kernel(dev, prec):
+    d = _lanes(np.random.RandomState(3), 8, 5000, dev)
+    bp, _ = _prec_operands("reed_sol_van", 8, 4, dev)
+    name = sweep_gf.PREC_KERNELS[prec]
+    before = sweep_gf.launches[name]
+    got = sweep_gf.split_product(bp, d, 8, 4, prec, 1, 16384)
+    assert sweep_gf.launches[name] == before + 1
+    assert torch.equal(got, sweep_gf.prec_plain(bp, d, 8, 4, prec))
+
+
+@pytest.mark.parametrize("k,m,n4,aligned", [
+    (8, 4, 4096, True),      # the probe's code: m divides k
+    (8, 4, 100003, True),    # ragged
+    (8, 4, 4096, False),     # a pointer off the 16-byte grid
+    (3, 2, 4099, True),      # k = 1 (mod m): a plane's class follows s
+    (6, 3, 1000, True),
+    (2, 4, 50, True),        # k = 2 (mod 4)
+    (3, 8, 31, True),        # k = 3 (mod 8)
+    (9, 8, 333, False),
+    (15, 8, 777, True),      # 30 fields a class, the most at m = 8
+    (1, 1, 1, True),         # one lane, one class
+    (7, 7, 100, True),
+])
+def test_extract_fold_kernel_matches_plain_version(dev, k, m, n4, aligned):
+    rs = np.random.RandomState(k * 1000 + n4)
+    d = _lanes(rs, k, n4, dev)
+    if not aligned:
+        d = _unaligned(d)
+    assert torch.equal(sweep_gf.extract_fold(d, k, m),
+                       sweep_gf.extract_fold_plain(d, k, m))
+
+
+@pytest.mark.parametrize("tile", [4096, 16384])
+@pytest.mark.parametrize("k,m,n4,aligned", [
+    (8, 4, 4096, True),
+    (8, 4, 100003, True),    # ragged
+    (8, 4, 4096, False),     # planes off the 16-byte grid
+    (3, 2, 4099, True),
+    (5, 3, 1000, True),
+    (8, 4, 1, True),
+    (16, 8, 777, True),      # the widest code the kernel takes
+])
+def test_planes_kernel_matches_plain_version(dev, tile, k, m, n4, aligned):
+    rs = np.random.RandomState(k * 1000 + n4)
+    d = _lanes(rs, k, n4, dev)
+    bp, masks = _prec_operands("reed_sol_van", k, m, dev)
+    planes = sweep_gf.field_planes(d, k)
+    if not aligned:
+        planes = _unaligned(planes)
+    got = sweep_gf.planes_product(bp, planes, k, m, tile)
+    assert torch.equal(got, sweep_gf.planes_plain(bp, planes, k, m))
+    assert torch.equal(got, cuda_gf.matrix_encode_w8(masks, d, k, m))
+
+
+def test_probe_wrappers_refuse_what_their_kernels_do_not_take(dev):
+    d = torch.zeros((8, 64), dtype=torch.int32, device=dev)
+    bp = torch.zeros((32, 64), device=dev)
+    with pytest.raises(ValueError, match="HIGHEST only"):
+        sweep_gf.split_product(bp, d, 8, 4, "HIGH", 2)
+    with pytest.raises(ValueError, match="parts 3"):
+        sweep_gf.split_product(bp, d, 8, 4, "HIGHEST", 3)
+    with pytest.raises(ValueError, match="multiple of 32 \\* parts"):
+        sweep_gf.split_product(bp, d, 8, 4, "HIGHEST", 4, 4096 + 64)
+    with pytest.raises(ValueError, match="does not divide"):
+        sweep_gf.extract_fold(d[:3].contiguous(), 3, 5)
+    with pytest.raises(ValueError, match="not exact"):
+        sweep_gf.extract_fold(torch.zeros((16, 8), dtype=torch.int32,
+                                          device=dev), 16, 1)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        sweep_gf.planes_product(torch.zeros((8, 136), device=dev),
+                                torch.zeros((2, 136, 8), device=dev), 17, 1)
+    with pytest.raises(ValueError):
+        sweep_gf.planes_product(bp.cpu(), sweep_gf.field_planes(d, 8), 8, 4)
+
+
+def test_probe_tools_run_on_the_card(dev, capsys):
+    assert kernel_r4_split.main(["--size-mib", "1", "--iters", "4"]) == 0
+    rows = [line.split() for line in capsys.readouterr().out.splitlines()
+            if line.startswith("split")]
+    assert [r[:4] for r in rows] == [
+        [f"split{p}", f"tile={t}", prec,
+         "MISMATCH" if prec == "DEFAULT" else "bit-exact"]
+        for p, t, prec in kernel_r4_split.ROWS]
+    assert kernel_r4_probe.main(["--size-mib", "1", "--iters", "4"]) == 0
+    out = capsys.readouterr().out
+    for row in kernel_r4_probe.ROWS:
+        assert f"{row:30s} bit-exact" in out

@@ -3,7 +3,8 @@ imports JAX, the JAX package or the JAX package's tools and experiments.
 Checked twice: statically (an AST scan of every import) and at run time (a
 fresh interpreter in which ``jax``, ``ceph_tpu``, ``tools`` and
 ``experiments`` cannot be imported imports every port module and encodes
-and decodes one stripe, and runs the kernel sweep on the CPU)."""
+and decodes one stripe, and runs the kernel sweep and its two probe tools
+on the CPU)."""
 
 import ast
 import os
@@ -90,8 +91,9 @@ want = ref.encode(set(range(6)), payload)
 assert all(np.array_equal(enc[c], want[c]) for c in want)
 dec = ec.decode(set(range(6)), {c: enc[c] for c in (0, 2, 3, 5)})
 assert all(np.array_equal(dec[c], want[c]) for c in want)
-from ceph_tpu_torch.tools import ec_kernel_sweep
-assert ec_kernel_sweep.main(["--device", "cpu", "--iters", "1"]) == 0
+from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_probe, kernel_r4_split
+for tool in (ec_kernel_sweep, kernel_r4_split, kernel_r4_probe):
+    assert tool.main(["--device", "cpu", "--iters", "1"]) == 0
 assert not any(m in ("jax", "tools", "experiments")
                or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
                for m, mod in sys.modules.items() if mod is not None)
