@@ -16,8 +16,15 @@ packet_encode      pallas_gf._packet_kernel (:240)              gf2_packet
 
 Operands keep the TPU kernels' lane layout: data bytes ride int32 lanes of
 four little-endian bytes (``LANE_BYTES``), ``[rows, n4]``.  The bitmatrix is
-prepared on the host once per codec (``prep_*``) into int32 lane masks,
-``[bit-rows, input rows]``, the form the kernels AND against the lanes.
+prepared on the host once per codec or decode matrix (``prep_*``), into the
+form each kernel reads:
+
+- ``prep_matrix_w8``: int32 lane masks ``[m*8, k]``, ANDed against lanes;
+- ``prep_matrix_w16``: nibble tables ``[ceil(m/4), 128*k]`` int32, uint2
+  entries ``[group][j][nibble][value]`` holding the 16-bit words of four
+  output rows (gf-complete's SPLIT 16/4, derived from the bitmatrix alone);
+- ``prep_packet``: the ones of each output row, one int32 array
+  ``[offsets (r+1) | input-row indices (nnz)]`` (a CSR list).
 
 A wrapper launches its kernel for a CUDA tensor, or raises; for a CPU
 tensor it runs the plain PyTorch version beside it (``*_plain``), which the
@@ -56,12 +63,11 @@ SOURCE = CSRC / "gf_kernels.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: shared memory a block may take on Hopper with the opt-in attribute; a
-#: codec kernel stages one output group's masks ([G, C] int32) there at a
-#: time
+#: shared memory a block may take on Hopper with the opt-in attribute:
+#: ``gf2_matrix_w8`` stages one group's masks there ([8, k] int32),
+#: ``gf2_packet`` a tile of all its input rows, at least 8 lanes (32 bytes)
+#: of each
 SMEM_LIMIT = 227 * 1024
-#: bit-rows per output group of each kernel (``G`` in ``gf_kernels.cu``)
-_GROUP_ROWS = {"gf2_matrix_w8": 8, "gf2_matrix_w16": 16, "gf2_packet": 8}
 
 _lib_lock = threading.Lock()
 #: (source file name, build digest) -> its loaded library
@@ -195,44 +201,59 @@ def launch(source: str, signatures: Dict[str, tuple],
     counts[name] += 1
 
 
-def _launch(name: str, x: torch.Tensor, masks: torch.Tensor,
+def _launch(name: str, x: torch.Tensor, operand: torch.Tensor,
             out: torch.Tensor, a: int, b: int) -> None:
     launch(SOURCE.name, _SIGNATURES, launches, name, x.device, x.data_ptr(),
-           masks.data_ptr(), out.data_ptr(), a, b, x.shape[1])
+           operand.data_ptr(), out.data_ptr(), a, b, x.shape[1])
 
 
 # ---------------------------------------------------------------------------
-# host prep: bitmatrix -> int32 lane masks
+# host prep: bitmatrix -> each kernel's operand
 # ---------------------------------------------------------------------------
-
-
-def _word_masks(bitmatrix: np.ndarray, k: int, w: int) -> np.ndarray:
-    """[R, k*w] bitmatrix -> [R, k] masks, bit s of mask (r, j) =
-    bitmatrix[r, j*w + s], replicated to every w-bit field of a lane."""
-    R = bitmatrix.shape[0]
-    bits = np.asarray(bitmatrix, np.uint32).reshape(R, k, w)
-    mask = (bits << np.arange(w, dtype=np.uint32)).sum(-1, dtype=np.uint32)
-    fields = np.uint32(0x01010101 if w == 8 else 0x00010001)
-    return np.ascontiguousarray(mask * fields).view(np.int32)
 
 
 def prep_matrix_w8(bitmatrix: np.ndarray, k: int) -> np.ndarray:
-    """[m*8, k*8] jerasure bitmatrix -> [m*8, k] byte masks * 0x01010101."""
-    return _word_masks(bitmatrix, k, 8)
+    """[m*8, k*8] jerasure bitmatrix -> [m*8, k] byte masks * 0x01010101:
+    bit s of mask (r, j) = bitmatrix[r, j*8 + s], in every byte of a
+    lane."""
+    R = bitmatrix.shape[0]
+    bits = np.asarray(bitmatrix, np.uint32).reshape(R, k, 8)
+    mask = (bits << np.arange(8, dtype=np.uint32)).sum(-1, dtype=np.uint32)
+    return np.ascontiguousarray(mask * np.uint32(0x01010101)).view(np.int32)
 
 
 def prep_matrix_w16(bitmatrix: np.ndarray, k: int) -> np.ndarray:
-    """[m*16, k*16] jerasure bitmatrix -> [m*16, k] word masks * 0x00010001."""
-    return _word_masks(bitmatrix, k, 16)
+    """[m*16, k*16] jerasure bitmatrix -> nibble tables [ceil(m/4), 128*k]
+    int32: uint2 entry (g, j, p, v) holds T_ijp[v] for the output words i =
+    4g .. 4g+3, 16 bits each (i = 4g in the low half of the first int32),
+    where T_ijp[v] is the XOR over the bits s of v of column 16j + 4p + s
+    of rows 16i .. 16i+15.  Words of rows past m are zero."""
+    R = bitmatrix.shape[0]
+    groups = -(-R // 64)
+    B = np.zeros((groups * 64, k * 16), dtype=np.uint32)
+    B[:R] = np.asarray(bitmatrix) != 0
+    # col[i, j, p, s]: column 16j + 4p + s of output word i's 16 rows
+    bits = B.reshape(groups * 4, 16, k, 4, 4)
+    col = (bits << np.arange(16, dtype=np.uint32)[:, None, None, None]).sum(
+        1, dtype=np.uint32)
+    v = np.arange(16)
+    tab = np.zeros((groups * 4, k, 4, 16), dtype=np.uint32)
+    for s in range(4):
+        tab ^= col[..., s, None] * ((v >> s) & 1).astype(np.uint32)
+    tab = tab.reshape(groups, 4, k, 4, 16)
+    pairs = np.stack([tab[:, 0] | tab[:, 1] << 16, tab[:, 2] | tab[:, 3] << 16],
+                     axis=-1)
+    return np.ascontiguousarray(pairs.reshape(groups, k * 128)).view(np.int32)
 
 
 def prep_packet(bitmatrix: np.ndarray) -> np.ndarray:
-    """[R, C] 0/1 matrix -> [ceil(R/8)*8, C] masks of 0 or 0xFFFFFFFF (the
-    kernel works in groups of 8 output rows; padding rows are zero)."""
-    R, C = bitmatrix.shape
-    out = np.zeros((-(-R // 8) * 8, C), dtype=np.int32)
-    out[:R] = np.where(np.asarray(bitmatrix) != 0, -1, 0)
-    return out
+    """[R, C] 0/1 matrix -> int32 [R+1 offsets | nnz input-row indices]:
+    output row i is the XOR of the input rows ``idx[off[i]:off[i+1]]``
+    (``idx`` in ascending order; a row of zeros has an empty list)."""
+    B = np.asarray(bitmatrix) != 0
+    off = np.zeros(B.shape[0] + 1, dtype=np.int32)
+    np.cumsum(B.sum(1), out=off[1:])
+    return np.concatenate([off, np.nonzero(B)[1].astype(np.int32)])
 
 
 # ---------------------------------------------------------------------------
@@ -240,32 +261,56 @@ def prep_packet(bitmatrix: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _mask_bitmatrix(masks: torch.Tensor, w: int) -> torch.Tensor:
-    """Inverse of :func:`_word_masks`: [R, k] masks -> [R, k*w] 0/1."""
-    shifts = torch.arange(w, dtype=torch.int32, device=masks.device)
-    bits = (masks.unsqueeze(-1) >> shifts) & 1
-    return bits.reshape(masks.shape[0], -1).to(torch.uint8)
-
-
 def matrix_encode_w8_plain(masks: torch.Tensor, d32: torch.Tensor,
                            k: int, m: int) -> torch.Tensor:
-    B = _mask_bitmatrix(masks, 8)
+    # the bitmatrix back from the masks' low bytes
+    shifts = torch.arange(8, dtype=torch.int32, device=masks.device)
+    B = ((masks.unsqueeze(-1) >> shifts) & 1).reshape(m * 8, -1).to(
+        torch.uint8)
     return torch_gf._encode_words(B, d32.view(torch.uint8), 8).view(
         torch.int32)
 
 
-def matrix_encode_w16_plain(masks: torch.Tensor, d32: torch.Tensor,
+def _xor_rows(t: torch.Tensor) -> torch.Tensor:
+    """XOR of the rows of ``t`` [n, ...] (zeros for n = 0), by halving."""
+    if t.shape[0] == 0:
+        return torch.zeros(t.shape[1:], dtype=t.dtype, device=t.device)
+    while t.shape[0] > 1:
+        half = t.shape[0] // 2
+        folded = t[:half] ^ t[half:2 * half]
+        t = torch.cat([folded, t[2 * half:]]) if t.shape[0] % 2 else folded
+    return t[0]
+
+
+def matrix_encode_w16_plain(tables: torch.Tensor, d32: torch.Tensor,
                             k: int, m: int) -> torch.Tensor:
-    B = _mask_bitmatrix(masks, 16)
-    return torch_gf._encode_words(B, d32.view(torch.uint8), 16).view(
-        torch.int32)
+    """Through the nibble tables: each output word is the XOR over the
+    input words j and their nibbles p of the entry the nibble selects."""
+    t = tables.view(-1, k, 4, 16, 2)
+    # words[i, j, p, v]: the 16-bit word of output row i
+    words = torch.stack([t[..., 0] & 0xFFFF, (t[..., 0] >> 16) & 0xFFFF,
+                         t[..., 1] & 0xFFFF, (t[..., 1] >> 16) & 0xFFFF],
+                        dim=1).reshape(-1, k, 4, 16)[:m]
+    u = d32.view(torch.int16).to(torch.int32) & 0xFFFF  # [k, 2*n4] words
+    out = torch.zeros((m, u.shape[1]), dtype=torch.int32, device=d32.device)
+    for j in range(k):
+        for p in range(4):
+            nib = ((u[j] >> (4 * p)) & 15).long()
+            out ^= words[:, j, p, :][:, nib]
+    # 16-bit words as int16 (two's complement), two to an int32 lane
+    return (out - ((out & 0x8000) << 1)).to(torch.int16).view(torch.int32)
 
 
-def packet_encode_plain(masks: torch.Tensor, rows32: torch.Tensor,
+def packet_encode_plain(lists: torch.Tensor, rows32: torch.Tensor,
                         r: int) -> torch.Tensor:
-    B = (masks[:r] != 0).to(torch.uint8)
-    return torch_gf._encode_packet_bits(B, rows32.view(torch.uint8)).view(
-        torch.int32)
+    """Through the lists: output row i is the XOR of its listed rows."""
+    off = lists[:r + 1].tolist()
+    idx = lists[r + 1:].long()
+    out = torch.empty((r, rows32.shape[1]), dtype=torch.int32,
+                      device=rows32.device)
+    for i in range(r):
+        out[i] = _xor_rows(rows32[idx[off[i]:off[i + 1]]])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -273,34 +318,39 @@ def packet_encode_plain(masks: torch.Tensor, rows32: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, masks: torch.Tensor, x: torch.Tensor,
-           mask_shape, x_rows: int) -> None:
-    for what, t in (("masks", masks), ("lanes", x)):
+def _check(name: str, operand: torch.Tensor, x: torch.Tensor,
+           operand_dim: int, x_rows: int) -> None:
+    for what, t, dim in (("operand", operand, operand_dim), ("lanes", x, 2)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {what} must be int32, got {t.dtype}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be a contiguous 2-D tensor")
-    if tuple(masks.shape) != tuple(mask_shape):
-        raise ValueError(f"{name}: masks shape {tuple(masks.shape)} != "
-                         f"{tuple(mask_shape)}")
+        if t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous {dim}-D "
+                             "tensor")
     if x.shape[0] != x_rows:
         raise ValueError(f"{name}: lanes have {x.shape[0]} rows, want {x_rows}")
-    if masks.device != x.device:
-        raise ValueError(f"{name}: masks on {masks.device}, lanes on {x.device}")
+    if operand.device != x.device:
+        raise ValueError(f"{name}: operand on {operand.device}, lanes on "
+                         f"{x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    group_bytes = _GROUP_ROWS[name] * masks.shape[1] * 4
-    if group_bytes > SMEM_LIMIT:
-        raise ValueError(f"{name}: a group of {masks.shape[1]}-wide masks "
-                         f"takes {group_bytes} bytes, over the kernel's "
-                         f"{SMEM_LIMIT}-byte shared-memory table")
+
+
+def _check_shape(name: str, operand: torch.Tensor, shape) -> None:
+    if tuple(operand.shape) != tuple(shape):
+        raise ValueError(f"{name}: operand shape {tuple(operand.shape)} != "
+                         f"{tuple(shape)}")
 
 
 def matrix_encode_w8(masks: torch.Tensor, d32: torch.Tensor,
                      k: int, m: int) -> torch.Tensor:
     """masks [m*8, k] (``prep_matrix_w8``) x data lanes [k, n4] int32 ->
     parity lanes [m, n4] int32."""
-    _check("gf2_matrix_w8", masks, d32, (m * 8, k), k)
+    _check("gf2_matrix_w8", masks, d32, 2, k)
+    _check_shape("gf2_matrix_w8", masks, (m * 8, k))
+    if 8 * k * 4 > SMEM_LIMIT:
+        raise ValueError(f"gf2_matrix_w8: a group of {k}-wide masks takes "
+                         f"{8 * k * 4} bytes, over the kernel's "
+                         f"{SMEM_LIMIT}-byte shared-memory table")
     if d32.device.type == "cpu":
         return matrix_encode_w8_plain(masks, d32, k, m)
     out = torch.empty((m, d32.shape[1]), dtype=torch.int32, device=d32.device)
@@ -309,29 +359,38 @@ def matrix_encode_w8(masks: torch.Tensor, d32: torch.Tensor,
     return out
 
 
-def matrix_encode_w16(masks: torch.Tensor, d32: torch.Tensor,
+def matrix_encode_w16(tables: torch.Tensor, d32: torch.Tensor,
                       k: int, m: int) -> torch.Tensor:
-    """masks [m*16, k] (``prep_matrix_w16``) x data lanes [k, n4] int32 of
-    two LE uint16 words each -> parity lanes [m, n4] int32."""
-    _check("gf2_matrix_w16", masks, d32, (m * 16, k), k)
+    """nibble tables [ceil(m/4), 128*k] (``prep_matrix_w16``) x data lanes
+    [k, n4] int32 of two LE uint16 words each -> parity lanes [m, n4]
+    int32.  Any k and m: the kernel stages its tables in slices."""
+    _check("gf2_matrix_w16", tables, d32, 2, k)
+    _check_shape("gf2_matrix_w16", tables, (-(-m // 4), 128 * k))
     if d32.device.type == "cpu":
-        return matrix_encode_w16_plain(masks, d32, k, m)
+        return matrix_encode_w16_plain(tables, d32, k, m)
     out = torch.empty((m, d32.shape[1]), dtype=torch.int32, device=d32.device)
-    if d32.shape[1]:
-        _launch("gf2_matrix_w16", d32, masks, out, k, m)
+    if out.numel():
+        _launch("gf2_matrix_w16", d32, tables, out, k, m)
     return out
 
 
-def packet_encode(masks: torch.Tensor, rows32: torch.Tensor,
+def packet_encode(lists: torch.Tensor, rows32: torch.Tensor,
                   r: int) -> torch.Tensor:
-    """masks [ceil(r/8)*8, C] (``prep_packet``) x packet-row lanes [C, n4]
-    int32 -> [r, n4] int32 XOR combinations."""
+    """lists [r+1+nnz] (``prep_packet``) x packet-row lanes [C, n4] int32 ->
+    [r, n4] int32 XOR combinations."""
     c = rows32.shape[0] if rows32.dim() == 2 else -1
-    _check("gf2_packet", masks, rows32, (-(-r // 8) * 8, c), c)
+    _check("gf2_packet", lists, rows32, 1, c)
+    if not r + 1 <= lists.shape[0] <= r + 1 + r * c:
+        raise ValueError(f"gf2_packet: {lists.shape[0]} list entries for "
+                         f"{r} rows of {c} inputs")
+    if 32 * c > SMEM_LIMIT:
+        raise ValueError(f"gf2_packet: a tile of {c} rows x 8 lanes takes "
+                         f"{32 * c} bytes, over the kernel's {SMEM_LIMIT} "
+                         "bytes of shared memory")
     if rows32.device.type == "cpu":
-        return packet_encode_plain(masks, rows32, r)
+        return packet_encode_plain(lists, rows32, r)
     out = torch.empty((r, rows32.shape[1]), dtype=torch.int32,
                       device=rows32.device)
-    if rows32.shape[1]:
-        _launch("gf2_packet", rows32, masks, out, c, r)
+    if out.numel():
+        _launch("gf2_packet", rows32, lists, out, c, r)
     return out

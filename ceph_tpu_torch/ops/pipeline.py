@@ -72,7 +72,9 @@ class DeviceStream:
     Modes: ``w8``/``w16`` (the matrix kernels), ``packet`` (the packet
     kernel), all on int32 lanes; ``words`` (w=32 matrix codes, the plain
     words program, on bytes -- the reference has no TPU kernel for w=32
-    either).
+    either).  The resident operand ``_B`` is the kernel's prepared form of
+    B: lane masks (w8), nibble tables (w16), per-row lists of ones
+    (packet), or B itself (words).
     """
 
     def __init__(self, kind: str, B: np.ndarray, k: int, rows_out: int,

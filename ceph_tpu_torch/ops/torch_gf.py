@@ -167,9 +167,11 @@ def matrix_encode(matrix: np.ndarray, data: np.ndarray, w: int,
             prep, kern = cuda_gf.prep_matrix_w8, cuda_gf.matrix_encode_w8
         else:
             prep, kern = cuda_gf.prep_matrix_w16, cuda_gf.matrix_encode_w16
-        masks = _device_matrix(prep(B, k), dev)
+        # w=8: lane masks; w=16: nibble tables, made from B for encode and
+        # for every decode matrix alike
+        operand = _device_matrix(prep(B, k), dev)
         d32 = residency.device_put(data.view(np.int32), dev)
-        return residency.device_get(kern(masks, d32, k, m)).view(np.uint8)
+        return residency.device_get(kern(operand, d32, k, m)).view(np.uint8)
     out = _encode_words(_device_matrix(B, dev),
                         residency.device_put(data, dev), w)
     return residency.device_get(out)
@@ -247,9 +249,10 @@ def _encode_packets(B: np.ndarray, rows: np.ndarray,
 
     rows = np.ascontiguousarray(rows)
     if rows.shape[1] % cuda_gf.LANE_BYTES == 0:
-        masks = _device_matrix(cuda_gf.prep_packet(B), device)
+        # the ones of each row of B (an encode or a decode bitmatrix)
+        lists = _device_matrix(cuda_gf.prep_packet(B), device)
         r32 = residency.device_put(rows.view(np.int32), device)
-        out = cuda_gf.packet_encode(masks, r32, B.shape[0])
+        out = cuda_gf.packet_encode(lists, r32, B.shape[0])
         return residency.device_get(out).view(np.uint8)
     out = _encode_packet_bits(_device_matrix(B, device),
                               residency.device_put(rows, device))

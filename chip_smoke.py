@@ -9,9 +9,16 @@ Phases (any failure raises and exits non-zero):
    name and power limit (``nvidia-smi``).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, from seeded random bytes (half of them >= 0x80):
-   bit-exact, with kernel and plain times and the least time the card could
-   take for the same work.  Also a packet table too wide for the default
-   48 KiB of shared memory, which the kernels opt in to.
+   bit-exact, with kernel and plain times (beside the times of the codec
+   kernels' first, mask-table designs) and the least time the card could
+   take for the same work.  Then
+   ``gf2_packet`` and ``gf2_matrix_w16`` at edge shapes, each bit-exact
+   against its plain version: lanes n4 = 1, 1003 and 131072, a pointer
+   off the 16-byte grid, odd r and m, k = 1, all-zero bit-rows, the wide
+   packet codes (cauchy_good k=32 m=8, liberation k=17 w=31, a 1800-row
+   table), w=16 tables staged in slices (k = 100, k = 50 at m = 8) and in
+   passes (m = 12), and decode matrices (reed_sol_van w=16 with chunks 1
+   and 6 erased, cauchy_good's decoding bitmatrix).
 3. The main path through the port's registry: ``factory("cuda",
    reed_sol_van k=8 m=4)`` encodes 8 distinct random 8 MiB stripes with
    ``encode_batch``, decodes them with chunks 1 and 6 erased with
@@ -60,9 +67,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ceph_tpu_torch.matrices import cauchy, reed_sol
-from ceph_tpu_torch.matrices.bitmatrix import matrix_to_bitmatrix
+from ceph_tpu_torch.matrices import cauchy, liberation, reed_sol
+from ceph_tpu_torch.matrices.bitmatrix import (matrix_to_bitmatrix,
+                                               survivor_decode_bitmatrix)
 from ceph_tpu_torch.ops import cuda_gf, sweep_gf
+from ceph_tpu_torch.ops.gf import gf
 from ceph_tpu_torch.ops.pipeline import DeviceStream
 from ceph_tpu_torch.plugins import registry as registry_mod
 from ceph_tpu_torch.tools import (ec_benchmark, ec_kernel_sweep,
@@ -92,6 +101,11 @@ REPLACES = {
     "gf2_matrix_w16": "ceph_tpu/ops/pallas_gf.py:153",
     "gf2_packet": "ceph_tpu/ops/pallas_gf.py:240",
 }
+#: each codec kernel's flushed time at this phase's shape in its first,
+#: bit-sliced mask-table design (``gf2_matrix_w8``'s is still its design;
+#: NVIDIA H100 80GB HBM3 at 700 W), printed beside the time measured now
+MASK_TABLE_MS = {"gf2_matrix_w8": 0.0970, "gf2_matrix_w16": 0.0998,
+                 "gf2_packet": 0.1029}
 SWEEP_SOURCE = "ceph_tpu_torch/csrc/sweep_kernels.cu"
 SWEEP_REPLACES = {
     "sweep_copy": "tools/ec_kernel_sweep.py:117",
@@ -169,33 +183,34 @@ def _kernel_case(name, ec, batch, dev, gen):
     if name == "gf2_packet":
         B = ec.bitmatrix
         stream = DeviceStream("packet", B, K, M, ec.w, ec.packetsize, dev)
-        masks_np, rows_in, rows_out = cuda_gf.prep_packet(B), bit_cols, bit_rows
+        op_np, rows_in, rows_out = cuda_gf.prep_packet(B), bit_cols, bit_rows
     else:
         B = matrix_to_bitmatrix(ec.matrix, ec.w)
         stream = DeviceStream("matrix", B, K, M, ec.w, device=dev)
         prep = cuda_gf.prep_matrix_w8 if ec.w == 8 else cuda_gf.prep_matrix_w16
-        masks_np, rows_in, rows_out = prep(B, K), K, M
+        op_np, rows_in, rows_out = prep(B, K), K, M
     cols = batch * stream.cols_of(chunk)
-    masks = torch.from_numpy(masks_np).to(dev)
+    # lane masks (w=8), nibble tables (w=16) or per-row lists (packet)
+    op = torch.from_numpy(op_np).to(dev)
     x = torch.randint(0, 256, (rows_in, cols * cuda_gf.LANE_BYTES),
                       dtype=torch.uint8, device=dev, generator=gen
                       ).view(torch.int32)
     if name == "gf2_matrix_w8":
-        kern = lambda: cuda_gf.matrix_encode_w8(masks, x, K, M)  # noqa: E731
-        plain = lambda: cuda_gf.matrix_encode_w8_plain(masks, x, K, M)  # noqa: E731
+        kern = lambda: cuda_gf.matrix_encode_w8(op, x, K, M)  # noqa: E731
+        plain = lambda: cuda_gf.matrix_encode_w8_plain(op, x, K, M)  # noqa: E731
     elif name == "gf2_matrix_w16":
-        kern = lambda: cuda_gf.matrix_encode_w16(masks, x, K, M)  # noqa: E731
-        plain = lambda: cuda_gf.matrix_encode_w16_plain(masks, x, K, M)  # noqa: E731
+        kern = lambda: cuda_gf.matrix_encode_w16(op, x, K, M)  # noqa: E731
+        plain = lambda: cuda_gf.matrix_encode_w16_plain(op, x, K, M)  # noqa: E731
     else:
-        kern = lambda: cuda_gf.packet_encode(masks, x, rows_out)  # noqa: E731
-        plain = lambda: cuda_gf.packet_encode_plain(masks, x, rows_out)  # noqa: E731
+        kern = lambda: cuda_gf.packet_encode(op, x, rows_out)  # noqa: E731
+        plain = lambda: cuda_gf.packet_encode_plain(op, x, rows_out)  # noqa: E731
     # least time: each input byte read once, each output byte written once,
     # over the memory rate.  No operations term: the data sheet gives no
     # rate for bitwise integer work, and counting the product as int8
     # multiply-adds would price a tensor-core formulation these kernels do
     # not use, not the least work the function needs
     row_bytes = x.shape[1] * cuda_gf.LANE_BYTES
-    nbytes = (rows_in + rows_out) * row_bytes + masks.numel() * 4
+    nbytes = (rows_in + rows_out) * row_bytes + op.numel() * 4
     return kern, plain, x, nbytes
 
 
@@ -220,27 +235,120 @@ def phase_kernels(reg, dev, gen, flush) -> dict:
             "library_ms": None,
         }
         print(f"[kernel] {name} ({label}) lanes {tuple(x.shape)}: bit-exact, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"kernel {ms:.4f} ms (mask-table design: "
+              f"{MASK_TABLE_MS[name]:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound "
               f"{results[name]['bound_ms']:.4f} ms (bytes; {nbytes} bytes), "
               "library_ms null: no single PyTorch call computes a GF(2) "
               "bitmatrix product", flush=True)
         del a, b, x
-    # a packet table whose group of 8 mask rows is over the default 48 KiB
-    # of shared memory per block (1800 input rows: 57600 bytes), as a wide
-    # cauchy or liberation code gives
-    rows_in, rows_out = 1800, 12
-    B = torch.randint(0, 2, (rows_out, rows_in), generator=gen, device=dev,
-                      dtype=torch.uint8).cpu().numpy()
-    masks = torch.from_numpy(cuda_gf.prep_packet(B)).to(dev)
-    x = torch.randint(0, 256, (rows_in, 4 * 4099), dtype=torch.uint8,
-                      device=dev, generator=gen).view(torch.int32)
-    assert torch.equal(cuda_gf.packet_encode(masks, x, rows_out),
-                       cuda_gf.packet_encode_plain(masks, x, rows_out)), \
-        "gf2_packet: kernel != plain version at a 57600-byte mask group"
-    print(f"[kernel] gf2_packet lanes {tuple(x.shape)}, {rows_out} rows: "
-          "bit-exact with a mask group over 48 KiB of shared memory",
-          flush=True)
     return results
+
+
+def _lanes(gen, dev, rows, n4, aligned=True):
+    """Seeded random lanes [rows, n4]; unaligned: a contiguous copy whose
+    data starts 4 bytes past a 16-byte boundary."""
+    x = torch.randint(0, 256, (rows, n4 * cuda_gf.LANE_BYTES),
+                      dtype=torch.uint8, device=dev, generator=gen
+                      ).view(torch.int32)
+    if aligned:
+        return x
+    buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=dev)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 4
+    return y
+
+
+def _w16_decode_bits():
+    """reed_sol_van k=8 m=4 w=16: the bitmatrix that rebuilds chunks 1
+    and 6 from the first 8 survivors (as ``torch_gf.matrix_decode``)."""
+    M16 = reed_sol.vandermonde_coding_matrix(K, M, 16)
+    sel = [c for c in range(K + M) if c not in ERASED][:K]
+    A = np.zeros((K, K), dtype=np.uint32)
+    for r, cid in enumerate(sel):
+        if cid < K:
+            A[r, cid] = 1
+        else:
+            A[r] = M16[cid - K]
+    return matrix_to_bitmatrix(gf(16).mat_invert(A)[list(ERASED)], 16)
+
+
+def _bits(r: int, c: int) -> np.ndarray:
+    """A random 0/1 bitmatrix [r, c], seeded by its shape."""
+    return np.random.RandomState(r * c).randint(0, 2, (r, c)).astype(np.uint8)
+
+
+def _codec_edge_cases():
+    """(label, kernel, bitmatrix, k or None, lanes n4, aligned): the shapes
+    and matrices the two redesigned kernels must take."""
+    cg = matrix_to_bitmatrix(cauchy.good_general_coding_matrix(K, M, 8), 8)
+    sel = [c for c in range(K + M) if c not in ERASED][:K]
+    zero_rows = _bits(13, 27)
+    zero_rows[[0, 6, 12]] = 0
+    rsv16 = matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, 16),
+                                16)
+    zero16 = _bits(5 * 16, 3 * 16)
+    zero16[[0, 17, 79]] = 0
+    cases = []
+    for n4 in (1, 1003, 131072):
+        cases.append((f"cauchy_good k=8 m=4 n4={n4}", "gf2_packet", cg,
+                      None, n4, True))
+        cases.append((f"reed_sol_van k=8 m=4 n4={n4}", "gf2_matrix_w16",
+                      rsv16, K, n4, True))
+    cases += [
+        ("cauchy_good k=8 m=4 unaligned", "gf2_packet", cg, None, 4096,
+         False),
+        ("odd r=13, three zero rows", "gf2_packet", zero_rows, None, 1003,
+         True),
+        ("k=1 (one input row)", "gf2_packet", _bits(5, 1), None, 4096, True),
+        ("cauchy_good k=32 m=8 (c=256)", "gf2_packet",
+         matrix_to_bitmatrix(cauchy.good_general_coding_matrix(32, 8, 8), 8),
+         None, 4099, True),
+        ("liberation k=17 w=31 (c=527)", "gf2_packet",
+         liberation.liberation_coding_bitmatrix(17, 31), None, 4096, False),
+        ("1800-row table", "gf2_packet", _bits(12, 1800), None, 4 * 4099,
+         True),
+        ("cauchy_good decode erased 1,6", "gf2_packet",
+         survivor_decode_bitmatrix(cg, K, 8, sel, list(ERASED)), None,
+         131072, True),
+        ("reed_sol_van k=8 m=4 unaligned", "gf2_matrix_w16", rsv16, K, 4096,
+         False),
+        ("odd m=5, k=3, zero rows", "gf2_matrix_w16", zero16, 3, 1003, True),
+        ("k=1 m=1", "gf2_matrix_w16", _bits(16, 16), 1, 4096, True),
+        ("k=100 m=3: two slices", "gf2_matrix_w16", _bits(48, 1600), 100,
+         1003, True),
+        ("k=50 m=8: two slices of two groups", "gf2_matrix_w16",
+         _bits(128, 800), 50, 4096, True),
+        ("k=5 m=12: two passes", "gf2_matrix_w16", _bits(192, 80), 5, 4099,
+         True),
+        ("reed_sol_van w=16 decode erased 1,6", "gf2_matrix_w16",
+         _w16_decode_bits(), K, 131072, True),
+    ]
+    return cases
+
+
+def phase_codec_edges(dev, gen) -> None:
+    """gf2_packet and gf2_matrix_w16 against their plain versions at the
+    edge shapes and decode matrices of :func:`_codec_edge_cases`."""
+    for label, name, B, k, n4, aligned in _codec_edge_cases():
+        if name == "gf2_packet":
+            r, c = B.shape
+            op = torch.from_numpy(cuda_gf.prep_packet(B)).to(dev)
+            x = _lanes(gen, dev, c, n4, aligned)
+            got = cuda_gf.packet_encode(op, x, r)
+            want = cuda_gf.packet_encode_plain(op, x, r)
+        else:
+            m = B.shape[0] // 16
+            op = torch.from_numpy(cuda_gf.prep_matrix_w16(B, k)).to(dev)
+            x = _lanes(gen, dev, k, n4, aligned)
+            got = cuda_gf.matrix_encode_w16(op, x, k, m)
+            want = cuda_gf.matrix_encode_w16_plain(op, x, k, m)
+        assert torch.equal(got, want), \
+            f"{name} ({label}): kernel != plain version at lanes " \
+            f"{tuple(x.shape)}"
+        print(f"[kernel] {name} {label} lanes {tuple(x.shape)}, "
+              f"{tuple(got.shape)[0]} rows out: bit-exact", flush=True)
 
 
 def _sweep_bits():
@@ -572,6 +680,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     kernels = phase_kernels(reg, dev, gen, flush)
+    phase_codec_edges(dev, gen)
     kernels.update(phase_sweep_kernels(dev, gen, flush))
     del flush
     per_profile = phase_main_path(reg, np.random.RandomState(args.seed), card)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from ceph_tpu_torch.matrices import bitmatrix, cauchy, reed_sol
-from ceph_tpu_torch.ops import cuda_gf, sweep_gf
+from ceph_tpu_torch.ops import cuda_gf, gf, sweep_gf
 from ceph_tpu_torch.plugins import registry
 from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_probe, kernel_r4_split
 
@@ -32,41 +32,97 @@ def _lanes(rs, rows, n4, dev):
     return torch.from_numpy(data.view(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("k,m,n4", [(8, 4, 4096), (3, 5, 1003), (4, 2, 1)])
-def test_matrix_kernels_match_plain_versions(dev, k, m, n4):
-    rs = np.random.RandomState(n4)
+def _decode_matrix(k, m, w, erased):
+    """The [len(erased), k] matrix that rebuilds the erased data chunks of
+    reed_sol_van k, m from the first k survivors (as ``matrix_decode``)."""
+    M = reed_sol.vandermonde_coding_matrix(k, m, w)
+    sel = [c for c in range(k + m) if c not in erased][:k]
+    A = np.zeros((k, k), dtype=np.uint32)
+    for r, cid in enumerate(sel):
+        if cid < k:
+            A[r, cid] = 1
+        else:
+            A[r] = M[cid - k]
+    return gf.gf(w).mat_invert(A)[list(erased)]
+
+
+@pytest.mark.parametrize("k,m,n4,aligned,code", [
+    (8, 4, 4096, True, "encode"),
+    (3, 5, 1003, True, "encode"),     # odd m
+    (4, 2, 1, True, "encode"),
+    (8, 4, 131072, True, "encode"),   # the main path's granule width
+    (8, 4, 4096, False, "encode"),    # a pointer off the 16-byte grid
+    (7, 3, 1003, False, "encode"),
+    (100, 3, 1003, True, "encode"),   # w=16 tables staged in two slices
+    (50, 8, 4096, True, "encode"),    # two slices of two output groups
+    (8, 4, 4096, True, "decode"),     # chunks 1 and 6 erased: 2 rows out
+])
+def test_matrix_kernels_match_plain_versions(dev, k, m, n4, aligned, code):
+    rs = np.random.RandomState(n4 + k)
     d = _lanes(rs, k, n4, dev)
+    if not aligned:
+        d = _unaligned(d)
     for w, prep, kern, plain in (
             (8, cuda_gf.prep_matrix_w8, cuda_gf.matrix_encode_w8,
              cuda_gf.matrix_encode_w8_plain),
             (16, cuda_gf.prep_matrix_w16, cuda_gf.matrix_encode_w16,
              cuda_gf.matrix_encode_w16_plain)):
-        B = bitmatrix.matrix_to_bitmatrix(
-            reed_sol.vandermonde_coding_matrix(k, m, w), w)
-        masks = torch.from_numpy(prep(B, k)).to(dev)
-        assert torch.equal(kern(masks, d, k, m), plain(masks, d, k, m))
+        matrix = (_decode_matrix(k, m, w, (1, 6)) if code == "decode"
+                  else reed_sol.vandermonde_coding_matrix(k, m, w))
+        B = bitmatrix.matrix_to_bitmatrix(matrix, w)
+        rows = B.shape[0] // w
+        op = torch.from_numpy(prep(B, k)).to(dev)
+        assert torch.equal(kern(op, d, k, rows), plain(op, d, k, rows))
 
 
-@pytest.mark.parametrize("r,c,n4", [(32, 64, 4096), (13, 24, 1003), (2, 7, 1)])
-def test_packet_kernel_matches_plain_version(dev, r, c, n4):
-    rs = np.random.RandomState(r + n4)
+def _packet_bits(code, r, c, rs):
+    if code == "cauchy_good":  # k=8 m=4 w=8
+        return bitmatrix.matrix_to_bitmatrix(
+            cauchy.good_general_coding_matrix(8, 4, 8), 8)
+    if code == "decode":  # cauchy_good k=8 m=4, chunks 1 and 6 erased
+        B = _packet_bits("cauchy_good", r, c, rs)
+        sel = [0, 2, 3, 4, 5, 7, 8, 9]
+        return bitmatrix.survivor_decode_bitmatrix(B, 8, 8, sel, [1, 6])
     B = rs.randint(0, 2, (r, c)).astype(np.uint8)
-    masks = torch.from_numpy(cuda_gf.prep_packet(B)).to(dev)
+    if code == "zero rows":
+        B[::4] = 0
+    return B
+
+
+@pytest.mark.parametrize("r,c,n4,aligned,code", [
+    (32, 64, 4096, True, "random"),
+    (13, 24, 1003, True, "random"),      # odd r
+    (2, 7, 1, True, "random"),
+    (32, 64, 131072, True, "cauchy_good"),  # the main path's code and width
+    (32, 64, 4096, False, "random"),     # a pointer off the 16-byte grid
+    (13, 27, 1003, False, "zero rows"),
+    (31, 5, 3, True, "random"),
+    (3, 7264, 1003, True, "random"),     # the widest: one stage of 8 lanes
+    (16, 64, 4096, True, "decode"),      # cauchy_good's decoding bitmatrix
+])
+def test_packet_kernel_matches_plain_version(dev, r, c, n4, aligned, code):
+    rs = np.random.RandomState(r + n4)
+    B = _packet_bits(code, r, c, rs)
+    r, c = B.shape
+    lists = torch.from_numpy(cuda_gf.prep_packet(B)).to(dev)
     d = _lanes(rs, c, n4, dev)
-    assert torch.equal(cuda_gf.packet_encode(masks, d, r),
-                       cuda_gf.packet_encode_plain(masks, d, r))
+    if not aligned:
+        d = _unaligned(d)
+    assert torch.equal(cuda_gf.packet_encode(lists, d, r),
+                       cuda_gf.packet_encode_plain(lists, d, r))
 
 
 @pytest.mark.parametrize("r,c,n4", [(12, 1800, 4096), (5, 1800, 1003)])
 def test_packet_kernel_opts_in_to_wide_mask_tables(dev, r, c, n4):
-    # a group of 8 mask rows takes 8 * c * 4 = 57600 bytes of shared
-    # memory, over the 48 KiB a block gets without the opt-in attribute
+    # two stages of 1800 rows x 8 lanes and the list take 115 KiB and more
+    # of shared memory, over the 48 KiB a block gets without the opt-in
+    # attribute
     rs = np.random.RandomState(c + n4)
     B = rs.randint(0, 2, (r, c)).astype(np.uint8)
-    masks = torch.from_numpy(cuda_gf.prep_packet(B)).to(dev)
+    lists = torch.from_numpy(cuda_gf.prep_packet(B)).to(dev)
     d = _lanes(rs, c, n4, dev)
-    assert torch.equal(cuda_gf.packet_encode(masks, d, r),
-                       cuda_gf.packet_encode_plain(masks, d, r))
+    assert torch.equal(cuda_gf.packet_encode(lists, d, r),
+                       cuda_gf.packet_encode_plain(lists, d, r))
 
 
 def test_wrappers_count_launches_and_refuse_mixed_devices(dev):

@@ -141,8 +141,8 @@ def test_matrix_w16_plain_matches_pallas(k, m, n4):
         reed_sol.vandermonde_coding_matrix(k, m, 16), 16)
     data = _bytes(rs, k, n4 * 4)
     d32 = torch.from_numpy(data.view(np.int32))
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w16(B, k))
-    ours = cuda_gf.matrix_encode_w16(masks, d32, k, m).numpy().view(np.uint8)
+    tables = torch.from_numpy(cuda_gf.prep_matrix_w16(B, k))
+    ours = cuda_gf.matrix_encode_w16(tables, d32, k, m).numpy().view(np.uint8)
     with pltpu.force_tpu_interpret_mode():
         theirs = pallas_gf.matrix_encode_w16(B, data, k, m)
     assert np.array_equal(ours, theirs)
@@ -155,9 +155,10 @@ def test_packet_plain_matches_pallas(r, c, n4):
     rs = np.random.RandomState(r * 1000 + c + n4)
     B = rs.randint(0, 2, (r, c)).astype(np.uint8)
     rows = _bytes(rs, c, n4 * 4)
-    masks = torch.from_numpy(cuda_gf.prep_packet(B))
-    assert masks.shape == (-(-r // 8) * 8, c)
-    ours = cuda_gf.packet_encode(masks, torch.from_numpy(rows.view(np.int32)),
+    lists = torch.from_numpy(cuda_gf.prep_packet(B))
+    # offsets for r rows, then one input-row index per 1 of B
+    assert lists.shape == (r + 1 + B.sum(),)
+    ours = cuda_gf.packet_encode(lists, torch.from_numpy(rows.view(np.int32)),
                                  r).numpy().view(np.uint8)
     with pltpu.force_tpu_interpret_mode():
         theirs = pallas_gf.packet_encode(B, rows)
@@ -168,15 +169,32 @@ def test_packet_plain_matches_pallas(r, c, n4):
 
 def test_lane_masks_encode_the_bitmatrix():
     rs = np.random.RandomState(5)
-    for w, prep, fields in ((8, cuda_gf.prep_matrix_w8, 4),
-                            (16, cuda_gf.prep_matrix_w16, 2)):
-        B = rs.randint(0, 2, (3 * w, 5 * w)).astype(np.uint8)
-        masks = prep(B, 5).view(np.uint32)
-        for r in range(3 * w):
-            for j in range(5):
-                field = sum(int(B[r, j * w + s]) << s for s in range(w))
-                assert masks[r, j] == sum(field << (w * i)
-                                          for i in range(fields))
+    # w=8: one byte mask per (bit-row, input chunk), in all four bytes
+    B = rs.randint(0, 2, (3 * 8, 5 * 8)).astype(np.uint8)
+    masks = cuda_gf.prep_matrix_w8(B, 5).view(np.uint32)
+    for r in range(3 * 8):
+        for j in range(5):
+            field = sum(int(B[r, j * 8 + s]) << s for s in range(8))
+            assert masks[r, j] == field * 0x01010101
+    # w=16: entry (g, j, p, v) of the nibble tables holds, for output
+    # words 4g .. 4g+3, the XOR of the columns 16j + 4p + s of their
+    # bit-rows over the bits s of v
+    B = rs.randint(0, 2, (3 * 16, 5 * 16)).astype(np.uint8)
+    tables = cuda_gf.prep_matrix_w16(B, 5).view(np.uint32)
+    t = tables.reshape(1, 5, 4, 16, 2)
+    for i in range(3):
+        for j in range(5):
+            for p in range(4):
+                for v in range(16):
+                    word = 0
+                    for s in range(4):
+                        if v >> s & 1:
+                            col = B[16 * i:16 * i + 16, 16 * j + 4 * p + s]
+                            word ^= sum(int(b) << t_ for t_, b in
+                                        enumerate(col))
+                    entry = t[0, j, p, v, i // 2] >> (16 * (i % 2)) & 0xFFFF
+                    assert entry == word
+    assert not np.any(t[0, ..., 1] >> 16)  # word 3: no fourth output row
 
 
 # -- the XLA programs' plain twins ------------------------------------------
@@ -276,22 +294,44 @@ def test_wrappers_check_their_operands():
         cuda_gf.matrix_encode_w8(masks, d32[:, ::2], 4, 2)
     with pytest.raises(ValueError):
         cuda_gf.matrix_encode_w8(masks[:, :3].contiguous(), d32, 4, 2)
-    # a group of 8 mask rows over the 227 KiB of shared memory a block
-    # may opt in to is refused; a wide one under it is taken
+    # w=8: a group of 8 mask rows over the 227 KiB of shared memory a
+    # block may opt in to is refused
     with pytest.raises(ValueError):
-        cuda_gf.packet_encode(torch.zeros((8, 8000), dtype=torch.int32),
-                              torch.zeros((8000, 4), dtype=torch.int32), 8)
+        cuda_gf.matrix_encode_w8(torch.zeros((8, 8000), dtype=torch.int32),
+                                 torch.zeros((8000, 4), dtype=torch.int32),
+                                 8000, 1)
+    # packet: a tile of all c input rows x 8 lanes must fit in the 227 KiB
+    # (c <= 7264, as a group of 8 mask rows had to); the widest is taken
+    zeros8 = np.zeros((8, 7265), np.uint8)
+    with pytest.raises(ValueError):
+        cuda_gf.packet_encode(torch.from_numpy(cuda_gf.prep_packet(zeros8)),
+                              torch.zeros((7265, 4), dtype=torch.int32), 8)
     assert cuda_gf.packet_encode(
-        torch.zeros((8, 2000), dtype=torch.int32),
-        torch.zeros((2000, 4), dtype=torch.int32), 8).shape == (8, 4)
+        torch.from_numpy(cuda_gf.prep_packet(zeros8[:, :7264])),
+        torch.zeros((7264, 4), dtype=torch.int32), 8).shape == (8, 4)
+    with pytest.raises(ValueError):  # a list too short for r = 9 rows
+        cuda_gf.packet_encode(torch.zeros(9, dtype=torch.int32),
+                              torch.zeros((10, 4), dtype=torch.int32), 9)
+    # w=16: the tables are staged in slices, so k over the 3632 that one
+    # 227 KiB group of 16 word masks held is taken
+    B16 = np.zeros((16, 3700 * 16), np.uint8)
+    B16[:, :16] = np.eye(16, dtype=np.uint8)
+    d16 = torch.from_numpy(np.arange(3700 * 2, dtype=np.int32).reshape(3700, 2))
+    out16 = cuda_gf.matrix_encode_w16(
+        torch.from_numpy(cuda_gf.prep_matrix_w16(B16, 3700)), d16, 3700, 1)
+    assert torch.equal(out16, d16[:1])
+    with pytest.raises(ValueError):  # tables of another k
+        cuda_gf.matrix_encode_w16(
+            torch.from_numpy(cuda_gf.prep_matrix_w16(B16[:, :64], 4)), d16,
+            3700, 1)
     assert cuda_gf.matrix_encode_w8(masks, d32, 4, 2).shape == (2, 16)
 
 
 def test_cpu_runs_plain_versions_without_counting_launches():
     before = dict(cuda_gf.launches)
     B = bitmatrix.matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(4, 2, 16), 16)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w16(B, 4))
-    cuda_gf.matrix_encode_w16(masks, torch.zeros((4, 8), dtype=torch.int32), 4, 2)
+    tables = torch.from_numpy(cuda_gf.prep_matrix_w16(B, 4))
+    cuda_gf.matrix_encode_w16(tables, torch.zeros((4, 8), dtype=torch.int32), 4, 2)
     assert cuda_gf.launches == before
 
 
