@@ -11,15 +11,26 @@
 // host prepares once per codec or decode matrix (cuda_gf.prep_*): a decode
 // matrix, new with every erasure pattern, needs no build.
 //
-// gf2_matrix_w8: bit-sliced.  The wrapper turns bitmatrix row r into one
-// byte mask per input chunk j (bit s set when B[r, j*8+s] = 1), replicated
-// to all four bytes of a lane.  A thread owns VEC consecutive lanes of
-// every input row; acc_r = XOR_j (x_j & mask_rj), and the parity of each
-// byte of acc_r is output bit t = r % 8 of that byte.  G = 8 bit-rows form
-// one output group, whose accumulators stay in registers while the thread
-// streams over the k input rows; the block stages one group's masks in
-// shared memory (a broadcast read).  Later groups re-read the inputs from
-// L1/L2.
+// gf2_matrix_w8: nibble tables derived from the bitmatrix (gf-complete's
+//   SPLIT 8/4, the w=8 sibling of gf2_matrix_w16's).  The 8x8 block B_ij
+//   splits over input byte x's two nibbles: B_ij x = T_ij0[x & 15] ^
+//   T_ij1[x >> 4] (gf_w8_tables.cuh, which sweep_pipelined_w8 shares).  An
+//   entry is 4 bytes: byte r holds output row 4g + r's byte, so one LDS.32
+//   gives a nibble's share of 4 output rows.  Operand: uint32
+//   [ceil(m/4)][k][2][16] (128 k bytes per output group).  Per lane and
+//   input row: the nibbles times 4 as bytes of (x << 2) & 0x3C3C3C3C and
+//   (x >> 2) & 0x3C3C3C3C, one PRMT per nibble, 8 lookups XORed into four
+//   accumulators (one per byte position) two at a time; after the last row
+//   a 4x4 byte transpose (8 PRMTs) gives the 4 output rows' lanes.  At k=8
+//   m=4: 64 lookups, about 200-270 integer operations a lane, inputs read
+//   once.  Staged as gf2_matrix_w16 (the same kernel template,
+//   gf2_tables_kernel): a code whose tables fit one 48 KiB slice (k <= 384
+//   at m <= 4, k <= 192 at m <= 8) stages them once per block and reads
+//   its inputs once; any k and m run.  ceph_tpu_torch/tools/w8_probe.py
+//   splits its time on the card into loads and stores alone and lookups
+//   alone, and times other batch, thread and VEC settings: on an H100 the
+//   loads and stores alone run at the copy's rate and the lookups hide
+//   under them, so memory sets the time (PERF.md).
 //
 // gf2_packet: a sparse XOR over an input tile staged in shared memory.
 //   Operand: the bitmatrix's ones per output row as one int32 array,
@@ -74,7 +85,9 @@
 //   GP = 2 in registers per pass and stages the tables of a slice of up to
 //   48 KiB of input rows at a time, so any k and m run; a code whose tables
 //   fit in one slice (k <= 96 at m <= 4, k <= 48 at m <= 8) stages them
-//   once per block and reads its inputs once.
+//   once per block and reads its inputs once.  Both table kernels are one
+//   template (gf2_tables_kernel) over the code's entry, lookup and row
+//   packing.
 //
 // Bound on the card: memory.  Each kernel reads each input byte from device
 // memory once and writes each output byte once, (rows in + rows out) * 4 *
@@ -89,6 +102,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gf_w8_tables.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -97,23 +112,20 @@ constexpr int kThreads = 256;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-enum Fold { kFoldByte = 0 };
-
-// Parity of each byte of p, left in the lowest bit of that byte.
-template <int FOLD>
-__device__ __forceinline__ uint32_t fold_parity(uint32_t p) {
-  p ^= p >> 4;
-  p ^= p >> 2;
-  p ^= p >> 1;
-  return p & 0x01010101u;
-}
-
+// VEC consecutive lanes at p: 16-byte loads and stores where VEC is a
+// multiple of 4, 8-byte ones at VEC = 2 (p then aligned to match)
 template <int VEC>
 __device__ __forceinline__ void load_lanes(const uint32_t* __restrict__ p,
                                            uint32_t (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p + i));
+      v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+    }
+  } else if constexpr (VEC == 2) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = q.x; v[1] = q.y;
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) v[i] = __ldg(p + i);
@@ -123,64 +135,16 @@ __device__ __forceinline__ void load_lanes(const uint32_t* __restrict__ p,
 template <int VEC>
 __device__ __forceinline__ void store_lanes(uint32_t* __restrict__ p,
                                             const uint32_t (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4)
+      *reinterpret_cast<uint4*>(p + i) =
+          make_uint4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(v[0], v[1]);
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) p[i] = v[i];
-  }
-}
-
-// x:     [C, n4] input lanes
-// masks: [groups * G, C] per (bit-row, input row) lane masks
-// out:   [groups, n4]
-template <int FOLD, int G, int VEC>
-__global__ void __launch_bounds__(kThreads)
-gf2_lanes_kernel(const uint32_t* __restrict__ x,
-                 const uint32_t* __restrict__ masks,
-                 uint32_t* __restrict__ out,
-                 int C, int groups, int rows_out, long long n4) {
-  extern __shared__ uint32_t smask[];  // one group's G*C masks
-  const int nmask = G * C;
-  const long long lane0 =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
-  // n4 % VEC == 0, so a live thread owns VEC lanes; the others only help
-  // stage the masks
-  const bool live = lane0 < n4;
-
-  for (int g = 0; g < groups; ++g) {
-    __syncthreads();  // the previous group's masks are no longer read
-    const uint32_t* mg_src = masks + static_cast<long long>(g) * nmask;
-    for (int i = threadIdx.x; i < nmask; i += blockDim.x) smask[i] = mg_src[i];
-    __syncthreads();
-    if (!live) continue;
-
-    const uint32_t* mg = smask;
-    uint32_t acc[G][VEC];
-#pragma unroll
-    for (int t = 0; t < G; ++t)
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) acc[t][v] = 0u;
-
-    for (int c = 0; c < C; ++c) {
-      uint32_t xv[VEC];
-      load_lanes<VEC>(x + static_cast<long long>(c) * n4 + lane0, xv);
-#pragma unroll
-      for (int t = 0; t < G; ++t) {
-        const uint32_t mk = mg[t * C + c];
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[t][v] ^= xv[v] & mk;
-      }
-    }
-
-    uint32_t o[VEC];
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) o[v] = 0u;
-#pragma unroll
-    for (int t = 0; t < G; ++t)
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) o[v] |= fold_parity<FOLD>(acc[t][v]) << t;
-    store_lanes<VEC>(out + static_cast<long long>(g) * n4 + lane0, o);
   }
 }
 
@@ -211,36 +175,6 @@ cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem,
   const long long most = static_cast<long long>(sms) * per_sm;
   *blocks = static_cast<int>(items < most ? items : most);
   return cudaSuccess;
-}
-
-template <int FOLD, int G, int VEC>
-int launch_vec(const uint32_t* x, const uint32_t* masks, uint32_t* out,
-               int C, int groups, int rows_out, long long n4,
-               cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(G) * C * sizeof(uint32_t);
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gf2_lanes_kernel<FOLD, G, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const long long blocks = (n4 / VEC + kThreads - 1) / kThreads;
-  gf2_lanes_kernel<FOLD, G, VEC><<<static_cast<unsigned>(blocks), kThreads,
-                                   smem, s>>>(x, masks, out, C, groups,
-                                              rows_out, n4);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int FOLD, int G>
-int launch(const void* x, const void* masks, void* out, int C, int groups,
-           int rows_out, long long n4, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xi = static_cast<const uint32_t*>(x);
-  const auto* mi = static_cast<const uint32_t*>(masks);
-  auto* oi = static_cast<uint32_t*>(out);
-  if (n4 % 4 == 0 && aligned16(x) && aligned16(out))
-    return launch_vec<FOLD, G, 4>(xi, mi, oi, C, groups, rows_out, n4, s);
-  return launch_vec<FOLD, G, 1>(xi, mi, oi, C, groups, rows_out, n4, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -497,27 +431,104 @@ int launch_packet(const uint32_t* x, const int* list, uint32_t* out, int C,
 }
 
 // ---------------------------------------------------------------------------
-// gf2_matrix_w16: nibble tables
+// gf2_matrix_w8 and gf2_matrix_w16: nibble tables
 // ---------------------------------------------------------------------------
 
-// entries of one input word's four nibble tables
-constexpr int kEntries = 64;
 // shared memory for one slice of tables (no opt-in needed)
 constexpr size_t kTableBytes = 48 * 1024;
 // input rows whose lanes are loaded together, before their lookups
 constexpr int kBatch = 4;
+// lanes a thread of gf2_matrix_w8 takes in its 16-byte form
+constexpr int kW8Vec = 4;
 
-// x:      [k, n4] lanes of two LE uint16 words
-// tables: [ceil(m/4)][k][4][16] uint2
+// A table code: the entry type and the entries of one input row's tables
+// in one output group (kEntries); Acc, one lane's accumulators for one
+// group of 4 output rows; lookup<GP>, XOR lane x's entries of one input
+// row from GP groups' tables (starting at tj, group_bytes apart) into
+// acc[GP]; rows, one group's accumulators -> its 4 output rows' lanes.
+
+// w=8: uint32 entries [ceil(m/4)][k][2][16], byte r = output row 4g + r
+// (gf_w8_tables.cuh).  acc[b]: byte position b of the lane.
+struct W8Code {
+  using Entry = uint32_t;
+  static constexpr int kEntries = kW8Entries;
+  using Acc = uint32_t[4];
+  static __device__ __forceinline__ void clear(Acc& a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) a[b] = 0u;
+  }
+  template <int GP>
+  static __device__ __forceinline__ void lookup(Acc (&acc)[GP],
+                                                const char* tj,
+                                                int group_bytes, uint32_t x) {
+    w8_lookup<GP>(acc, tj, group_bytes, x);
+  }
+  static __device__ __forceinline__ void rows(const Acc& a, uint32_t (&o)[4]) {
+    w8_rows(a, o);
+  }
+};
+
+// w=16: uint2 entries [ceil(m/4)][k][4][16], the 16-bit words of output
+// rows 4g, 4g+1 in .x and 4g+2, 4g+3 in .y.  acc[h]: word h of the lane.
+struct W16Code {
+  using Entry = uint2;
+  static constexpr int kEntries = 64;
+  using Acc = uint2[2];
+  static __device__ __forceinline__ void clear(Acc& a) {
+    a[0] = make_uint2(0u, 0u);
+    a[1] = make_uint2(0u, 0u);
+  }
+  template <int GP>
+  static __device__ __forceinline__ void lookup(Acc (&acc)[GP],
+                                                const char* tj,
+                                                int group_bytes, uint32_t x) {
+    // each nibble times 8 (its entry's byte offset), in a byte: even
+    // nibbles of the lane in a8, odd ones in b8
+    const uint32_t a8 = (x << 3) & 0x78787878u;
+    const uint32_t b8 = (x >> 1) & 0x78787878u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        // nibble p of word h is nibble 4h + p of the lane: byte 2h + p/2,
+        // low half (a8) for even p
+        const uint32_t o = __byte_perm((p & 1) ? b8 : a8, 0u,
+                                       0x4440u + 2 * h + (p >> 1));
+#pragma unroll
+        for (int gg = 0; gg < GP; ++gg) {
+          const uint2 e = *reinterpret_cast<const uint2*>(
+              tj + gg * group_bytes + p * 16 * sizeof(uint2) + o);
+          acc[gg][h].x ^= e.x;
+          acc[gg][h].y ^= e.y;
+        }
+      }
+  }
+  static __device__ __forceinline__ void rows(const Acc& a, uint32_t (&o)[4]) {
+    // row r's word: half r & 1 of .x (r < 2) or .y, from both halves
+    o[0] = __byte_perm(a[0].x, a[1].x, 0x5410u);
+    o[1] = __byte_perm(a[0].x, a[1].x, 0x7632u);
+    o[2] = __byte_perm(a[0].y, a[1].y, 0x5410u);
+    o[3] = __byte_perm(a[0].y, a[1].y, 0x7632u);
+  }
+};
+
+// x:      [k, n4] lanes
+// tables: [ceil(m/4)][k][Code::kEntries] Code::Entry
 // out:    [m, n4]
-// Dynamic shared memory: [GP][ks][64] uint2, one slice of tables.
-template <int VEC, int GP>
+// Dynamic shared memory: [GP][ks][kEntries] entries, one slice of tables.
+// A persistent grid walks chunks of kThreads * VEC lanes; a thread keeps
+// GP output groups' accumulators of its VEC lanes in registers per pass,
+// over the k input rows in slices of ks, kBatch rows' lanes loaded ahead.
+template <class Code, int VEC, int GP>
 __global__ void __launch_bounds__(kThreads)
-gf2_w16_kernel(const uint32_t* __restrict__ x,
-               const uint2* __restrict__ tables,
-               uint32_t* __restrict__ out,
-               int k, int m, long long n4, int ks) {
-  extern __shared__ __align__(16) uint2 stab[];
+gf2_tables_kernel(const uint32_t* __restrict__ x,
+                  const typename Code::Entry* __restrict__ tables,
+                  uint32_t* __restrict__ out, int k, int m, long long n4,
+                  int ks) {
+  using Entry = typename Code::Entry;
+  constexpr int kEntries = Code::kEntries;
+  extern __shared__ __align__(16) unsigned char table_smem[];
+  Entry* stab = reinterpret_cast<Entry*>(table_smem);
   const int groups = (m + 3) >> 2;
   const bool resident = groups <= GP && ks >= k;
   // tables of output groups g0 .. g0+GP-1, input rows j0 .. j0+kn-1
@@ -543,15 +554,11 @@ gf2_w16_kernel(const uint32_t* __restrict__ x,
                                             VEC;
     const bool live = lane0 < n4;  // n4 % VEC == 0
     for (int g0 = 0; g0 < groups; g0 += GP) {
-      // acc[gg][v][h]: 16-bit word h of lane v, for the 4 output rows of
-      // group g0 + gg (rows 4g, 4g+1 in .x; 4g+2, 4g+3 in .y)
-      uint2 acc[GP][VEC][2];
+      typename Code::Acc acc[VEC][GP];
 #pragma unroll
-      for (int gg = 0; gg < GP; ++gg)
+      for (int v = 0; v < VEC; ++v)
 #pragma unroll
-        for (int v = 0; v < VEC; ++v)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) acc[gg][v][h] = make_uint2(0u, 0u);
+        for (int gg = 0; gg < GP; ++gg) Code::clear(acc[v][gg]);
 
       for (int j0 = 0; j0 < k; j0 += ks) {
         const int kn = k - j0 < ks ? k - j0 : ks;
@@ -561,115 +568,98 @@ gf2_w16_kernel(const uint32_t* __restrict__ x,
           __syncthreads();
         }
         if (!live) continue;
-        const int group_bytes = kn * kEntries * static_cast<int>(sizeof(uint2));
+        const int group_bytes = kn * kEntries * static_cast<int>(sizeof(Entry));
         for (int jl = 0; jl < kn; jl += kBatch) {
           uint32_t xv[kBatch][VEC];
 #pragma unroll
           for (int b = 0; b < kBatch; ++b)
             if (jl + b < kn)
-              load_lanes<VEC>(
-                  x + static_cast<long long>(j0 + jl + b) * n4 + lane0, xv[b]);
+              load_lanes<VEC>(x + (j0 + jl + b) * n4 + lane0, xv[b]);
 #pragma unroll
           for (int b = 0; b < kBatch; ++b) {
             if (jl + b >= kn) break;
             const char* tj = reinterpret_cast<const char*>(
                 stab + (jl + b) * kEntries);
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) {
-              // each nibble times 8 (its entry's byte offset), in a byte:
-              // even nibbles of the lane in a8, odd ones in b8
-              const uint32_t a8 = (xv[b][v] << 3) & 0x78787878u;
-              const uint32_t b8 = (xv[b][v] >> 1) & 0x78787878u;
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int p = 0; p < 4; ++p) {
-                  // nibble p of word h is nibble 4h + p of the lane: byte
-                  // 2h + p/2, low half (a8) for even p
-                  const uint32_t o = __byte_perm(
-                      (p & 1) ? b8 : a8, 0u, 0x4440u + 2 * h + (p >> 1));
-#pragma unroll
-                  for (int gg = 0; gg < GP; ++gg) {
-                    const uint2 e = *reinterpret_cast<const uint2*>(
-                        tj + gg * group_bytes + p * 16 * sizeof(uint2) + o);
-                    acc[gg][v][h].x ^= e.x;
-                    acc[gg][v][h].y ^= e.y;
-                  }
-                }
-            }
+            for (int v = 0; v < VEC; ++v)
+              Code::template lookup<GP>(acc[v], tj, group_bytes, xv[b][v]);
           }
         }
       }
       if (!live) continue;
 #pragma unroll
       for (int gg = 0; gg < GP; ++gg) {
+        uint32_t o[VEC][4];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) Code::rows(acc[v][gg], o[v]);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int row = 4 * (g0 + gg) + r;
           if (row >= m) break;
-          // row r's word: half r & 1 of .x (r < 2) or .y, from both halves
-          const unsigned sel = (r & 1) ? 0x7632u : 0x5410u;
-          uint32_t o[VEC];
+          uint32_t ov[VEC];
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            const uint2 lo = acc[gg][v][0], hi = acc[gg][v][1];
-            o[v] = r < 2 ? __byte_perm(lo.x, hi.x, sel)
-                         : __byte_perm(lo.y, hi.y, sel);
-          }
-          store_lanes<VEC>(out + static_cast<long long>(row) * n4 + lane0, o);
+          for (int v = 0; v < VEC; ++v) ov[v] = o[v][r];
+          store_lanes<VEC>(out + static_cast<long long>(row) * n4 + lane0, ov);
         }
       }
     }
   }
 }
 
-template <int VEC, int GP>
-int launch_w16_vec(const uint32_t* x, const uint2* tables, uint32_t* out,
-                   int k, int m, long long n4, cudaStream_t s) {
-  const size_t per_input = static_cast<size_t>(GP) * kEntries * sizeof(uint2);
+// GP output groups a pass: 1 where m <= 4, else 2; the widest slice of
+// input rows whose GP groups' tables fit kTableBytes
+template <class Code, int VEC, int GP>
+int launch_tables_gp(const uint32_t* x, const void* tables, uint32_t* out,
+                     int k, int m, long long n4, cudaStream_t s) {
+  const size_t per_input =
+      static_cast<size_t>(GP) * Code::kEntries * sizeof(typename Code::Entry);
   const size_t most = kTableBytes / per_input;
   const int ks = static_cast<int>(static_cast<size_t>(k) < most ? k : most);
   const size_t smem = per_input * ks;
-  const auto kernel = gf2_w16_kernel<VEC, GP>;
+  const auto kernel = gf2_tables_kernel<Code, VEC, GP>;
   const long long span = static_cast<long long>(kThreads) * VEC;
   int blocks = 0;
   const cudaError_t e =
       persistent_grid(kernel, kThreads, smem, (n4 + span - 1) / span, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<blocks, kThreads, smem, s>>>(x, tables, out, k, m, n4, ks);
+  kernel<<<blocks, kThreads, smem, s>>>(
+      x, static_cast<const typename Code::Entry*>(tables), out, k, m, n4, ks);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VEC>
-int launch_w16(const uint32_t* x, const uint2* tables, uint32_t* out, int k,
-               int m, long long n4, cudaStream_t s) {
-  if (m <= 4) return launch_w16_vec<VEC, 1>(x, tables, out, k, m, n4, s);
-  return launch_w16_vec<VEC, 2>(x, tables, out, k, m, n4, s);
+// The VEC-lane form where n4 % VEC == 0 and both pointers are 16-byte
+// aligned, the one-lane form otherwise.
+template <class Code, int VEC>
+int launch_tables(const void* x, const void* tables, void* out, int k, int m,
+                  long long n4, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xi = static_cast<const uint32_t*>(x);
+  auto* oi = static_cast<uint32_t*>(out);
+  if (k < 0 || m < 1 || n4 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = n4 % VEC == 0 && aligned16(x) && aligned16(out);
+  if (wide && m <= 4)
+    return launch_tables_gp<Code, VEC, 1>(xi, tables, oi, k, m, n4, s);
+  if (wide) return launch_tables_gp<Code, VEC, 2>(xi, tables, oi, k, m, n4, s);
+  if (m <= 4) return launch_tables_gp<Code, 1, 1>(xi, tables, oi, k, m, n4, s);
+  return launch_tables_gp<Code, 1, 2>(xi, tables, oi, k, m, n4, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [k, n4] lanes of 4 bytes; masks [m*8, k] byte masks * 0x01010101;
-// out [m, n4].
-int gf2_matrix_w8(const void* x, const void* masks, void* out, int k, int m,
+// x [k, n4] lanes of 4 bytes; tables [ceil(m/4), 32k] int32 (nibble
+// tables, uint32 [ceil(m/4)][k][2][16]); out [m, n4]; n4 >= 1.
+int gf2_matrix_w8(const void* x, const void* tables, void* out, int k, int m,
                   long long n4, void* stream) {
-  return launch<kFoldByte, 8>(x, masks, out, k, m, m, n4, stream);
+  return launch_tables<W8Code, kW8Vec>(x, tables, out, k, m, n4, stream);
 }
 
 // x [k, n4] lanes of two LE uint16 words; tables [ceil(m/4), 128k] int32
 // (nibble tables, uint2 [ceil(m/4)][k][4][16]); out [m, n4]; n4 >= 1.
 int gf2_matrix_w16(const void* x, const void* tables, void* out, int k,
                    int m, long long n4, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xi = static_cast<const uint32_t*>(x);
-  const auto* ti = static_cast<const uint2*>(tables);
-  auto* oi = static_cast<uint32_t*>(out);
-  if (k < 1 || m < 1 || n4 < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n4 % 4 == 0 && aligned16(x) && aligned16(out))
-    return launch_w16<4>(xi, ti, oi, k, m, n4, s);
-  return launch_w16<1>(xi, ti, oi, k, m, n4, s);
+  return launch_tables<W16Code, 4>(x, tables, out, k, m, n4, stream);
 }
 
 // x [c, n4] packet-row lanes; list [r + 1 + nnz] int32 (offsets, then

@@ -42,11 +42,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gf_w8_tables.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-// shared memory a block may take without opting in
+// shared memory a block may take without opting in, and with it (Hopper)
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr size_t kMaxSmem = 227 * 1024;
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -307,25 +310,29 @@ int launch_fold(int d, const void* x, void* out, int k, long long n4,
 // sweep_pipelined_w8: the w=8 product with double-buffered staging
 // ---------------------------------------------------------------------------
 //
-// Computes what gf2_matrix_w8 (gf_kernels.cu) computes, from the same lane
-// masks ([m*8, k] byte masks * 0x01010101): acc_r = XOR_j (x_j & mask_rj),
-// and the parity of each byte of acc_r is output bit r % 8 of that byte.
+// Computes what gf2_matrix_w8 (gf_kernels.cu) computes, from the same
+// nibble tables (uint32 [ceil(m/4)][k][2][16], cuda_gf.prep_matrix_w8) and
+// with the same lookup body (w8_lookup and w8_rows, gf_w8_tables.cuh): per
+// lane and input row, 8 lookups into 4 byte-position accumulators, whose
+// 4x4 byte transpose gives a group's 4 output rows.
 //
-// Bound on the card: memory, (k + m) * n4 * 4 bytes.  gf2_matrix_w8 reads
-// its inputs with plain loads, so each thread waits on its own loads
-// before the and-xor work can start.  Design: a block walks over lane tiles
-// of T lanes (tile i, i + gridDim.x, ...).  Each [k, T] input tile is
-// staged in shared memory with cp.async copies (16 bytes, or 4 where the
-// rows are not 16-byte aligned) in a two-stage ring, so tile i + 1 is in
-// flight while tile i is computed from shared memory.  The block's masks
-// sit in shared memory for the whole walk (every thread of a warp reads the
-// same word, a broadcast).  One thread owns 4 lanes (or 1) of a tile and
-// keeps one output byte-row's 8 accumulators in registers.  The grid is as
-// many blocks as fit on the card at once.  Shared memory per block:
-// (m*8*k + 2*k*T) * 4 bytes, opted in above 48 KiB.  On an H100 it runs
-// within a few percent of gf2_matrix_w8: the and-xor and parity work, not
-// load latency, limits both.  A warp-specialised TMA producer, and less
-// integer work a byte, are the next steps.
+// Bound on the card: memory, (k + m) * n4 * 4 bytes.  gf2_matrix_w8 loads
+// its inputs into registers kBatch rows ahead; this kernel stages them in
+// shared memory instead, so the two are an A/B of two ways of staging one
+// design.  A block walks over lane tiles of T lanes (tile i, i + gridDim.x,
+// ...).  Each [k, T] input tile is staged with cp.async copies (16 bytes,
+// or 4 where the rows are not 16-byte aligned) in a two-stage ring, so
+// tile i + 1 is in flight while tile i is computed from shared memory.
+// The block's tables sit in shared memory for the whole walk where they
+// fit beside the two stages; otherwise they are read through the
+// read-only cache.  One thread owns 4 lanes (or 1) of a tile and keeps one
+// output group's 4 accumulators a lane in registers, group after group.
+// The grid is as many blocks as fit on the card at once.  Shared memory
+// per block: 2 * k * T * 4 bytes of stages, and 128 * k * ceil(m/4) bytes
+// of tables where the sum fits in 227 KiB; opted in above 48 KiB.  On an
+// H100 it runs 16-22% slower than gf2_matrix_w8: each staged word is read
+// once, so the ring adds a copy, a barrier a tile and shared memory a
+// block that cap its resident blocks, and saves no device read (PERF.md).
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -350,13 +357,6 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint32_t byte_parity(uint32_t p) {
-  p ^= p >> 4;
-  p ^= p >> 2;
-  p ^= p >> 1;
-  return p & 0x01010101u;
-}
-
 // Stage lanes [lane0, lane0 + width) of the k input rows into dst [k, T].
 template <int VEC>
 __device__ __forceinline__ void stage_tile(const uint32_t* __restrict__ x,
@@ -376,18 +376,26 @@ __device__ __forceinline__ void stage_tile(const uint32_t* __restrict__ x,
   }
 }
 
-template <int VEC>
+// x [k, n4] lanes; tables [ceil(m/4)][k][32] uint32; out [m, n4].
+// Dynamic shared memory: the tables (TAB_SMEM), then two stages [k, T].
+template <int VEC, bool TAB_SMEM>
 __global__ void __launch_bounds__(kThreads)
 sweep_pipelined_kernel(const uint32_t* __restrict__ x,
-                       const uint32_t* __restrict__ masks,
+                       const uint32_t* __restrict__ tables,
                        uint32_t* __restrict__ out, int k, int m, long long n4,
                        int T, long long ntiles) {
   extern __shared__ __align__(16) uint32_t pipe_smem[];
-  const int nmask = m * 8 * k;
-  uint32_t* smask = pipe_smem;
-  // stages start on a 16-byte boundary
-  uint32_t* stages = pipe_smem + ((nmask + 3) & ~3);
-  for (int i = threadIdx.x; i < nmask; i += blockDim.x) smask[i] = masks[i];
+  const int groups = (m + 3) >> 2;
+  const int ntab = groups * k * kW8Entries;  // a multiple of 32 words
+  const uint32_t* tab = tables;
+  uint32_t* stages = pipe_smem;
+  if constexpr (TAB_SMEM) {
+    for (int i = threadIdx.x; i < ntab; i += blockDim.x)
+      pipe_smem[i] = __ldg(tables + i);
+    tab = pipe_smem;
+    stages = pipe_smem + ntab;
+  }
+  const int group_bytes = k * kW8Entries * static_cast<int>(sizeof(uint32_t));
 
   long long t = blockIdx.x;
   if (t < ntiles) {
@@ -407,19 +415,19 @@ sweep_pipelined_kernel(const uint32_t* __restrict__ x,
     }
     cp_async_commit();  // possibly empty: keeps one group per iteration
     cp_async_wait_one();
-    __syncthreads();  // tile t (and, the first time, the masks) visible
+    __syncthreads();  // tile t (and, the first time, the tables) visible
 
     const uint32_t* tile = stages + st * k * T;
     const long long lane0 = t * T;
     const int width = static_cast<int>(n4 - lane0 < T ? n4 - lane0 : T);
     for (int c = threadIdx.x; c < width / VEC; c += blockDim.x) {
-      for (int g = 0; g < m; ++g) {
-        const uint32_t* mg = smask + g * 8 * k;
-        uint32_t acc[8][VEC];
+      for (int g = 0; g < groups; ++g) {
+        const char* tg = reinterpret_cast<const char*>(tab) + g * group_bytes;
+        uint32_t acc[VEC][1][4];
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+        for (int v = 0; v < VEC; ++v)
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[r][v] = 0u;
+          for (int b = 0; b < 4; ++b) acc[v][0][b] = 0u;
         for (int j = 0; j < k; ++j) {
           uint32_t xv[VEC];
           if constexpr (VEC == 4) {
@@ -429,47 +437,60 @@ sweep_pipelined_kernel(const uint32_t* __restrict__ x,
           } else {
             xv[0] = tile[j * T + c];
           }
+          const char* tj = tg + j * kW8Entries * sizeof(uint32_t);
 #pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            const uint32_t mk = mg[r * k + j];
-#pragma unroll
-            for (int v = 0; v < VEC; ++v) acc[r][v] ^= xv[v] & mk;
-          }
+          for (int v = 0; v < VEC; ++v) w8_lookup<1>(acc[v], tj, 0, xv[v]);
         }
-        uint32_t o[VEC];
+        uint32_t o[VEC][4];
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) o[v] = 0u;
+        for (int v = 0; v < VEC; ++v) w8_rows(acc[v][0], o[v]);
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) o[v] |= byte_parity(acc[r][v]) << r;
-        uint32_t* dst = out + static_cast<long long>(g) * n4 + lane0 + c * VEC;
-        if constexpr (VEC == 4)
-          *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
-        else
-          dst[0] = o[0];
+        for (int r = 0; r < 4; ++r) {
+          const int row = 4 * g + r;
+          if (row >= m) break;
+          uint32_t* dst = out + static_cast<long long>(row) * n4 + lane0 +
+                          c * VEC;
+          if constexpr (VEC == 4)
+            *reinterpret_cast<uint4*>(dst) =
+                make_uint4(o[0][r], o[1][r], o[2][r], o[3][r]);
+          else
+            dst[0] = o[0][r];
+        }
       }
     }
     __syncthreads();  // stage st is refilled two tiles on
   }
 }
 
-template <int VEC>
-int launch_pipelined(const uint32_t* x, const uint32_t* masks, uint32_t* out,
-                     int k, int m, long long n4, int T, cudaStream_t s) {
-  const size_t smem =
-      (static_cast<size_t>((m * 8 * k + 3) & ~3) + 2ull * k * T) *
-      sizeof(uint32_t);
-  int rc = allow_smem(sweep_pipelined_kernel<VEC>, smem);
+template <int VEC, bool TAB_SMEM>
+int launch_pipelined_as(const uint32_t* x, const uint32_t* tables,
+                        uint32_t* out, int k, int m, long long n4, int T,
+                        size_t smem, cudaStream_t s) {
+  const auto kernel = sweep_pipelined_kernel<VEC, TAB_SMEM>;
+  int rc = allow_smem(kernel, smem);
   if (rc != 0) return rc;
   const long long ntiles = (n4 + T - 1) / T;
   int blocks = 0;
-  rc = resident_blocks(sweep_pipelined_kernel<VEC>, kThreads, smem, ntiles,
-                       &blocks);
+  rc = resident_blocks(kernel, kThreads, smem, ntiles, &blocks);
   if (rc != 0) return rc;
-  sweep_pipelined_kernel<VEC><<<blocks, kThreads, smem, s>>>(
-      x, masks, out, k, m, n4, T, ntiles);
+  kernel<<<blocks, kThreads, smem, s>>>(x, tables, out, k, m, n4, T, ntiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tables sit in shared memory beside the two stages where both fit in
+// kMaxSmem; otherwise they are read through the read-only cache.
+template <int VEC>
+int launch_pipelined(const uint32_t* x, const uint32_t* tables, uint32_t* out,
+                     int k, int m, long long n4, int T, cudaStream_t s) {
+  const size_t stages = 2ull * k * T * sizeof(uint32_t);
+  const size_t tab = static_cast<size_t>((m + 3) / 4) * k * kW8Entries *
+                     sizeof(uint32_t);
+  if (stages > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (stages + tab <= kMaxSmem)
+    return launch_pipelined_as<VEC, true>(x, tables, out, k, m, n4, T,
+                                          stages + tab, s);
+  return launch_pipelined_as<VEC, false>(x, tables, out, k, m, n4, T, stages,
+                                         s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1427,18 +1448,20 @@ int sweep_extract(const void* x, void* out, int m, long long n4,
   return launch_rows<ExtractOp>(x, out, m, n4, stream);
 }
 
-// x [k, n4] lanes; masks [m*8, k] byte masks * 0x01010101; out [m, n4];
-// T lanes per stage, a multiple of 4
-int sweep_pipelined_w8(const void* x, const void* masks, void* out, int k,
+// x [k, n4] lanes; tables [ceil(m/4), 32k] int32 (nibble tables, uint32
+// [ceil(m/4)][k][2][16]); out [m, n4]; T lanes per stage, a multiple of 4
+// whose two stages fit in 227 KiB
+int sweep_pipelined_w8(const void* x, const void* tables, void* out, int k,
                        int m, long long n4, int T, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xi = static_cast<const uint32_t*>(x);
-  const auto* mi = static_cast<const uint32_t*>(masks);
+  const auto* ti = static_cast<const uint32_t*>(tables);
   auto* oi = static_cast<uint32_t*>(out);
-  if (T <= 0 || T % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 0 || T % 4 != 0 || k < 0 || m < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n4 % 4 == 0 && aligned16(x) && aligned16(out))
-    return launch_pipelined<4>(xi, mi, oi, k, m, n4, T, s);
-  return launch_pipelined<1>(xi, mi, oi, k, m, n4, T, s);
+    return launch_pipelined<4>(xi, ti, oi, k, m, n4, T, s);
+  return launch_pipelined<1>(xi, ti, oi, k, m, n4, T, s);
 }
 
 // x [k, n4] lanes; bp [8m, 8k] 0/1, shift-major (column s*k + j is bit s

@@ -19,10 +19,12 @@ four little-endian bytes (``LANE_BYTES``), ``[rows, n4]``.  The bitmatrix is
 prepared on the host once per codec or decode matrix (``prep_*``), into the
 form each kernel reads:
 
-- ``prep_matrix_w8``: int32 lane masks ``[m*8, k]``, ANDed against lanes;
+- ``prep_matrix_w8``: nibble tables ``[ceil(m/4), 32*k]`` int32, uint32
+  entries ``[group][j][nibble][value]`` holding the bytes of four output
+  rows (gf-complete's SPLIT 8/4, derived from the bitmatrix alone);
 - ``prep_matrix_w16``: nibble tables ``[ceil(m/4), 128*k]`` int32, uint2
   entries ``[group][j][nibble][value]`` holding the 16-bit words of four
-  output rows (gf-complete's SPLIT 16/4, derived from the bitmatrix alone);
+  output rows (SPLIT 16/4);
 - ``prep_packet``: the ones of each output row, one int32 array
   ``[offsets (r+1) | input-row indices (nnz)]`` (a CSR list).
 
@@ -37,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,8 +48,6 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-
-from ceph_tpu_torch.ops import torch_gf
 
 #: bytes per device lane of every kernel operand (int32 lanes)
 LANE_BYTES = 4
@@ -64,9 +65,9 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: shared memory a block may take on Hopper with the opt-in attribute:
-#: ``gf2_matrix_w8`` stages one group's masks there ([8, k] int32),
-#: ``gf2_packet`` a tile of all its input rows, at least 8 lanes (32 bytes)
-#: of each
+#: ``gf2_packet`` stages a tile of all its input rows there, at least 8
+#: lanes (32 bytes) of each (the table kernels stage their tables in
+#: slices of 48 KiB, so they take any k)
 SMEM_LIMIT = 227 * 1024
 
 _lib_lock = threading.Lock()
@@ -109,10 +110,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _local_headers(text: str) -> list:
+    """The headers of ``csrc/`` that a source includes by name."""
+    names = re.findall(r'^#include "([^"]+)"', text, re.M)
+    return sorted(n for n in names if (CSRC / n).exists())
+
+
 def source_digest(source: str, generated: Generated = None) -> str:
-    """sha256 over ``csrc/<source>``, the generated header (name and text)
-    if there is one, and ``NVCC_FLAGS``: what a build depends on."""
-    h = hashlib.sha256((CSRC / source).read_bytes())
+    """sha256 over ``csrc/<source>``, the headers of ``csrc/`` it includes
+    (``gf_w8_tables.cuh``), the generated header (name and text) if there
+    is one, and ``NVCC_FLAGS``: what a build depends on."""
+    text = (CSRC / source).read_bytes()
+    h = hashlib.sha256(text)
+    for name in _local_headers(text.decode()):
+        h.update(b"\0" + name.encode() + b"\0" + (CSRC / name).read_bytes())
     if generated is not None:
         name, text = generated
         h.update(b"\0" + name.encode() + b"\0" + text.encode())
@@ -161,6 +172,26 @@ def build(source: str = SOURCE.name, generated: Generated = None) -> Path:
     build_logs[lib.name] = proc.stdout + proc.stderr
     log.write_text(build_logs[lib.name])
     os.replace(tmp, lib)
+    return lib
+
+
+def build_copy(directory: Path, name: str, text: str,
+               headers: Optional[Dict[str, str]] = None) -> Path:
+    """Compile ``text``, an edited copy of ``csrc/<name>``, with the port's
+    flags into ``directory`` (``headers``: edited copies of headers it
+    includes, written beside it, where they shadow ``csrc/``'s) and return
+    the library path.  The probe tools build their settings with it."""
+    directory.mkdir(parents=True, exist_ok=True)
+    src = directory / name
+    src.write_text(text)
+    for header, header_text in (headers or {}).items():
+        (directory / header).write_text(header_text)
+    lib = directory / f"lib{Path(name).stem}.so"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                           str(lib), str(src)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     return lib
 
 
@@ -213,13 +244,29 @@ def _launch(name: str, x: torch.Tensor, operand: torch.Tensor,
 
 
 def prep_matrix_w8(bitmatrix: np.ndarray, k: int) -> np.ndarray:
-    """[m*8, k*8] jerasure bitmatrix -> [m*8, k] byte masks * 0x01010101:
-    bit s of mask (r, j) = bitmatrix[r, j*8 + s], in every byte of a
-    lane."""
+    """[m*8, k*8] jerasure bitmatrix -> nibble tables [ceil(m/4), 32*k]
+    int32: uint32 entry (g, j, p, v) holds T_ijp[v] for the output rows
+    i = 4g .. 4g+3 in its bytes 0 .. 3, where T_ijp[v] is the XOR over the
+    bits s of v of column 8j + 4p + s of bit-rows 8i .. 8i+7, as a byte
+    (bit t from bit-row 8i + t).  So output byte i of input bytes x_j is
+    the XOR over j of T_ij0[x_j & 15] ^ T_ij1[x_j >> 4].  Bytes of rows
+    past m are zero."""
     R = bitmatrix.shape[0]
-    bits = np.asarray(bitmatrix, np.uint32).reshape(R, k, 8)
-    mask = (bits << np.arange(8, dtype=np.uint32)).sum(-1, dtype=np.uint32)
-    return np.ascontiguousarray(mask * np.uint32(0x01010101)).view(np.int32)
+    groups = -(-R // 32)
+    B = np.zeros((groups * 32, k * 8), dtype=np.uint32)
+    B[:R] = np.asarray(bitmatrix) != 0
+    # col[i, j, p, s]: column 8j + 4p + s of output row i's 8 bit-rows
+    bits = B.reshape(groups * 4, 8, k, 2, 4)
+    col = (bits << np.arange(8, dtype=np.uint32)[:, None, None, None]).sum(
+        1, dtype=np.uint32)
+    v = np.arange(16)
+    tab = np.zeros((groups * 4, k, 2, 16), dtype=np.uint32)
+    for s in range(4):
+        tab ^= col[..., s, None] * ((v >> s) & 1).astype(np.uint32)
+    tab = tab.reshape(groups, 4, k, 2, 16)
+    entries = tab[:, 0] | tab[:, 1] << 8 | tab[:, 2] << 16 | tab[:, 3] << 24
+    return np.ascontiguousarray(entries.reshape(groups, k * 32)).view(
+        np.int32)
 
 
 def prep_matrix_w16(bitmatrix: np.ndarray, k: int) -> np.ndarray:
@@ -261,14 +308,24 @@ def prep_packet(bitmatrix: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def matrix_encode_w8_plain(masks: torch.Tensor, d32: torch.Tensor,
+def matrix_encode_w8_plain(tables: torch.Tensor, d32: torch.Tensor,
                            k: int, m: int) -> torch.Tensor:
-    # the bitmatrix back from the masks' low bytes
-    shifts = torch.arange(8, dtype=torch.int32, device=masks.device)
-    B = ((masks.unsqueeze(-1) >> shifts) & 1).reshape(m * 8, -1).to(
-        torch.uint8)
-    return torch_gf._encode_words(B, d32.view(torch.uint8), 8).view(
-        torch.int32)
+    """Through the nibble tables: the 4-byte entries of 4 output rows are
+    XORed over the input bytes j and their nibbles p, then unpacked to
+    rows (byte r of a group's entry is output row 4g + r's byte)."""
+    t = tables.view(tables.shape[0], k, 2, 16)
+    u = d32.view(torch.uint8)  # [k, 4*n4] input bytes
+    acc = torch.zeros((t.shape[0], u.shape[1]), dtype=torch.int32,
+                      device=d32.device)
+    for j in range(k):
+        for p in range(2):
+            nib = ((u[j] >> (4 * p)) & 15).long()
+            acc ^= t[:, j, p, :][:, nib]
+    groups, width = t.shape[0], u.shape[1]
+    rows = acc.view(torch.uint8).view(groups, width, 4).permute(0, 2, 1)
+    out = torch.empty((m, d32.shape[1]), dtype=torch.int32, device=d32.device)
+    out.view(torch.uint8).copy_(rows.reshape(groups * 4, width)[:m])
+    return out
 
 
 def _xor_rows(t: torch.Tensor) -> torch.Tensor:
@@ -341,21 +398,18 @@ def _check_shape(name: str, operand: torch.Tensor, shape) -> None:
                          f"{tuple(shape)}")
 
 
-def matrix_encode_w8(masks: torch.Tensor, d32: torch.Tensor,
+def matrix_encode_w8(tables: torch.Tensor, d32: torch.Tensor,
                      k: int, m: int) -> torch.Tensor:
-    """masks [m*8, k] (``prep_matrix_w8``) x data lanes [k, n4] int32 ->
-    parity lanes [m, n4] int32."""
-    _check("gf2_matrix_w8", masks, d32, 2, k)
-    _check_shape("gf2_matrix_w8", masks, (m * 8, k))
-    if 8 * k * 4 > SMEM_LIMIT:
-        raise ValueError(f"gf2_matrix_w8: a group of {k}-wide masks takes "
-                         f"{8 * k * 4} bytes, over the kernel's "
-                         f"{SMEM_LIMIT}-byte shared-memory table")
+    """nibble tables [ceil(m/4), 32*k] (``prep_matrix_w8``) x data lanes
+    [k, n4] int32 -> parity lanes [m, n4] int32.  Any k and m: the kernel
+    stages its tables in slices."""
+    _check("gf2_matrix_w8", tables, d32, 2, k)
+    _check_shape("gf2_matrix_w8", tables, (-(-m // 4), 32 * k))
     if d32.device.type == "cpu":
-        return matrix_encode_w8_plain(masks, d32, k, m)
+        return matrix_encode_w8_plain(tables, d32, k, m)
     out = torch.empty((m, d32.shape[1]), dtype=torch.int32, device=d32.device)
-    if d32.shape[1]:
-        _launch("gf2_matrix_w8", d32, masks, out, k, m)
+    if out.numel():
+        _launch("gf2_matrix_w8", d32, tables, out, k, m)
     return out
 
 

@@ -73,7 +73,7 @@ class DeviceStream:
     kernel), all on int32 lanes; ``words`` (w=32 matrix codes, the plain
     words program, on bytes -- the reference has no TPU kernel for w=32
     either).  The resident operand ``_B`` is the kernel's prepared form of
-    B: lane masks (w8), nibble tables (w16), per-row lists of ones
+    B: nibble tables (w8 and w16), per-row lists of ones
     (packet), or B itself (words).
     """
 

@@ -31,7 +31,7 @@ a network generated per bitmatrix (:func:`xornet_source`); the others in
 ``csrc/sweep_kernels.cu``.
 
 Operands are int32 lanes of four little-endian bytes, ``[rows, n4]``, as in
-:mod:`cuda_gf`.  ``pipelined_w8`` takes the lane masks of
+:mod:`cuda_gf`.  ``pipelined_w8`` takes the nibble tables of
 ``cuda_gf.prep_matrix_w8``; ``int8_4dot``, ``bf16_4dot`` and ``f32_4dot``
 take the shift-major 0/1 bitmatrix of :func:`prep_shift_major_w8` in their
 product's operand type (int8, bfloat16, float32), and ``prec_product``,
@@ -151,7 +151,7 @@ def prep_shift_major_w8(bitmatrix: np.ndarray, k: int) -> np.ndarray:
     """[R, k*8] jerasure bitmatrix -> [R, 8k] float32, columns in
     shift-major order: column ``s*k + j`` is bitmatrix column ``j*8 + s``
     (bit plane s of chunk j).  A copy of ``pallas_gf.prep_matrix_w8``; the
-    port's ``cuda_gf.prep_matrix_w8`` is the lane-mask layout instead."""
+    port's ``cuda_gf.prep_matrix_w8`` makes nibble tables instead."""
     R = bitmatrix.shape[0]
     cols = np.asarray(bitmatrix, np.float32).reshape(R, k, 8)
     return np.ascontiguousarray(cols.transpose(0, 2, 1).reshape(R, 8 * k))
@@ -243,8 +243,9 @@ def extract_plain(x: torch.Tensor, m: int) -> torch.Tensor:
     return acc
 
 
-#: the production w=8 product: the pipelined kernel changes only how its
-#: operands reach the card's shared memory
+#: the production w=8 product, through the same nibble tables: the
+#: pipelined kernel changes only how its inputs reach the card's shared
+#: memory
 pipelined_w8_plain = cuda_gf.matrix_encode_w8_plain
 
 
@@ -451,19 +452,26 @@ def extract_rows(x: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def pipelined_smem_bytes(k: int, m: int, tile: int) -> int:
-    """Shared memory of one ``sweep_pipelined_w8`` block: the mask table
-    (padded to 16 bytes) and two stages of [k, tile] lanes."""
-    return (-(-(m * 8 * k) // 4) * 4 + 2 * k * tile) * 4
+    """Shared memory of one ``sweep_pipelined_w8`` block: two stages of
+    [k, tile] lanes, and the nibble tables (128 k bytes per group of 4
+    output rows) where they fit beside them in ``cuda_gf.SMEM_LIMIT``
+    (otherwise the kernel reads them through the read-only cache)."""
+    stages = 2 * k * tile * 4
+    tables = 128 * k * -(-m // 4)
+    return stages + tables if stages + tables <= cuda_gf.SMEM_LIMIT \
+        else stages
 
 
-def pipelined_w8(masks: torch.Tensor, x: torch.Tensor, k: int, m: int,
+def pipelined_w8(tables: torch.Tensor, x: torch.Tensor, k: int, m: int,
                  tile: int = DEFAULT_TILE) -> torch.Tensor:
-    """masks [m*8, k] (``cuda_gf.prep_matrix_w8``) x lanes [k, n4] ->
-    parity lanes [m, n4], staged ``tile`` lanes at a time."""
-    device = _check("sweep_pipelined_w8", masks=(masks, torch.int32),
+    """nibble tables [ceil(m/4), 32*k] (``cuda_gf.prep_matrix_w8``) x
+    lanes [k, n4] -> parity lanes [m, n4], staged ``tile`` lanes at a
+    time: any positive multiple of 4 whose two stages fit in
+    ``cuda_gf.SMEM_LIMIT``."""
+    device = _check("sweep_pipelined_w8", tables=(tables, torch.int32),
                     lanes=(x, torch.int32))
-    if tuple(masks.shape) != (m * 8, k) or x.shape[0] != k:
-        raise ValueError(f"sweep_pipelined_w8: masks {tuple(masks.shape)} "
+    if tuple(tables.shape) != (-(-m // 4), 32 * k) or x.shape[0] != k:
+        raise ValueError(f"sweep_pipelined_w8: tables {tuple(tables.shape)} "
                          f"and lanes {tuple(x.shape)} do not fit k={k} m={m}")
     if tile <= 0 or tile % 4:
         raise ValueError(f"sweep_pipelined_w8: tile {tile} is not a positive "
@@ -473,10 +481,10 @@ def pipelined_w8(masks: torch.Tensor, x: torch.Tensor, k: int, m: int,
         raise ValueError(f"sweep_pipelined_w8: tile {tile} needs {smem} bytes "
                          f"of shared memory, over {cuda_gf.SMEM_LIMIT}")
     if device.type == "cpu":
-        return pipelined_w8_plain(masks, x, k, m)
+        return pipelined_w8_plain(tables, x, k, m)
     out = torch.empty((m, x.shape[1]), dtype=torch.int32, device=device)
-    if x.shape[1]:
-        _launch("sweep_pipelined_w8", device, x.data_ptr(), masks.data_ptr(),
+    if out.numel():
+        _launch("sweep_pipelined_w8", device, x.data_ptr(), tables.data_ptr(),
                 out.data_ptr(), k, m, x.shape[1], tile)
     return out
 

@@ -167,8 +167,8 @@ def matrix_encode(matrix: np.ndarray, data: np.ndarray, w: int,
             prep, kern = cuda_gf.prep_matrix_w8, cuda_gf.matrix_encode_w8
         else:
             prep, kern = cuda_gf.prep_matrix_w16, cuda_gf.matrix_encode_w16
-        # w=8: lane masks; w=16: nibble tables, made from B for encode and
-        # for every decode matrix alike
+        # nibble tables (w=8 and w=16), made from B for encode and for
+        # every decode matrix alike
         operand = _device_matrix(prep(B, k), dev)
         d32 = residency.device_put(data.view(np.int32), dev)
         return residency.device_get(kern(operand, d32, k, m)).view(np.uint8)

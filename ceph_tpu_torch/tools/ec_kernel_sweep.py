@@ -7,7 +7,8 @@ reed_sol_van k=8 m=4 w=8 over ``--size-mib`` MiB chunks (lanes
 [8, size/4]):
 
   variants  base (the production ``gf2_matrix_w8``), pipelined
-            (``sweep_pipelined_w8``: double-buffered ``cp.async`` staging),
+            (``sweep_pipelined_w8``: the same nibble-table product with
+            double-buffered ``cp.async`` staging),
             and one tensor-core product per byte position in three operand
             types: int8_4dot (``sweep_int8_4dot``), bf16_4dot
             (``sweep_bf16_4dot``) and f32_4dot (``sweep_f32_4dot``, TF32);
@@ -294,7 +295,7 @@ def main(argv=None) -> int:
         return 2
     device, bits, data_np, d32 = sweep_data(args.size_mib, args.device)
     n4 = d32.shape[1]
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(device)
+    w8_tables = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(device)
     bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, K)).to(device)
     bp = bp32.to(torch.int8)
     bp16 = bp32.to(torch.bfloat16)
@@ -302,7 +303,7 @@ def main(argv=None) -> int:
         device, torch.bfloat16)
     xornet = sweep_gf.make_xornet(bits, K, M)
     # row -> its coding table, made once outside the timed calls
-    tables = {"base": masks, "pipelined": masks, "int8_4dot": bp,
+    tables = {"base": w8_tables, "pipelined": w8_tables, "int8_4dot": bp,
               "bf16_4dot": bp16, "f32_4dot": bp32, "bf16_blockdiag": bblk}
     print(f"reed_sol_van k={K} m={M} w={W}, lanes [{K}, {n4}], "
           f"{args.iters} iters, tile {args.tile}", flush=True)
@@ -322,10 +323,10 @@ def main(argv=None) -> int:
     if "variants" in stages and keep & set(VARIANTS):
         print("== variants (bit-exact-gated against gf2_matrix_w8) ==",
               flush=True)
-        ref = cuda_gf.matrix_encode_w8(masks, d32, K, M)
+        ref = cuda_gf.matrix_encode_w8(w8_tables, d32, K, M)
         calls = {
-            "base": lambda: cuda_gf.matrix_encode_w8(masks, d32, K, M),
-            "pipelined": lambda: sweep_gf.pipelined_w8(masks, d32, K, M,
+            "base": lambda: cuda_gf.matrix_encode_w8(w8_tables, d32, K, M),
+            "pipelined": lambda: sweep_gf.pipelined_w8(w8_tables, d32, K, M,
                                                        args.tile),
             "int8_4dot": lambda: sweep_gf.int8_4dot(bp, d32, K, M),
             "bf16_4dot": lambda: sweep_gf.bf16_4dot(bp16, d32, K, M),
@@ -340,7 +341,7 @@ def main(argv=None) -> int:
     if "precision" in stages and not only:
         print("== precision x tile (gated against prec_plain, then compared "
               "with gf2_matrix_w8) ==", flush=True)
-        ref = cuda_gf.matrix_encode_w8(masks, d32, K, M)
+        ref = cuda_gf.matrix_encode_w8(w8_tables, d32, K, M)
         for prec in sweep_gf.PREC_KERNELS:
             plain = sweep_gf.prec_plain(bp32, d32, K, M, prec)
             for tile in sweep_gf.PREC_TILES:

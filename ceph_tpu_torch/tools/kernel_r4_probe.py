@@ -61,7 +61,7 @@ def main(argv=None) -> int:
     device, bits, data_np, d32 = ec_kernel_sweep.sweep_data(args.size_mib,
                                                             args.device)
     n4 = d32.shape[1]
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(device)
+    w8_tables = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(device)
     bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, K)).to(device)
     print(f"reed_sol_van k={K} m={M} w=8, lanes [{K}, {n4}], {args.iters} "
           "iters", flush=True)
@@ -78,16 +78,16 @@ def main(argv=None) -> int:
         timed(f"{label:30s}", "bit-exact", ROWS[label], fn, table_bytes)
         return 0
 
-    rc = row("full", lambda: cuda_gf.matrix_encode_w8(masks, d32, K, M),
-             cuda_gf.matrix_encode_w8_plain(masks, d32, K, M),
-             "matrix_encode_w8_plain", masks.nbytes)
+    rc = row("full", lambda: cuda_gf.matrix_encode_w8(w8_tables, d32, K, M),
+             cuda_gf.matrix_encode_w8_plain(w8_tables, d32, K, M),
+             "matrix_encode_w8_plain", w8_tables.nbytes)
     print("(no tile sweep of the production kernel: gf2_matrix_w8 runs a "
           "persistent grid with no tile, and sweep_pipelined_w8's two "
           "stages fit shared memory only up to about 3,600 lanes at k=8)",
           flush=True)
     rc |= row("extract-only", lambda: sweep_gf.extract_fold(d32, K, M),
               sweep_gf.extract_fold_plain(d32, K, M), "extract_fold_plain", 0)
-    ref = cuda_gf.matrix_encode_w8(masks, d32, K, M)
+    ref = cuda_gf.matrix_encode_w8(w8_tables, d32, K, M)
     planes = sweep_gf.field_planes(d32, K)
     rc |= row("mxu-only (per data-byte equiv)",
               lambda: sweep_gf.planes_product(bp32, planes, K, M,

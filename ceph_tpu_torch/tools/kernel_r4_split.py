@@ -53,12 +53,12 @@ def main(argv=None) -> int:
     device, bits, data_np, d32 = ec_kernel_sweep.sweep_data(args.size_mib,
                                                             args.device)
     n4 = d32.shape[1]
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(device)
+    w8_tables = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(device)
     bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, K)).to(device)
     print(f"reed_sol_van k={K} m={M} w=8, lanes [{K}, {n4}], {args.iters} "
           "iters", flush=True)
     timed = ec_kernel_sweep.row_timer(args.iters, device, data_np.nbytes, n4)
-    ref = cuda_gf.matrix_encode_w8(masks, d32, K, M)
+    ref = cuda_gf.matrix_encode_w8(w8_tables, d32, K, M)
     rc = 0
     for parts, tile, prec in ROWS:
         name = f"{f'split{parts} tile={tile} {prec}':28s}"

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -81,16 +80,9 @@ def no_copy_source() -> str:
 
 
 def _build(name: str, text: str) -> ctypes.CDLL:
-    out = cuda_gf.BUILD_DIR / f"packet-probe-{name}"
-    out.mkdir(parents=True, exist_ok=True)
-    src, lib = out / "gf_kernels.cu", out / "libgf_kernels.so"
-    src.write_text(text)
-    proc = subprocess.run([cuda_gf._nvcc(), *cuda_gf.NVCC_FLAGS, "-o",
-                           str(lib), str(src)], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    dll = ctypes.CDLL(str(lib))
+    dll = ctypes.CDLL(str(cuda_gf.build_copy(
+        cuda_gf.BUILD_DIR / f"packet-probe-{name}", cuda_gf.SOURCE.name,
+        text)))
     dll.gf2_packet.argtypes = list(cuda_gf._SIGNATURES["gf2_packet"])
     dll.gf2_packet.restype = ctypes.c_int
     return dll

@@ -11,14 +11,15 @@ Phases (any failure raises and exits non-zero):
    the main path gives it, from seeded random bytes (half of them >= 0x80):
    bit-exact, with kernel and plain times (beside the times of the codec
    kernels' first, mask-table designs) and the least time the card could
-   take for the same work.  Then
-   ``gf2_packet`` and ``gf2_matrix_w16`` at edge shapes, each bit-exact
-   against its plain version: lanes n4 = 1, 1003 and 131072, a pointer
-   off the 16-byte grid, odd r and m, k = 1, all-zero bit-rows, the wide
-   packet codes (cauchy_good k=32 m=8, liberation k=17 w=31, a 1800-row
-   table), w=16 tables staged in slices (k = 100, k = 50 at m = 8) and in
-   passes (m = 12), and decode matrices (reed_sol_van w=16 with chunks 1
-   and 6 erased, cauchy_good's decoding bitmatrix).
+   take for the same work.  Then the three codec kernels at edge shapes,
+   each bit-exact against its plain version: lanes n4 = 1 and 1003, the
+   main path's width (2097152 at w=8, 131072 at w=16 and for the packet
+   code), a pointer off the 16-byte grid, odd r and m, k = 1, all-zero
+   bit-rows, the wide packet codes (cauchy_good k=32 m=8, liberation k=17
+   w=31, a 1800-row table), tables staged in slices (w=8 k = 400; w=16 k =
+   100, k = 50 at m = 8) and in passes (m = 12), and decode matrices
+   (reed_sol_van w=8 and w=16 with chunks 1 and 6 erased, cauchy_good's
+   decoding bitmatrix); ``sweep_pipelined_w8`` over the same w=8 cases.
 3. The main path through the port's registry: ``factory("cuda",
    reed_sol_van k=8 m=4)`` encodes 8 distinct random 8 MiB stripes with
    ``encode_batch``, decodes them with chunks 1 and 6 erased with
@@ -102,10 +103,14 @@ REPLACES = {
     "gf2_packet": "ceph_tpu/ops/pallas_gf.py:240",
 }
 #: each codec kernel's flushed time at this phase's shape in its first,
-#: bit-sliced mask-table design (``gf2_matrix_w8``'s is still its design;
-#: NVIDIA H100 80GB HBM3 at 700 W), printed beside the time measured now
+#: bit-sliced mask-table design (NVIDIA H100 80GB HBM3 at 700 W), printed
+#: beside the time measured now
 MASK_TABLE_MS = {"gf2_matrix_w8": 0.0970, "gf2_matrix_w16": 0.0998,
                  "gf2_packet": 0.1029}
+#: sweep kernels redesigned since: their flushed time in the earlier
+#: design at phase 5's shape (the mask-table ``sweep_pipelined_w8``; same
+#: card and limit), printed beside the time measured now
+EARLIER_MS = {"sweep_pipelined_w8": 0.0932}
 SWEEP_SOURCE = "ceph_tpu_torch/csrc/sweep_kernels.cu"
 SWEEP_REPLACES = {
     "sweep_copy": "tools/ec_kernel_sweep.py:117",
@@ -190,7 +195,7 @@ def _kernel_case(name, ec, batch, dev, gen):
         prep = cuda_gf.prep_matrix_w8 if ec.w == 8 else cuda_gf.prep_matrix_w16
         op_np, rows_in, rows_out = prep(B, K), K, M
     cols = batch * stream.cols_of(chunk)
-    # lane masks (w=8), nibble tables (w=16) or per-row lists (packet)
+    # nibble tables (w=8 and w=16) or per-row lists (packet)
     op = torch.from_numpy(op_np).to(dev)
     x = torch.randint(0, 256, (rows_in, cols * cuda_gf.LANE_BYTES),
                       dtype=torch.uint8, device=dev, generator=gen
@@ -260,18 +265,25 @@ def _lanes(gen, dev, rows, n4, aligned=True):
     return y
 
 
-def _w16_decode_bits():
-    """reed_sol_van k=8 m=4 w=16: the bitmatrix that rebuilds chunks 1
-    and 6 from the first 8 survivors (as ``torch_gf.matrix_decode``)."""
-    M16 = reed_sol.vandermonde_coding_matrix(K, M, 16)
+def _decode_bits(w: int):
+    """reed_sol_van k=8 m=4 at width w: the bitmatrix that rebuilds chunks
+    1 and 6 from the first 8 survivors (as ``torch_gf.matrix_decode``)."""
+    Mw = reed_sol.vandermonde_coding_matrix(K, M, w)
     sel = [c for c in range(K + M) if c not in ERASED][:K]
     A = np.zeros((K, K), dtype=np.uint32)
     for r, cid in enumerate(sel):
         if cid < K:
             A[r, cid] = 1
         else:
-            A[r] = M16[cid - K]
-    return matrix_to_bitmatrix(gf(16).mat_invert(A)[list(ERASED)], 16)
+            A[r] = Mw[cid - K]
+    return matrix_to_bitmatrix(gf(w).mat_invert(A)[list(ERASED)], w)
+
+
+def _widest_tile(k: int, m: int, tables: bool) -> int:
+    """The widest ``sweep_pipelined_w8`` tile whose two stages (and, with
+    ``tables``, its nibble tables) fit in shared memory."""
+    room = cuda_gf.SMEM_LIMIT - (128 * k * -(-m // 4) if tables else 0)
+    return room // (2 * k * cuda_gf.LANE_BYTES) // 4 * 4
 
 
 def _bits(r: int, c: int) -> np.ndarray:
@@ -281,7 +293,7 @@ def _bits(r: int, c: int) -> np.ndarray:
 
 def _codec_edge_cases():
     """(label, kernel, bitmatrix, k or None, lanes n4, aligned): the shapes
-    and matrices the two redesigned kernels must take."""
+    and matrices the three redesigned kernels must take."""
     cg = matrix_to_bitmatrix(cauchy.good_general_coding_matrix(K, M, 8), 8)
     sel = [c for c in range(K + M) if c not in ERASED][:K]
     zero_rows = _bits(13, 27)
@@ -290,7 +302,24 @@ def _codec_edge_cases():
                                 16)
     zero16 = _bits(5 * 16, 3 * 16)
     zero16[[0, 17, 79]] = 0
-    cases = []
+    rsv8 = _sweep_bits()
+    zero8 = _bits(3 * 8, 5 * 8)
+    zero8[[0, 9, 23]] = 0
+    cases = [(f"reed_sol_van k=8 m=4 n4={n4}", "gf2_matrix_w8", rsv8, K, n4,
+              True) for n4 in (1, 1003, SWEEP_N4)]
+    cases += [
+        ("reed_sol_van k=8 m=4 unaligned", "gf2_matrix_w8", rsv8, K, 4096,
+         False),
+        ("k=1 m=1", "gf2_matrix_w8", _bits(8, 8), 1, 4099, True),
+        ("odd m=3, k=5, zero rows", "gf2_matrix_w8", zero8, 5, 1003, True),
+        ("odd m=5, k=3", "gf2_matrix_w8", _bits(40, 24), 3, 4096, False),
+        ("k=400 m=4: two slices", "gf2_matrix_w8", _bits(32, 3200), 400,
+         1003, True),
+        ("k=5 m=12: two passes", "gf2_matrix_w8", _bits(96, 40), 5, 4099,
+         True),
+        ("reed_sol_van w=8 decode erased 1,6", "gf2_matrix_w8",
+         _decode_bits(8), K, 131072, True),
+    ]
     for n4 in (1, 1003, 131072):
         cases.append((f"cauchy_good k=8 m=4 n4={n4}", "gf2_packet", cg,
                       None, n4, True))
@@ -323,14 +352,16 @@ def _codec_edge_cases():
         ("k=5 m=12: two passes", "gf2_matrix_w16", _bits(192, 80), 5, 4099,
          True),
         ("reed_sol_van w=16 decode erased 1,6", "gf2_matrix_w16",
-         _w16_decode_bits(), K, 131072, True),
+         _decode_bits(16), K, 131072, True),
     ]
     return cases
 
 
 def phase_codec_edges(dev, gen) -> None:
-    """gf2_packet and gf2_matrix_w16 against their plain versions at the
-    edge shapes and decode matrices of :func:`_codec_edge_cases`."""
+    """The codec kernels against their plain versions at the edge shapes
+    and decode matrices of :func:`_codec_edge_cases`; ``gf2_matrix_w8``'s
+    cases also through ``sweep_pipelined_w8`` (its default tile, or the
+    widest that fits)."""
     for label, name, B, k, n4, aligned in _codec_edge_cases():
         if name == "gf2_packet":
             r, c = B.shape
@@ -338,6 +369,18 @@ def phase_codec_edges(dev, gen) -> None:
             x = _lanes(gen, dev, c, n4, aligned)
             got = cuda_gf.packet_encode(op, x, r)
             want = cuda_gf.packet_encode_plain(op, x, r)
+        elif name == "gf2_matrix_w8":
+            m = B.shape[0] // 8
+            op = torch.from_numpy(cuda_gf.prep_matrix_w8(B, k)).to(dev)
+            x = _lanes(gen, dev, k, n4, aligned)
+            got = cuda_gf.matrix_encode_w8(op, x, k, m)
+            want = cuda_gf.matrix_encode_w8_plain(op, x, k, m)
+            tile = min(sweep_gf.DEFAULT_TILE, _widest_tile(k, m, False))
+            assert torch.equal(sweep_gf.pipelined_w8(op, x, k, m, tile),
+                               want), \
+                f"sweep_pipelined_w8 ({label}, tile {tile}): kernel != " \
+                f"plain version at lanes {tuple(x.shape)}"
+            label += f"; sweep_pipelined_w8 tile {tile} too"
         else:
             m = B.shape[0] // 16
             op = torch.from_numpy(cuda_gf.prep_matrix_w16(B, k)).to(dev)
@@ -363,7 +406,7 @@ def _sweep_cases(dev):
     parts 2, tile 8192)."""
     bits = _sweep_bits()
     xornet = sweep_gf.make_xornet(bits, K, M)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(dev)
+    w8 = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, K)).to(dev)
     bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, K)).to(dev)
     bp, bp16 = bp32.to(torch.int8), bp32.to(torch.bfloat16)
     bblk = torch.from_numpy(sweep_gf.prep_blockdiag_w8(bits, K, M)).to(
@@ -376,9 +419,9 @@ def _sweep_cases(dev):
         "sweep_extract": (lambda x: sweep_gf.extract_rows(x, M),
                           lambda x: sweep_gf.extract_plain(x, M), None, 0),
         "sweep_pipelined_w8": (
-            lambda x: sweep_gf.pipelined_w8(masks, x, K, M, tile),
-            lambda x: sweep_gf.pipelined_w8_plain(masks, x, K, M), None,
-            masks.nbytes),
+            lambda x: sweep_gf.pipelined_w8(w8, x, K, M, tile),
+            lambda x: sweep_gf.pipelined_w8_plain(w8, x, K, M), None,
+            w8.nbytes),
         "sweep_int8_4dot": (lambda x: sweep_gf.int8_4dot(bp, x, K, M),
                             lambda x: sweep_gf.int8_4dot_plain(bp, x, K, M),
                             None, bp.nbytes),
@@ -423,14 +466,22 @@ PREP = {"sweep_planes_f32": lambda x: sweep_gf.field_planes(x, K)}
 def _sweep_more_cases(dev):
     """name -> [(label, kernel, plain version)]: the same kernels at the
     other precision tile, ``sweep_split_f32`` at the probe's other parts,
-    and the XOR network of a second bitmatrix (cauchy_good k=8 m=4 w=8:
-    another generated library)."""
+    ``sweep_pipelined_w8`` at tile 4, at the widest tile whose stages and
+    tables fit in shared memory and at the widest whose stages fit (its
+    tables then read through L1), and the XOR network of a second
+    bitmatrix (cauchy_good k=8 m=4 w=8: another generated library)."""
     bits = matrix_to_bitmatrix(cauchy.good_general_coding_matrix(K, M, 8), 8)
     xornet = sweep_gf.make_xornet(bits, K, M)
+    w8 = torch.from_numpy(cuda_gf.prep_matrix_w8(_sweep_bits(), K)).to(dev)
     bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(_sweep_bits(),
                                                          K)).to(dev)
     tile = sweep_gf.PREC_TILES[1]
     return {
+        "sweep_pipelined_w8": [(
+            f"tile {t}",
+            lambda x, t=t: sweep_gf.pipelined_w8(w8, x, K, M, t),
+            lambda x: sweep_gf.pipelined_w8_plain(w8, x, K, M))
+            for t in (4, _widest_tile(K, M, True), _widest_tile(K, M, False))],
         "sweep_xornet": [(
             "cauchy_good k=8 m=4", xornet,
             lambda x: sweep_gf.xornet_plain(bits, x, K, M))],
@@ -508,6 +559,8 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
             lib_note = (f"library x[:m].clone() {library_ms:.4f} ms"
                         if library_ms is not None else
                         f"library_ms null: {NO_LIBRARY[name]}")
+            if name in EARLIER_MS:
+                lib_note += (f"; earlier design {EARLIER_MS[name]:.4f} ms")
             ops_note = (f", {ops} {ec_kernel_sweep.OP_RATES[name][0]} ops"
                         if ops else "")
             print(f"[sweep-kernel] {name} lanes {tuple(x.shape)}: bit-exact, "

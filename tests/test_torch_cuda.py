@@ -49,12 +49,16 @@ def _decode_matrix(k, m, w, erased):
 @pytest.mark.parametrize("k,m,n4,aligned,code", [
     (8, 4, 4096, True, "encode"),
     (3, 5, 1003, True, "encode"),     # odd m
+    (8, 3, 4099, True, "encode"),     # odd m, n4 no multiple of 4
     (4, 2, 1, True, "encode"),
+    (1, 4, 4096, True, "encode"),     # k = 1
     (8, 4, 131072, True, "encode"),   # the main path's granule width
     (8, 4, 4096, False, "encode"),    # a pointer off the 16-byte grid
     (7, 3, 1003, False, "encode"),
     (100, 3, 1003, True, "encode"),   # w=16 tables staged in two slices
     (50, 8, 4096, True, "encode"),    # two slices of two output groups
+    (8, 12, 4096, True, "encode"),    # m = 12: two passes of output groups
+    (400, 4, 1003, True, "random"),   # w=8 tables staged in two slices
     (8, 4, 4096, True, "decode"),     # chunks 1 and 6 erased: 2 rows out
 ])
 def test_matrix_kernels_match_plain_versions(dev, k, m, n4, aligned, code):
@@ -67,9 +71,12 @@ def test_matrix_kernels_match_plain_versions(dev, k, m, n4, aligned, code):
              cuda_gf.matrix_encode_w8_plain),
             (16, cuda_gf.prep_matrix_w16, cuda_gf.matrix_encode_w16,
              cuda_gf.matrix_encode_w16_plain)):
-        matrix = (_decode_matrix(k, m, w, (1, 6)) if code == "decode"
-                  else reed_sol.vandermonde_coding_matrix(k, m, w))
-        B = bitmatrix.matrix_to_bitmatrix(matrix, w)
+        if code == "random":  # k + m over the 2^8 of a w=8 Vandermonde code
+            B = rs.randint(0, 2, (m * w, k * w)).astype(np.uint8)
+        else:
+            matrix = (_decode_matrix(k, m, w, (1, 6)) if code == "decode"
+                      else reed_sol.vandermonde_coding_matrix(k, m, w))
+            B = bitmatrix.matrix_to_bitmatrix(matrix, w)
         rows = B.shape[0] // w
         op = torch.from_numpy(prep(B, k)).to(dev)
         assert torch.equal(kern(op, d, k, rows), plain(op, d, k, rows))
@@ -128,12 +135,12 @@ def test_packet_kernel_opts_in_to_wide_mask_tables(dev, r, c, n4):
 def test_wrappers_count_launches_and_refuse_mixed_devices(dev):
     B = bitmatrix.matrix_to_bitmatrix(
         reed_sol.vandermonde_coding_matrix(4, 2, 8), 8)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(B, 4))
+    w8_tables = torch.from_numpy(cuda_gf.prep_matrix_w8(B, 4))
     d = torch.zeros((4, 64), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        cuda_gf.matrix_encode_w8(masks, d, 4, 2)  # masks on the CPU
+        cuda_gf.matrix_encode_w8(w8_tables, d, 4, 2)  # tables on the CPU
     before = cuda_gf.launches["gf2_matrix_w8"]
-    cuda_gf.matrix_encode_w8(masks.to(dev), d, 4, 2)
+    cuda_gf.matrix_encode_w8(w8_tables.to(dev), d, 4, 2)
     assert cuda_gf.launches["gf2_matrix_w8"] == before + 1
 
 
@@ -168,10 +175,10 @@ def test_cuda_plugin_matches_numpy_jerasure(dev, profile):
 def _sweep_operands(k, m, dev):
     B = bitmatrix.matrix_to_bitmatrix(
         reed_sol.vandermonde_coding_matrix(k, m, 8), 8)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(B, k)).to(dev)
+    w8_tables = torch.from_numpy(cuda_gf.prep_matrix_w8(B, k)).to(dev)
     bp = torch.from_numpy(
         sweep_gf.prep_shift_major_w8(B, k).astype(np.int8)).to(dev)
-    return masks, bp
+    return w8_tables, bp
 
 
 def _unaligned(x):
@@ -198,12 +205,12 @@ def test_sweep_kernels_match_plain_versions(dev, k, m, n4, aligned):
     d = _lanes(rs, k, n4, dev)
     if not aligned:
         d = _unaligned(d)
-    masks, bp = _sweep_operands(k, m, dev)
+    w8_tables, bp = _sweep_operands(k, m, dev)
     pairs = (
         (sweep_gf.copy_rows(d, m), sweep_gf.copy_plain(d, m)),
         (sweep_gf.extract_rows(d, m), sweep_gf.extract_plain(d, m)),
-        (sweep_gf.pipelined_w8(masks, d, k, m),
-         sweep_gf.pipelined_w8_plain(masks, d, k, m)),
+        (sweep_gf.pipelined_w8(w8_tables, d, k, m),
+         sweep_gf.pipelined_w8_plain(w8_tables, d, k, m)),
         (sweep_gf.int8_4dot(bp, d, k, m),
          sweep_gf.int8_4dot_plain(bp, d, k, m)),
     )
@@ -251,25 +258,26 @@ def test_tensor_core_kernels_match_plain_versions(dev, kernel, k, m, n4,
     assert torch.equal(wrapper(table, d, k, m), plain(table, d, k, m))
 
 
-@pytest.mark.parametrize("tile", [4, 1000, 3072])
+@pytest.mark.parametrize("tile", [4, 1000, 3072, 3616, 3632])
 def test_pipelined_kernel_at_any_tile(dev, tile):
     # a tile smaller than a block's threads, one that is no multiple of
-    # the 1024 lanes a block covers, and one that opts in to 197 KiB of
-    # shared memory
+    # the 1024 lanes a block covers, one that opts in to 193 KiB of
+    # shared memory, the widest whose stages and tables fit, and the
+    # widest whose stages fit (the tables then read through L1)
     rs = np.random.RandomState(tile)
     d = _lanes(rs, 8, 20000, dev)
-    masks, _ = _sweep_operands(8, 4, dev)
-    assert torch.equal(sweep_gf.pipelined_w8(masks, d, 8, 4, tile),
-                       cuda_gf.matrix_encode_w8(masks, d, 8, 4))
+    w8_tables, _ = _sweep_operands(8, 4, dev)
+    assert torch.equal(sweep_gf.pipelined_w8(w8_tables, d, 8, 4, tile),
+                       cuda_gf.matrix_encode_w8(w8_tables, d, 8, 4))
 
 
 def test_sweep_wrappers_count_launches_and_refuse_mixed_devices(dev):
-    masks, bp = _sweep_operands(4, 2, dev)
+    w8_tables, bp = _sweep_operands(4, 2, dev)
     d = torch.zeros((4, 64), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         sweep_gf.int8_4dot(bp.cpu(), d, 4, 2)
     with pytest.raises(ValueError):
-        sweep_gf.pipelined_w8(masks.cpu(), d, 4, 2)
+        sweep_gf.pipelined_w8(w8_tables.cpu(), d, 4, 2)
     bp32 = bp.to(torch.float32)
     with pytest.raises(ValueError):
         sweep_gf.prec_product(bp32.cpu(), d, 4, 2, "HIGH")
@@ -277,7 +285,7 @@ def test_sweep_wrappers_count_launches_and_refuse_mixed_devices(dev):
     before = dict(sweep_gf.launches)
     sweep_gf.copy_rows(d, 2)
     sweep_gf.extract_rows(d, 2)
-    sweep_gf.pipelined_w8(masks, d, 4, 2)
+    sweep_gf.pipelined_w8(w8_tables, d, 4, 2)
     sweep_gf.int8_4dot(bp, d, 4, 2)
     for wrapper, _, table in _tensor_core_cases(4, 2, dev).values():
         wrapper(table, d, 4, 2)
@@ -313,10 +321,10 @@ def test_xornet_kernel_matches_plain_version(dev, code, k, m, n4, aligned):
     if not aligned:
         d = _unaligned(d)
     bits = _code_bits(code, k, m)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k)).to(dev)
+    w8_tables = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k)).to(dev)
     got = sweep_gf.make_xornet(bits, k, m)(d)
     assert torch.equal(got, sweep_gf.xornet_plain(bits, d, k, m))
-    assert torch.equal(got, cuda_gf.matrix_encode_w8(masks, d, k, m))
+    assert torch.equal(got, cuda_gf.matrix_encode_w8(w8_tables, d, k, m))
 
 
 def test_xornet_builds_one_library_per_bitmatrix(dev):
@@ -350,9 +358,9 @@ def test_precision_kernels_match_prec_plain(dev, prec, tile, k, m, n4,
         _code_bits("reed_sol_van", k, m), k)).to(dev)
     got = sweep_gf.prec_product(bp, d, k, m, prec, tile)
     assert torch.equal(got, sweep_gf.prec_plain(bp, d, k, m, prec))
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(
+    w8_tables = torch.from_numpy(cuda_gf.prep_matrix_w8(
         _code_bits("reed_sol_van", k, m), k)).to(dev)
-    exact = torch.equal(got, cuda_gf.matrix_encode_w8(masks, d, k, m))
+    exact = torch.equal(got, cuda_gf.matrix_encode_w8(w8_tables, d, k, m))
     # one TF32 pass loses the plane value 65537's low field
     assert exact if prec != "DEFAULT" else (n4 == 1 or not exact)
 
@@ -402,8 +410,8 @@ def test_kernel_sweep_runs_on_the_card(dev, capsys):
 def _prec_operands(code, k, m, dev):
     bits = _code_bits(code, k, m)
     bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, k)).to(dev)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k)).to(dev)
-    return bp, masks
+    w8_tables = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k)).to(dev)
+    return bp, w8_tables
 
 
 @pytest.mark.parametrize("parts", [2, 4, 8])
@@ -422,9 +430,9 @@ def test_split_kernel_matches_split_plain(dev, parts, k, m, n4, aligned):
     d = _lanes(rs, k, n4, dev)
     if not aligned:
         d = _unaligned(d)
-    bp, masks = _prec_operands("cauchy_good", k, m, dev)
+    bp, w8_tables = _prec_operands("cauchy_good", k, m, dev)
     want = sweep_gf.split_plain(bp, d, k, m, parts)
-    assert torch.equal(want, cuda_gf.matrix_encode_w8(masks, d, k, m))
+    assert torch.equal(want, cuda_gf.matrix_encode_w8(w8_tables, d, k, m))
     # the smallest tile (chunks of one warp's 32 lanes, fewer than a
     # block's threads) and the probe's two
     for tile in (32 * parts, 8192, 16384):
@@ -478,13 +486,13 @@ def test_extract_fold_kernel_matches_plain_version(dev, k, m, n4, aligned):
 def test_planes_kernel_matches_plain_version(dev, tile, k, m, n4, aligned):
     rs = np.random.RandomState(k * 1000 + n4)
     d = _lanes(rs, k, n4, dev)
-    bp, masks = _prec_operands("reed_sol_van", k, m, dev)
+    bp, w8_tables = _prec_operands("reed_sol_van", k, m, dev)
     planes = sweep_gf.field_planes(d, k)
     if not aligned:
         planes = _unaligned(planes)
     got = sweep_gf.planes_product(bp, planes, k, m, tile)
     assert torch.equal(got, sweep_gf.planes_plain(bp, planes, k, m))
-    assert torch.equal(got, cuda_gf.matrix_encode_w8(masks, d, k, m))
+    assert torch.equal(got, cuda_gf.matrix_encode_w8(w8_tables, d, k, m))
 
 
 def test_probe_wrappers_refuse_what_their_kernels_do_not_take(dev):

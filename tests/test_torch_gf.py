@@ -124,8 +124,8 @@ def test_matrix_w8_plain_matches_pallas(k, m, n4):
         reed_sol.vandermonde_coding_matrix(k, m, 8), 8)
     data = _bytes(rs, k, n4 * 4)
     d32 = torch.from_numpy(data.view(np.int32))
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(B, k))
-    ours = cuda_gf.matrix_encode_w8(masks, d32, k, m)
+    tables = torch.from_numpy(cuda_gf.prep_matrix_w8(B, k))
+    ours = cuda_gf.matrix_encode_w8(tables, d32, k, m)
     assert ours.dtype == torch.int32 and ours.shape == (m, n4)
     with pltpu.force_tpu_interpret_mode():
         theirs = pallas_gf.matrix_encode_w8(B, data, k, m)
@@ -169,13 +169,25 @@ def test_packet_plain_matches_pallas(r, c, n4):
 
 def test_lane_masks_encode_the_bitmatrix():
     rs = np.random.RandomState(5)
-    # w=8: one byte mask per (bit-row, input chunk), in all four bytes
+    # w=8: byte r of entry (g, j, p, v) of the nibble tables holds, for
+    # output row 4g + r, the XOR of the columns 8j + 4p + s of its bit-rows
+    # over the bits s of v
     B = rs.randint(0, 2, (3 * 8, 5 * 8)).astype(np.uint8)
-    masks = cuda_gf.prep_matrix_w8(B, 5).view(np.uint32)
-    for r in range(3 * 8):
+    tables = cuda_gf.prep_matrix_w8(B, 5).view(np.uint32)
+    assert tables.shape == (1, 32 * 5)
+    t8 = tables.reshape(1, 5, 2, 16)
+    for i in range(3):
         for j in range(5):
-            field = sum(int(B[r, j * 8 + s]) << s for s in range(8))
-            assert masks[r, j] == field * 0x01010101
+            for p in range(2):
+                for v in range(16):
+                    byte = 0
+                    for s in range(4):
+                        if v >> s & 1:
+                            col = B[8 * i:8 * i + 8, 8 * j + 4 * p + s]
+                            byte ^= sum(int(b) << t_ for t_, b in
+                                        enumerate(col))
+                    assert t8[0, j, p, v] >> (8 * i) & 0xFF == byte
+    assert not np.any(t8 >> 24)  # byte 3: no fourth output row
     # w=16: entry (g, j, p, v) of the nibble tables holds, for output
     # words 4g .. 4g+3, the XOR of the columns 16j + 4p + s of their
     # bit-rows over the bits s of v
@@ -284,22 +296,28 @@ def test_bitmatrix_engine_matches_xla_gf(technique, k, w, packetsize):
 
 def test_wrappers_check_their_operands():
     B = bitmatrix.matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(4, 2, 8), 8)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(B, 4))
+    tables8 = torch.from_numpy(cuda_gf.prep_matrix_w8(B, 4))
     d32 = torch.zeros((4, 16), dtype=torch.int32)
     with pytest.raises(TypeError):
-        cuda_gf.matrix_encode_w8(masks, d32.to(torch.int64), 4, 2)
+        cuda_gf.matrix_encode_w8(tables8, d32.to(torch.int64), 4, 2)
     with pytest.raises(ValueError):
-        cuda_gf.matrix_encode_w8(masks, d32[:3], 4, 2)
+        cuda_gf.matrix_encode_w8(tables8, d32[:3], 4, 2)
     with pytest.raises(ValueError):
-        cuda_gf.matrix_encode_w8(masks, d32[:, ::2], 4, 2)
+        cuda_gf.matrix_encode_w8(tables8, d32[:, ::2], 4, 2)
     with pytest.raises(ValueError):
-        cuda_gf.matrix_encode_w8(masks[:, :3].contiguous(), d32, 4, 2)
-    # w=8: a group of 8 mask rows over the 227 KiB of shared memory a
-    # block may opt in to is refused
-    with pytest.raises(ValueError):
-        cuda_gf.matrix_encode_w8(torch.zeros((8, 8000), dtype=torch.int32),
-                                 torch.zeros((8000, 4), dtype=torch.int32),
-                                 8000, 1)
+        cuda_gf.matrix_encode_w8(tables8[:, :96].contiguous(), d32, 4, 2)
+    # w=8: the tables are staged in slices, so k over the 7264 that one
+    # 227 KiB group of 8 mask rows held is taken
+    B8 = np.zeros((8, 8000 * 8), np.uint8)
+    B8[:, :8] = np.eye(8, dtype=np.uint8)
+    d8 = torch.from_numpy(np.arange(8000 * 4, dtype=np.int32).reshape(8000, 4))
+    out8 = cuda_gf.matrix_encode_w8(
+        torch.from_numpy(cuda_gf.prep_matrix_w8(B8, 8000)), d8, 8000, 1)
+    assert torch.equal(out8, d8[:1])
+    with pytest.raises(ValueError):  # tables of another k
+        cuda_gf.matrix_encode_w8(
+            torch.from_numpy(cuda_gf.prep_matrix_w8(B8[:, :64], 8)), d8,
+            8000, 1)
     # packet: a tile of all c input rows x 8 lanes must fit in the 227 KiB
     # (c <= 7264, as a group of 8 mask rows had to); the widest is taken
     zeros8 = np.zeros((8, 7265), np.uint8)
@@ -324,7 +342,7 @@ def test_wrappers_check_their_operands():
         cuda_gf.matrix_encode_w16(
             torch.from_numpy(cuda_gf.prep_matrix_w16(B16[:, :64], 4)), d16,
             3700, 1)
-    assert cuda_gf.matrix_encode_w8(masks, d32, 4, 2).shape == (2, 16)
+    assert cuda_gf.matrix_encode_w8(tables8, d32, 4, 2).shape == (2, 16)
 
 
 def test_cpu_runs_plain_versions_without_counting_launches():

@@ -159,12 +159,13 @@ def test_pipelined_plain_matches_production_kernel(k, m, n4):
     # kind: cpu").  Its contract is the production kernel's output, the
     # same gate the JAX tool applies to it (tools/ec_kernel_sweep.py:215-231).
     bits, d32 = _bits(k, m), _data(k * n4, k, n4)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k))
+    tables = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k))
     x = torch.from_numpy(d32)
     want = _production(bits, d32, k, m, 128 if n4 % TILE else TILE)
-    assert np.array_equal(sweep_gf.pipelined_w8(masks, x, k, m).numpy(), want)
+    assert np.array_equal(sweep_gf.pipelined_w8(tables, x, k, m).numpy(),
+                          want)
     assert np.array_equal(
-        sweep_gf.pipelined_w8_plain(masks, x, k, m).numpy(), want)
+        sweep_gf.pipelined_w8_plain(tables, x, k, m).numpy(), want)
 
 
 # -- wrapper contract ----------------------------------------------------------
@@ -172,7 +173,7 @@ def test_pipelined_plain_matches_production_kernel(k, m, n4):
 
 def test_sweep_wrappers_check_their_operands():
     bits = _bits(4, 2)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, 4))
+    tables = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, 4))
     bp = torch.from_numpy(
         sweep_gf.prep_shift_major_w8(bits, 4).astype(np.int8))
     d = torch.zeros((4, 16), dtype=torch.int32)
@@ -187,7 +188,7 @@ def test_sweep_wrappers_check_their_operands():
     with pytest.raises(ValueError):
         sweep_gf.int8_4dot(bp[:8].contiguous(), d, 4, 2)
     with pytest.raises(ValueError):
-        sweep_gf.pipelined_w8(masks, d[:3], 4, 2)
+        sweep_gf.pipelined_w8(tables, d[:3], 4, 2)
     # the int8 kernel's register fragments take k <= 16 and m <= 8
     with pytest.raises(ValueError):
         sweep_gf.int8_4dot(torch.zeros((8, 8 * 17), dtype=torch.int8),
@@ -196,11 +197,20 @@ def test_sweep_wrappers_check_their_operands():
         sweep_gf.int8_4dot(torch.zeros((72, 8), dtype=torch.int8),
                            torch.zeros((1, 16), dtype=torch.int32), 1, 9)
     with pytest.raises(ValueError):
-        sweep_gf.pipelined_w8(masks, d, 4, 2, tile=6)  # not a multiple of 4
+        sweep_gf.pipelined_w8(tables, d, 4, 2, tile=6)  # not a multiple of 4
     # two stages of [4, 8000] lanes are over the 227 KiB of shared memory
     with pytest.raises(ValueError):
-        sweep_gf.pipelined_w8(masks, d, 4, 2, tile=8000)
-    assert sweep_gf.pipelined_w8(masks, d, 4, 2, tile=4).shape == (2, 16)
+        sweep_gf.pipelined_w8(tables, d, 4, 2, tile=8000)
+    with pytest.raises(ValueError):  # tables of another m
+        sweep_gf.pipelined_w8(tables, d, 4, 5)
+    assert sweep_gf.pipelined_w8(tables, d, 4, 2, tile=4).shape == (2, 16)
+    # the widest tile whose two stages fit is taken: the tables, which no
+    # longer fit beside them, are read through L1
+    widest = cuda_gf.SMEM_LIMIT // (2 * 4 * 4) // 4 * 4
+    assert sweep_gf.pipelined_smem_bytes(4, 2, widest) == 2 * 4 * widest * 4
+    assert sweep_gf.pipelined_smem_bytes(4, 2, 1024) == 2 * 4 * 1024 * 4 + 512
+    assert sweep_gf.pipelined_w8(tables, d, 4, 2, tile=widest).shape == \
+        (2, 16)
 
 
 def test_tensor_core_wrappers_check_their_operands():

@@ -72,10 +72,10 @@ def test_xornet_matches_kernel_r4_and_production(code, k, m):
 @pytest.mark.parametrize("n4", [1, 1003])
 def test_xornet_plain_at_ragged_widths(n4):
     bits, d32 = _bits("cauchy_good", 5, 3), _data(n4, 5, n4)
-    masks = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, 5))
+    tables = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, 5))
     x = torch.from_numpy(d32)
     assert torch.equal(sweep_gf.make_xornet(bits, 5, 3)(x),
-                       cuda_gf.matrix_encode_w8_plain(masks, x, 5, 3))
+                       cuda_gf.matrix_encode_w8_plain(tables, x, 5, 3))
 
 
 def test_xornet_source_is_deterministic_and_keyed_by_bitmatrix():
