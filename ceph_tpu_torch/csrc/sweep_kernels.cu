@@ -20,7 +20,10 @@
 //   sweep_prec_tf32x3   the same at precision HIGH
 //   sweep_prec_tf32     the same at precision DEFAULT
 //   sweep_split_f32     replaces experiments/kernel_r4_split.py _kernel_split
-//                       (:51) at precision HIGHEST, parts 2, 4 and 8
+//                       (:51) at precision HIGHEST, parts 2, 4 and 8 (its
+//                       kernel is split_f32.cuh's; this entry stages Bp in
+//                       shared memory, split_kernel.cu's takes it as a
+//                       kernel parameter)
 //   sweep_extract_fold  replaces experiments/kernel_r4_probe.py
 //                       _extract_kernel (:38)
 //   sweep_planes_f32    replaces experiments/kernel_r4_probe.py _mxu_kernel
@@ -43,6 +46,7 @@
 #include <stdint.h>
 
 #include "gf_w8_tables.cuh"
+#include "split_f32.cuh"
 
 namespace {
 
@@ -91,27 +95,37 @@ int allow_smem(Kernel kernel, size_t smem) {
 //
 // sweep_copy: out = x[:m], the copy control.  Bound on the card: memory,
 // m * n4 * 4 bytes read and the same written (3.35 TB/s on an H100 SXM); it
-// does no arithmetic.  Design: 16-byte loads and stores (VEC = 4), each
-// thread keeping kUnroll of them in flight before it stores, grid-stride
-// over the lanes; a ragged total or a pointer that is not 16-byte aligned
-// takes the 4-byte form.  Its time is what moving this layout costs here.
+// does no arithmetic.  Its time is what moving this layout costs here, and
+// the yardstick of the other rows, so it has to be at least as fast as the
+// PyTorch's own copy (x[:m].clone()).  Two designs were measured
+// (ceph_tpu_torch/tools/split_probe.py times both, at other settings too);
+// the bulk copy is taken for the aligned copy, as the faster of the two on
+// a cold L2 and the only one faster than the clone there:
+// - the bulk copy (Hopper's TMA engine, cp.async.bulk): one thread a block
+//   keeps a ring of kBulkStages chunks of kBulkChunk bytes in flight from
+//   device memory to shared memory, each completing on an mbarrier, and
+//   stores each filled chunk back with one bulk store; the threads spend no
+//   registers or issue slots on the bytes.  It needs 16-byte aligned
+//   addresses and a total that is a multiple of 16 bytes;
+// - the register copy: a grid sized to the work (no grid-stride loop), each
+//   thread kCopyUnroll 16-byte streaming loads in flight, then
+//   evict-first stores.
+// A ragged total or a pointer that is not 16-byte aligned takes the
+// register copy's 4-byte form.
 //
 // sweep_extract: out[i] = sum over s < 8 of ((x[i] >> s) & 0x00010001) +
 // ((x[i] >> (8 + s)) & 0x00010001), the bit-plane extraction of the
 // production TPU kernel without its dots.  Bound: the same bytes as the
 // copy; 48 integer operations a lane are far under the card's issue rate.
-// Design: the copy's loop with the 16 shift-and-adds on each lane.  The sum
-// is taken in uint32: each 16-bit field collects at most 16, so the fields
-// never carry into each other and the result equals the TPU's f32 sum.
-// Its time against the copy's is what extraction costs on this card.
+// Design: 16-byte loads and stores (VEC = 4), each thread keeping kUnroll
+// of them in flight before it stores, grid-stride over the lanes, with the
+// 16 shift-and-adds on each lane; a ragged total or a pointer that is not
+// 16-byte aligned takes the 4-byte form.  The sum is taken in uint32: each
+// 16-bit field collects at most 16, so the fields never carry into each
+// other and the result equals the TPU's f32 sum.  Its time against the
+// copy's is what extraction costs on this card.
 
 constexpr int kUnroll = 4;
-
-struct CopyOp {
-  __device__ __forceinline__ uint32_t operator()(uint32_t v) const {
-    return v;
-  }
-};
 
 struct ExtractOp {
   __device__ __forceinline__ uint32_t operator()(uint32_t v) const {
@@ -180,6 +194,172 @@ int launch_rows(const void* x, void* out, int m, long long n4,
   if (lanes % 4 == 0 && aligned16(x) && aligned16(out))
     return launch_map<Op, uint4>(x, out, lanes / 4, s);
   return launch_map<Op, uint32_t>(x, out, lanes, s);
+}
+
+// the register copy: 16-byte (or 4-byte) elements a thread keeps in flight
+constexpr int kCopyUnroll = 4;
+// the bulk copy: chunks a block keeps in flight, and the bytes of each
+constexpr int kBulkStages = 8;
+constexpr unsigned kBulkChunk = 8 * 1024;
+
+// The register copy.  T is uint32_t (the 4-byte form) or uint4 (the
+// probe tool's aligned register copy); n counts elements of T.  Each thread
+// takes kCopyUnroll elements kThreads apart, loaded ahead of its stores.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+copy_kernel(const T* __restrict__ x, T* __restrict__ out, long long n) {
+  const long long base =
+      static_cast<long long>(blockIdx.x) * kThreads * kCopyUnroll +
+      threadIdx.x;
+  T v[kCopyUnroll];
+#pragma unroll
+  for (int u = 0; u < kCopyUnroll; ++u) {
+    const long long i = base + static_cast<long long>(u) * kThreads;
+    if (i < n) v[u] = __ldcs(x + i);
+  }
+#pragma unroll
+  for (int u = 0; u < kCopyUnroll; ++u) {
+    const long long i = base + static_cast<long long>(u) * kThreads;
+    if (i < n) __stcs(out + i, v[u]);
+  }
+}
+
+template <typename T>
+int launch_copy(const void* x, void* out, long long n, cudaStream_t s) {
+  const long long blocks =
+      (n + kThreads * kCopyUnroll - 1) / (kThreads * kCopyUnroll);
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  copy_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The bulk copy's PTX (sm_90): mbarriers that count one arrival and the
+// bytes of a bulk load, bulk loads that complete on them, bulk stores in
+// bulk groups.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// make initialised mbarriers visible to the bulk copies
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wait until the phase of parity `parity` of *bar has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// bytes of device memory at src into shared memory at dst; *bar's phase
+// completes when they have landed
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// bytes of shared memory at src to device memory at dst, as one bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until all but the newest bulk group have read their shared memory
+__device__ __forceinline__ void bulk_wait_read_all_but_one() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+// wait until every bulk group has completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Chunk c of the copy is bytes [c * kBulkChunk, ...) of x; block b takes
+// chunks b, b + gridDim.x, ...  Its thread 0 loads the first kBulkStages
+// into the ring, then for each chunk in turn: waits for its load, stores it
+// with one bulk store, and refills the stage of the chunk before it (whose
+// store has finished reading shared memory) with the chunk kBulkStages
+// later.  The other threads of the block issue nothing.
+__global__ void __launch_bounds__(32)
+bulk_copy_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
+                 long long nbytes) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ __align__(8) uint64_t full[kBulkStages];
+  if (threadIdx.x != 0) return;
+  const long long chunks = (nbytes + kBulkChunk - 1) / kBulkChunk;
+  if (chunks <= blockIdx.x) return;
+  const long long mine = (chunks - 1 - blockIdx.x) / gridDim.x + 1;
+  for (int s = 0; s < kBulkStages; ++s) mbar_init(&full[s]);
+  mbar_fence_init();
+
+  auto offset = [&](long long i) {
+    return (blockIdx.x + i * gridDim.x) * static_cast<long long>(kBulkChunk);
+  };
+  auto size = [&](long long off) {
+    return static_cast<uint32_t>(
+        nbytes - off < kBulkChunk ? nbytes - off : kBulkChunk);
+  };
+  auto load = [&](long long i) {
+    const int s = static_cast<int>(i % kBulkStages);
+    const long long off = offset(i);
+    bulk_load(ring + s * kBulkChunk, x + off, size(off), &full[s]);
+  };
+
+  for (long long i = 0; i < mine && i < kBulkStages; ++i) load(i);
+  for (long long i = 0; i < mine; ++i) {
+    const int s = static_cast<int>(i % kBulkStages);
+    mbar_wait(&full[s], static_cast<uint32_t>(i / kBulkStages) & 1u);
+    const long long off = offset(i);
+    bulk_store(out + off, ring + s * kBulkChunk, size(off));
+    if (i >= 1 && i - 1 + kBulkStages < mine) {
+      // the store of chunk i - 1 has read its stage: refill it
+      bulk_wait_read_all_but_one();
+      load(i - 1 + kBulkStages);
+    }
+  }
+  bulk_wait_all();
+}
+
+int launch_bulk_copy(const void* x, void* out, long long nbytes,
+                     cudaStream_t s) {
+  constexpr size_t smem = static_cast<size_t>(kBulkStages) * kBulkChunk;
+  int rc = allow_smem(bulk_copy_kernel, smem);
+  if (rc != 0) return rc;
+  int blocks = 0;
+  rc = resident_blocks(bulk_copy_kernel, 32, smem,
+                       (nbytes + kBulkChunk - 1) / kBulkChunk, &blocks);
+  if (rc != 0) return rc;
+  bulk_copy_kernel<<<blocks, 32, smem, s>>>(static_cast<const uint8_t*>(x),
+                                            static_cast<uint8_t*>(out),
+                                            nbytes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -1041,31 +1221,6 @@ int launch_blockdiag(const void* x, const void* bblk, void* out, int k,
 // the payload: (16k + m) * n4 * 4 bytes, 0.3305 ms at k=8 m=4 and 2097152
 // lanes, above the FFMA bound of 0.2564.  A thread keeps one lane: four
 // lanes a thread (16-byte loads) would need 4 x 16m accumulators.
-//
-// sweep_split_f32 replaces experiments/kernel_r4_split.py _kernel_split
-// (:51) at HIGHEST: sweep_prec_f32's function with each tile of T lanes cut
-// into PARTS column chunks of T/PARTS lanes.  On the TPU the chunks are
-// independent chains that let extraction overlap the products.  Here a
-// thread carries PARTS lanes, one of each chunk, T/PARTS apart (a warp's
-// loads stay coalesced), and runs their chains interleaved: PARTS times the
-// independent FFMA of sweep_prec_f32, for the tile-16384 launch whose 128
-// tiles keep one block of 8 warps an SM.  Registers: sweep_prec_f32's 16m
-// accumulators a lane times PARTS lanes do not fit, so a pass covers G
-// output rows of both halves (lo, hi) or, at PARTS 8, one row of one half:
-// 64 accumulators a thread whatever PARTS and m.  A pass takes all k rows;
-// k is a runtime argument, so the passes after the first read the words
-// again (from L1) and repeat the field conversions.  The halves can be
-// taken apart: bit 8b of z = accL + (accH << 8) is bit 0 or 16 of accL (b
-// = 0, 2) or of accH (b = 1, 3), since each count is < 256 and no carry
-// crosses a byte.  m is a runtime argument too (a pass indexes its own
-// accumulators only): one instance per PARTS.  Bound: sweep_prec_f32's,
-// operations, 0.2564 ms at k=8 m=4.
-
-// float32 of the masked field bits u < 2^23, exactly: 2^23's exponent
-// ORed in gives 2^23 + u, and the FADD removes 2^23
-__device__ __forceinline__ float field_float(uint32_t u) {
-  return __uint_as_float(u | 0x4B000000u) - 8388608.0f;
-}
 
 __device__ __forceinline__ uint32_t tf32_rna(float v) {
   uint32_t r;
@@ -1088,17 +1243,6 @@ struct PrecTf32x3 {  // HIGH: b_big, then b_small (Bp_small is zero)
     b[1] = tf32_rna(v - __uint_as_float(b[0]));
   }
 };
-
-// Bp [8m, 8k] into shared memory transposed, [8k][8m]: row j*8 + s holds
-// column s*k + j
-__device__ __forceinline__ void stage_bp_t(const float* __restrict__ bp,
-                                           int k, int R, float* sbp) {
-  const int depth = 8 * k;
-  for (int idx = threadIdx.x; idx < depth * R; idx += blockDim.x) {
-    const int col = idx / R, r = idx % R;  // col = j*8 + s
-    sbp[idx] = bp[r * depth + (col % 8) * k + col / 8];
-  }
-}
 
 // where sweep_prec_f32_kernel takes plane s of input row j: extracted from
 // the lanes (sweep_prec_f32) or loaded as floats (sweep_planes_f32)
@@ -1221,107 +1365,11 @@ int run_prec_f32(const Src& src, const void* bp, void* out, int k, int m,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int PARTS>
-__global__ void __launch_bounds__(kThreads)
-sweep_split_f32_kernel(const uint32_t* __restrict__ x,
-                       const float* __restrict__ bp,
-                       uint32_t* __restrict__ out, int k, int m, long long n4,
-                       int T) {
-  // a pass: NH halves of G output rows, 8G * NH * PARTS = 64 accumulators
-  constexpr int NH = PARTS == 8 ? 1 : 2;
-  constexpr int G = 8 / (PARTS * NH);
-  __shared__ __align__(16) float sbp[16 * 8 * 64];
-  const int R = 8 * m;  // bit-rows
-  stage_bp_t(bp, k, R, sbp);
-  __syncthreads();
-
-  const int span = T / PARTS;
-  const long long ntiles = (n4 + T - 1) / T;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    for (int c = threadIdx.x; c < span; c += blockDim.x) {
-      long long lane[PARTS];
-#pragma unroll
-      for (int p = 0; p < PARTS; ++p)
-        lane[p] = tile * T + static_cast<long long>(p) * span + c;
-      if (lane[0] >= n4) break;
-#pragma unroll 1
-      for (int i0 = 0; i0 < m; i0 += G) {
-        uint32_t word[G][PARTS] = {};
-#pragma unroll 1
-        for (int h0 = 0; h0 < 2; h0 += NH) {
-          float acc[NH][PARTS][8 * G] = {};
-          for (int j = 0; j < k; ++j) {
-            uint32_t v[PARTS];
-#pragma unroll
-            for (int p = 0; p < PARTS; ++p)
-              v[p] = lane[p] < n4
-                         ? __ldg(x + static_cast<long long>(j) * n4 + lane[p])
-                         : 0u;
-            const float4* col =
-                reinterpret_cast<const float4*>(sbp + j * 8 * R + 8 * i0);
-#pragma unroll
-            for (int s = 0; s < 8; ++s) {
-              float f[NH][PARTS];
-#pragma unroll
-              for (int h = 0; h < NH; ++h)
-#pragma unroll
-                for (int p = 0; p < PARTS; ++p)
-                  f[h][p] = field_float((v[p] >> (8 * (h0 + h) + s)) &
-                                        0x00010001u);
-#pragma unroll
-              for (int q = 0; q < 2 * G; ++q) {
-                if (8 * i0 + 4 * q >= R) break;  // past row m - 1 (odd m)
-                const float4 b = col[s * (R / 4) + q];
-#pragma unroll
-                for (int h = 0; h < NH; ++h)
-#pragma unroll
-                  for (int p = 0; p < PARTS; ++p) {
-                    float(&a)[8 * G] = acc[h][p];
-                    a[4 * q] = fmaf(b.x, f[h][p], a[4 * q]);
-                    a[4 * q + 1] = fmaf(b.y, f[h][p], a[4 * q + 1]);
-                    a[4 * q + 2] = fmaf(b.z, f[h][p], a[4 * q + 2]);
-                    a[4 * q + 3] = fmaf(b.w, f[h][p], a[4 * q + 3]);
-                  }
-              }
-            }
-          }
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-#pragma unroll
-            for (int l = 0; l < 8; ++l)
-#pragma unroll
-              for (int h = 0; h < NH; ++h)
-#pragma unroll
-                for (int p = 0; p < PARTS; ++p)
-                  word[g][p] |=
-                      (__float2uint_rn(acc[h][p][8 * g + l]) & 0x00010001u)
-                      << (8 * (h0 + h) + l);
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (i0 + g >= m) break;
-#pragma unroll
-          for (int p = 0; p < PARTS; ++p)
-            if (lane[p] < n4)
-              out[static_cast<long long>(i0 + g) * n4 + lane[p]] = word[g][p];
-        }
-      }
-    }
-  }
-}
-
-template <int PARTS>
-int launch_split_f32(const void* x, const void* bp, void* out, int k, int m,
-                     long long n4, int T, cudaStream_t s) {
-  const long long ntiles = (n4 + T - 1) / T;
-  int blocks = 0;
-  const int rc = resident_blocks(sweep_split_f32_kernel<PARTS>, kThreads, 0,
-                                 ntiles, &blocks);
-  if (rc != 0) return rc;
-  sweep_split_f32_kernel<PARTS><<<blocks, kThreads, 0, s>>>(
-      static_cast<const uint32_t*>(x), static_cast<const float*>(bp),
-      static_cast<uint32_t*>(out), k, m, n4, T);
-  return static_cast<int>(cudaGetLastError());
+template <int M>
+int launch_split_smem(const void* x, const void* bp, void* out, int k,
+                      long long n4, int T, int parts, cudaStream_t s) {
+  return launch_split_f32<M>(x, SmemCoef<M>{static_cast<const float*>(bp)},
+                             out, k, n4, T, parts, s);
 }
 
 template <class Prec, int JQ, int MS>
@@ -1439,7 +1487,11 @@ extern "C" {
 
 // x [>= m, n4] lanes; out [m, n4] = x[:m]
 int sweep_copy(const void* x, void* out, int m, long long n4, void* stream) {
-  return launch_rows<CopyOp>(x, out, m, n4, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long lanes = static_cast<long long>(m) * n4;
+  if (lanes % 4 != 0 || !aligned16(x) || !aligned16(out))
+    return launch_copy<uint32_t>(x, out, lanes, s);
+  return launch_bulk_copy(x, out, lanes * 4, s);
 }
 
 // x [>= m, n4] lanes; out [m, n4], the 16 shifted plane sums of x[:m]
@@ -1512,17 +1564,22 @@ int sweep_prec_f32(const void* x, const void* bp, void* out, int k, int m,
 }
 
 // HIGHEST, FFMA, each tile of T lanes in parts column chunks (parts 2, 4
-// or 8; T a positive multiple of 32 * parts); k <= 16, m <= 8
+// or 8; T a positive multiple of 32 * parts); k <= 16, m <= 8; Bp staged
+// in shared memory (split_kernel.cu takes it as a kernel parameter)
 int sweep_split_f32(const void* x, const void* bp, void* out, int k, int m,
                     long long n4, int T, int parts, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T <= 0 || parts < 1 || T % (32 * parts) != 0 || k < 1 || k > 16 ||
-      m < 1 || m > 8)
+  if (!split_shape_ok(k, n4, T, parts))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (parts) {
-    case 2: return launch_split_f32<2>(x, bp, out, k, m, n4, T, s);
-    case 4: return launch_split_f32<4>(x, bp, out, k, m, n4, T, s);
-    case 8: return launch_split_f32<8>(x, bp, out, k, m, n4, T, s);
+  switch (m) {
+    case 1: return launch_split_smem<1>(x, bp, out, k, n4, T, parts, s);
+    case 2: return launch_split_smem<2>(x, bp, out, k, n4, T, parts, s);
+    case 3: return launch_split_smem<3>(x, bp, out, k, n4, T, parts, s);
+    case 4: return launch_split_smem<4>(x, bp, out, k, n4, T, parts, s);
+    case 5: return launch_split_smem<5>(x, bp, out, k, n4, T, parts, s);
+    case 6: return launch_split_smem<6>(x, bp, out, k, n4, T, parts, s);
+    case 7: return launch_split_smem<7>(x, bp, out, k, n4, T, parts, s);
+    case 8: return launch_split_smem<8>(x, bp, out, k, n4, T, parts, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

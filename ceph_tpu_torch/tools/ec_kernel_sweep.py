@@ -177,6 +177,32 @@ def time_ms(fn, iters: int, device: torch.device) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: clock cycles of the spin kernel before each flushed launch (about 1 ms)
+SPIN_CYCLES = 2_000_000
+
+
+def flushed_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, each timed with
+    CUDA events after the 50 MB L2 cache is overwritten by zeroing
+    ``flush`` (the main path streams granules larger than L2, so its
+    kernels find it cold).  A spin kernel holds the card after the flush
+    while the host enqueues the events and ``fn``'s launches, so the
+    host's time in a Python wrapper stays out of the device time."""
+    fn()  # warm
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
 def sweep_data(size_mib: int, device_name: str):
     """(device, bitmatrix, data bytes [k, chunk] uint8, their lanes [k,
     chunk/4] int32 on the device) of a run of the port's sweep tools:

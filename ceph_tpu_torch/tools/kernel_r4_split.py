@@ -12,8 +12,10 @@ size/4]).  The JAX script's four rows:
   split1 tile=16384 DEFAULT   ``sweep_prec_tf32`` (at parts 1 the function
                               is ``_kernel_prec``'s, one TF32 pass)
 
-On this card a thread of ``sweep_split_f32`` carries one lane of each
-chunk and runs their accumulator chains interleaved.  Each row is first
+On this card an independent chain is a warp: a warp of
+``sweep_split_f32`` takes one chunk, a thread one lane of it, and at k=8
+m=4 the kernel reads Bp as constant-bank operands of its FFMA (a library
+built for k and m at first use).  Each row is first
 gated against its own plain version (``split_plain``, or ``prec_plain`` at
 DEFAULT; a difference exits 1), then compared with ``gf2_matrix_w8``: the
 HIGHEST rows must be bit-exact (else exit 1), the DEFAULT row is expected

@@ -37,11 +37,18 @@ Phases (any failure raises and exits non-zero):
    that bitmatrix), the three ``sweep_prec_*`` kernels at tiles 4096 and
    16384, ``sweep_split_f32`` at parts 2 (tile 8192) and parts 4 and 8
    (tile 16384), ``sweep_planes_f32`` over the 1 GiB of ``field_planes``
-   (freed after use).  Then the port's kernel sweep
-   (``ec_kernel_sweep.main``, all three stages) at 8 MiB chunks, which
-   must exit 0 with every variant and probe row bit-exact, the HIGHEST and
-   HIGH precision rows bit-exact and the DEFAULT rows MISMATCH.  The first
-   eleven sweep kernels' launches are counted during the sweep.
+   (freed after use).  ``sweep_copy`` and its library call,
+   ``x[:m].clone()``, are timed in turns (7 of each, flushed and back to
+   back; medians and spread).  Then ``sweep_copy`` at m = 1, a ragged
+   total, an unaligned pointer and a last bulk chunk of 16 bytes, and
+   ``sweep_split_f32`` at k = 1, k = 16 m = 8, m = 1, 3 and 5, n4 = 1003
+   and 100003, unaligned pointers and sums past 2^23, each at parts 2, 4
+   and 8 and tiles 32 * parts, 8192 and 16384.  Then the port's kernel
+   sweep (``ec_kernel_sweep.main``, all three stages) at 8 MiB chunks,
+   which must exit 0 with every variant and probe row bit-exact, the
+   HIGHEST and HIGH precision rows bit-exact and the DEFAULT rows
+   MISMATCH.  The first eleven sweep kernels' launches are counted during
+   the sweep.
 6. The port's split-chain and split-cost probes (``kernel_r4_split.main``,
    ``kernel_r4_probe.main``) at 8 MiB chunks, each of which must exit 0:
    split2, split4 and split8 bit-exact and split1 DEFAULT MISMATCH; full,
@@ -50,8 +57,9 @@ Phases (any failure raises and exits non-zero):
    during these runs.
 
 The kernel sources build at once, one ``nvcc`` each (the XOR network's for
-reed_sol_van k=8 m=4).  It prints the ``kernels`` JSON line and, last, the
-device line.
+reed_sol_van k=8 m=4, the split kernel's constant-bank route for k=8 m=4
+and the edge shapes of phase 5 with k * m <= 32).  It prints the
+``kernels`` JSON line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ import argparse
 import contextlib
 import io
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -80,8 +89,6 @@ from ceph_tpu_torch.tools import (ec_benchmark, ec_kernel_sweep,
 
 #: H100 SXM published memory rate (NVIDIA data sheet) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
-#: clock cycles of the spin kernel before each timed launch (about 1 ms)
-SPIN_CYCLES = 2_000_000
 
 K, M = 8, 4
 STRIPE = 8 << 20  # 8 MiB payload -> 1 MiB chunks at k=8
@@ -110,7 +117,11 @@ MASK_TABLE_MS = {"gf2_matrix_w8": 0.0970, "gf2_matrix_w16": 0.0998,
 #: sweep kernels redesigned since: their flushed time in the earlier
 #: design at phase 5's shape (the mask-table ``sweep_pipelined_w8``; same
 #: card and limit), printed beside the time measured now
-EARLIER_MS = {"sweep_pipelined_w8": 0.0932}
+EARLIER_MS = {"sweep_pipelined_w8": 0.0932, "sweep_copy": 0.0296,
+              "sweep_split_f32": 0.6323}
+#: turns of the interleaved copy and clone timings (each a mean of 20
+#: flushed launches and a CUDA graph of 48 back to back)
+COPY_TURNS = 7
 SWEEP_SOURCE = "ceph_tpu_torch/csrc/sweep_kernels.cu"
 SWEEP_REPLACES = {
     "sweep_copy": "tools/ec_kernel_sweep.py:117",
@@ -131,6 +142,9 @@ SWEEP_REPLACES = {
 #: the kernels that phase 6's probe tools run, and count
 PROBE_KERNELS = ("sweep_split_f32", "sweep_extract_fold", "sweep_planes_f32")
 XORNET_SOURCE_PATH = "ceph_tpu_torch/csrc/xornet_kernel.cu"
+#: the split kernel, which split_kernel.cu (Bp a kernel parameter, the
+#: route at k=8 m=4) and sweep_kernels.cu (Bp in shared memory) include
+SPLIT_SOURCE_PATH = "ceph_tpu_torch/csrc/split_f32.cuh"
 #: why a sweep kernel has no library call to time beside it
 _PRODUCT = "no single PyTorch call computes extraction + product + parity"
 NO_LIBRARY = {
@@ -155,28 +169,6 @@ RAGGED_N4 = 100003
 
 def _profile(extra: dict) -> dict:
     return {"k": str(K), "m": str(M), **extra}
-
-
-def _time_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, each timed with
-    CUDA events after the 50 MB L2 cache is overwritten (the main path
-    streams granules larger than L2, so its kernels find it cold).  A
-    spin kernel holds the card after the flush while the host enqueues
-    the events and ``fn``'s launches, so the host's time in a Python
-    wrapper stays out of the device time."""
-    fn()  # warm
-    total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
 
 
 def _kernel_case(name, ec, batch, dev, gen):
@@ -230,8 +222,8 @@ def phase_kernels(reg, dev, gen, flush) -> dict:
         max_abs_err = int(err.max().item())
         assert torch.equal(a, b), f"{name}: kernel != plain version"
         assert (x.view(torch.uint8) >= 0x80).any().item()
-        ms = _time_ms(kern, 20, flush)
-        plain_ms = _time_ms(plain, 3, flush)
+        ms = ec_kernel_sweep.flushed_ms(kern, 20, flush)
+        plain_ms = ec_kernel_sweep.flushed_ms(plain, 3, flush)
         results[name] = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "max_abs_err": max_abs_err,
@@ -499,6 +491,31 @@ def _sweep_more_cases(dev):
     }
 
 
+def _spread(values) -> str:
+    return (f"median {statistics.median(values):.4f} ms (min "
+            f"{min(values):.4f}, max {max(values):.4f})")
+
+
+def _against_library(name, kern, library, dev, flush):
+    """The kernel and its library call timed in turns, ``COPY_TURNS`` of
+    each (the order reversed every other turn), flushed (mean of 20
+    launches) and back to back (a CUDA graph of 48): the medians of the
+    flushed times, printed with the spread of both."""
+    times = {what: ([], []) for what in ("kernel", "library")}
+    fns = {"kernel": kern, "library": library}
+    for turn in range(COPY_TURNS):
+        for what in (("kernel", "library") if turn % 2 == 0
+                     else ("library", "kernel")):
+            cold, warm = times[what]
+            cold.append(ec_kernel_sweep.flushed_ms(fns[what], 20, flush))
+            warm.append(ec_kernel_sweep.time_ms(fns[what], 48, dev))
+    for what, (cold, warm) in times.items():
+        print(f"[sweep-kernel] {name} {what} in {COPY_TURNS} turns: flushed "
+              f"{_spread(cold)}; back to back {_spread(warm)}", flush=True)
+    return (statistics.median(times["kernel"][0]),
+            statistics.median(times["library"][0]))
+
+
 def phase_sweep_kernels(dev, gen, flush) -> dict:
     """Each sweep kernel against its plain version on the card, bit-exact,
     at the sweep's lanes [8, 2097152] (timed) and at a ragged width."""
@@ -530,7 +547,8 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
                     f"{tuple(x.shape)}"
                 note = f"{label} bit-exact"
                 if n4 == SWEEP_N4:
-                    ms = _time_ms(lambda: more_kern(x), 20, flush)
+                    ms = ec_kernel_sweep.flushed_ms(lambda: more_kern(x), 20,
+                                                    flush)
                     note += f" {ms:.4f} ms"
                 more_notes.append(note)
             if more_notes:
@@ -543,20 +561,27 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
                 continue
             bound, by, nbytes, ops = ec_kernel_sweep.kernel_bound_ms(
                 name, K, M, n4, table_bytes)
-            ms = _time_ms(lambda: kern(arg), 20, flush)
-            plain_ms = _time_ms(lambda: plain(arg), 3, flush)
-            library_ms = (None if library is None
-                          else _time_ms(lambda: library(arg), 20, flush))
+            if library is None:
+                ms = ec_kernel_sweep.flushed_ms(lambda: kern(arg), 20, flush)
+                library_ms = None
+            else:
+                ms, library_ms = _against_library(name, lambda: kern(arg),
+                                                  lambda: library(arg), dev,
+                                                  flush)
+            plain_ms = ec_kernel_sweep.flushed_ms(lambda: plain(arg), 3,
+                                                  flush)
             del arg
             results[name] = {
                 "name": name, "route": "cuda",
-                "source": (XORNET_SOURCE_PATH if name == "sweep_xornet"
-                           else SWEEP_SOURCE),
+                "source": {"sweep_xornet": XORNET_SOURCE_PATH,
+                           "sweep_split_f32": SPLIT_SOURCE_PATH}.get(
+                               name, SWEEP_SOURCE),
                 "replaces": SWEEP_REPLACES[name], "max_abs_err": max_abs_err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": library_ms,
             }
-            lib_note = (f"library x[:m].clone() {library_ms:.4f} ms"
+            lib_note = (f"library x[:m].clone() {library_ms:.4f} ms (medians "
+                        "of the turns above)"
                         if library_ms is not None else
                         f"library_ms null: {NO_LIBRARY[name]}")
             if name in EARLIER_MS:
@@ -569,6 +594,75 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
                   f"{lib_note}", flush=True)
         del x
     return results
+
+
+def _split_edge_cases():
+    """(label, k, m, n4, aligned, bitmatrix or None): the shapes
+    ``sweep_split_f32`` must take at every parts and tile (None: all-ones
+    rows of Bp over lanes whose high halves are all ones, so the sums
+    reach 8k * 65537, past 2^23 at k = 16)."""
+    return [
+        ("k=1 m=4", 1, 4, 1003, True, _bits(32, 8)),
+        ("k=16 m=8", 16, 8, 100003, True, _bits(64, 128)),
+        ("m=1", 8, 1, 1003, True, _bits(8, 64)),
+        ("m=3", 8, 3, 100003, True, _bits(24, 64)),
+        ("m=5, unaligned", 7, 5, 1003, False, _bits(40, 56)),
+        ("reed_sol_van k=8 m=4 n4=1003", K, M, 1003, True, _sweep_bits()),
+        ("reed_sol_van k=8 m=4 n4=100003, unaligned", K, M, 100003, False,
+         _sweep_bits()),
+        ("k=16 m=8, counts past 2^23", 16, 8, 4099, True, None),
+        ("k=16 m=4, counts past 2^23", 16, 4, 4099, False, None),
+        ("k=16 m=2, counts past 2^23", 16, 2, 4099, True, None),
+    ]
+
+
+def _split_libraries():
+    """(source, generated header) of each library the constant-bank route
+    of ``sweep_split_f32`` builds in this run: k=8 m=4 and the edge shapes
+    with k * m <= ``SPLIT_PARAM_MAX_KM``."""
+    shapes = {(K, M)} | {(k, m) for _, k, m, _, _, _ in _split_edge_cases()
+                         if k * m <= sweep_gf.SPLIT_PARAM_MAX_KM}
+    return [(sweep_gf.SPLIT_SOURCE,
+             (sweep_gf.SPLIT_HEADER, sweep_gf.split_source(k, m)))
+            for k, m in sorted(shapes)]
+
+
+def phase_sweep_edges(dev, gen) -> None:
+    """``sweep_copy`` and ``sweep_split_f32`` against their plain versions
+    at edge shapes: the copy at m = 1, a ragged total, an unaligned
+    pointer and a last bulk chunk of 16 bytes; the split at
+    :func:`_split_edge_cases`, each at parts 2, 4 and 8 and tiles 32 *
+    parts, 8192 and 16384."""
+    for label, k, m, n4, aligned in (
+            ("m=1", K, 1, 1003, True), ("ragged total", K, 3, 4097, True),
+            ("unaligned", K, M, 4096, False),
+            ("a last bulk chunk of 16 bytes", 1, 1, 262148, True)):
+        x = _lanes(gen, dev, k, n4, aligned)
+        got = sweep_gf.copy_rows(x, m)
+        assert torch.equal(got, sweep_gf.copy_plain(x, m)), \
+            f"sweep_copy ({label}): kernel != plain version at lanes " \
+            f"{tuple(x.shape)}"
+        print(f"[sweep-edge] sweep_copy {label} lanes {tuple(x.shape)}, "
+              f"{m} rows: bit-exact", flush=True)
+    for label, k, m, n4, aligned, B in _split_edge_cases():
+        x = _lanes(gen, dev, k, n4, aligned)
+        if B is None:
+            x[:, :2048] = (x[:, :2048] & 0xFFFF) | -65536
+            B = _bits(8 * m, 8 * k)
+            B[::3] = 1
+        bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(B, k)).to(dev)
+        want = sweep_gf.split_plain(bp, x, k, m, 2)
+        for parts in sweep_gf.SPLIT_PARTS[1:]:
+            for tile in (32 * parts, 8192, 16384):
+                got = sweep_gf.split_product(bp, x, k, m, "HIGHEST", parts,
+                                             tile)
+                assert torch.equal(got, want), \
+                    f"sweep_split_f32 ({label}, parts {parts}, tile " \
+                    f"{tile}): kernel != plain version at lanes " \
+                    f"{tuple(x.shape)}"
+        print(f"[sweep-edge] sweep_split_f32 {label} lanes {tuple(x.shape)}: "
+              "bit-exact at parts 2, 4, 8 x tiles 32 * parts, 8192, 16384",
+              flush=True)
 
 
 def _tool_lines(tool, argv) -> list:
@@ -715,7 +809,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     builds = ((cuda_gf.SOURCE.name, None), (sweep_gf.SOURCE, None),
               (sweep_gf.XORNET_SOURCE,
-               sweep_gf.make_xornet(_sweep_bits(), K, M).generated))
+               sweep_gf.make_xornet(_sweep_bits(), K, M).generated),
+              *_split_libraries())
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda b: cuda_gf.build(*b), builds))
     print(f"[build] {', '.join(lib.name for lib in libs)} in "
@@ -735,6 +830,7 @@ def main(argv=None) -> int:
     kernels = phase_kernels(reg, dev, gen, flush)
     phase_codec_edges(dev, gen)
     kernels.update(phase_sweep_kernels(dev, gen, flush))
+    phase_sweep_edges(dev, gen)
     del flush
     per_profile = phase_main_path(reg, np.random.RandomState(args.seed), card)
     launched = dict(cuda_gf.launches)

@@ -218,6 +218,27 @@ def test_sweep_kernels_match_plain_versions(dev, k, m, n4, aligned):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("k,m,n4,aligned", [
+    (8, 4, 2097152, True),     # the sweep's shape: the bulk copy, 2048 chunks
+    (8, 1, 1003, True),        # one row: 1003 lanes, the 4-byte form
+    (8, 4, 1003, True),        # one partial chunk of the bulk copy
+    (1, 1, 262148, True),      # a last chunk of 16 bytes
+    (8, 3, 4097, True),        # a ragged total: the 4-byte form
+    (8, 4, 4096, False),       # a pointer off the 16-byte grid
+    (12, 8, 1, True),          # 8 lanes, two 16-byte elements
+])
+def test_copy_kernel_matches_plain_version(dev, k, m, n4, aligned):
+    rs = np.random.RandomState(k * 100 + m + n4)
+    d = _lanes(rs, k, n4, dev)
+    if not aligned:
+        d = _unaligned(d)
+    before = sweep_gf.launches["sweep_copy"]
+    got = sweep_gf.copy_rows(d, m)
+    assert sweep_gf.launches["sweep_copy"] == before + 1
+    assert torch.equal(got, sweep_gf.copy_plain(d, m))
+    assert torch.equal(got, d[:m])
+
+
 def _tensor_core_cases(k, m, dev):
     """name -> (kernel wrapper, plain version, table on the card)."""
     B = bitmatrix.matrix_to_bitmatrix(
@@ -424,6 +445,10 @@ def _prec_operands(code, k, m, dev):
     (8, 4, 1, True),         # one lane
     (16, 8, 777, True),      # the widest code the kernel takes
     (7, 5, 333, False),
+    (1, 4, 1003, True),      # one input row
+    (8, 1, 1003, False),     # one output row
+    (8, 3, 100003, True),    # odd m, ragged
+    (16, 8, 100003, False),  # the widest code, 256 threads a block
 ])
 def test_split_kernel_matches_split_plain(dev, parts, k, m, n4, aligned):
     rs = np.random.RandomState(k * 1000 + n4)
@@ -438,6 +463,50 @@ def test_split_kernel_matches_split_plain(dev, parts, k, m, n4, aligned):
     for tile in (32 * parts, 8192, 16384):
         got = sweep_gf.split_product(bp, d, k, m, "HIGHEST", parts, tile)
         assert torch.equal(got, want), tile
+
+
+@pytest.mark.parametrize("parts", [2, 4, 8])
+@pytest.mark.parametrize("k", [15, 16])
+@pytest.mark.parametrize("m", [2, 4, 8])  # Bp a kernel parameter at m=2
+def test_split_kernel_counts_past_2_to_the_23(dev, parts, k, m):
+    # all-ones rows of Bp over lanes whose high halves are all ones: the
+    # high field counts 8k, so a sum reaches 8k * 65537 (at k = 16 past
+    # 2^23, where the kernel reads its counts through F2I), and the low
+    # field's count is odd in about half the lanes
+    rs = np.random.RandomState(k + parts)
+    d = _lanes(rs, k, 4099, dev)
+    d[:, :2048] = (d[:, :2048] & 0xFFFF) | -65536
+    bp = torch.from_numpy(rs.randint(0, 2, (8 * m, 8 * k)).astype(
+        np.float32)).to(dev)
+    bp[::3] = 1.0
+    got = sweep_gf.split_product(bp, d, k, m, "HIGHEST", parts, 32 * parts)
+    assert torch.equal(got, sweep_gf.split_plain(bp, d, k, m, parts))
+
+
+def test_split_kernel_routes_by_shape(dev):
+    # k * m <= 32: Bp a kernel parameter, one library per k and m, each
+    # serving every Bp of its shape; above: Bp staged in shared memory
+    d = _lanes(np.random.RandomState(7), 8, 5000, dev)
+    built = set()
+    for code, k, m in (("reed_sol_van", 8, 4), ("cauchy_good", 8, 4),
+                       ("cauchy_good", 8, 3), ("cauchy_good", 8, 5)):
+        bp, _ = _prec_operands(code, k, m, dev)
+        before = sweep_gf.launches["sweep_split_f32"]
+        got = sweep_gf.split_product(bp, d[:k], k, m, "HIGHEST", 4, 4096)
+        assert sweep_gf.launches["sweep_split_f32"] == before + 1
+        assert torch.equal(got, sweep_gf.split_plain(bp, d[:k], k, m, 4))
+        if k * m <= sweep_gf.SPLIT_PARAM_MAX_KM:
+            built.add(cuda_gf.build(
+                sweep_gf.SPLIT_SOURCE,
+                (sweep_gf.SPLIT_HEADER, sweep_gf.split_source(k, m))).name)
+    assert len(built) == 2
+    assert all(name.startswith("libsplit_kernel-") for name in built)
+    # a table written in place is packed again
+    bp, _ = _prec_operands("reed_sol_van", 8, 4, dev)
+    sweep_gf.split_product(bp, d, 8, 4, "HIGHEST", 2, 8192)
+    bp.copy_(_prec_operands("cauchy_good", 8, 4, dev)[0])
+    assert torch.equal(sweep_gf.split_product(bp, d, 8, 4, "HIGHEST", 2, 8192),
+                       sweep_gf.split_plain(bp, d, 8, 4, 2))
 
 
 @pytest.mark.parametrize("prec", ["HIGHEST", "DEFAULT"])

@@ -23,7 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from ceph_tpu.ops import pallas_gf
 from ceph_tpu_torch.matrices import bitmatrix, reed_sol
-from ceph_tpu_torch.ops import sweep_gf
+from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_split
 from experiments import kernel_r4_split as j_split
 
@@ -161,6 +161,62 @@ def test_split_product_checks_its_operands():
     assert sweep_gf.split_product(torch.zeros((64, 128)),
                                   torch.zeros((16, 8), dtype=torch.int32), 16,
                                   8, "HIGHEST", 8, 256).shape == (8, 8)
+
+
+@pytest.mark.parametrize("k,m", [(8, 4), (3, 2), (16, 2), (7, 5)])
+def test_split_params_hold_bp_for_the_kernel_split(k, m):
+    # the kernel parameter of the constant-bank route, read back in the
+    # order split_f32.cuh reads it (row j*8 + s, bit-row r), gives the JAX
+    # product through the plain route
+    bits, d32 = _bits(k, m), _data(40 + k, k, 512)
+    bp = sweep_gf.prep_shift_major_w8(bits, k)
+    params = sweep_gf.split_params(torch.from_numpy(bp), k, m)
+    assert params.dtype == torch.float32 and params.device.type == "cpu"
+    assert params.shape == (64 * k * m,) and params.is_contiguous()
+    table = params.view(k, 8, 8 * m)
+    for j, s, r in ((0, 0, 0), (k - 1, 7, 8 * m - 1), (k // 2, 3, 5)):
+        assert table[j, s, r] == bp[r, s * k + j]
+    unpacked = table.permute(2, 1, 0).reshape(8 * m, 8 * k)
+    x = torch.from_numpy(d32)
+    ours = sweep_gf.split_plain(unpacked, x, k, m, 4).numpy()
+    theirs = _kernel_split(bp, d32, 4, jax.lax.Precision.HIGHEST, k, m, 128)
+    assert np.array_equal(ours, theirs)
+    assert np.array_equal(
+        ours, sweep_gf.split_plain(torch.from_numpy(bp), x, k, m, 4).numpy())
+
+
+def test_split_source_holds_the_shape_and_no_bitmatrix():
+    gen = sweep_gf.split_source(8, 4)
+    body = [line for line in gen.splitlines() if line and
+            not line.startswith("//")]
+    assert body == ["#pragma once", "#define SPLIT_K 8", "#define SPLIT_M 4"]
+    # one header (and library) per shape, whatever the bitmatrix
+    digests = {(k, m): cuda_gf.source_digest(
+        sweep_gf.SPLIT_SOURCE, (sweep_gf.SPLIT_HEADER,
+                                sweep_gf.split_source(k, m)))
+        for k in (1, 8, 16) for m in (1, 2, 4)}
+    assert len(set(digests.values())) == len(digests)
+    assert digests[8, 4] == cuda_gf.source_digest(
+        sweep_gf.SPLIT_SOURCE, (sweep_gf.SPLIT_HEADER, gen))
+    # the shared header is hashed into both libraries' digests
+    assert "split_f32.cuh" in cuda_gf._local_headers(
+        (cuda_gf.CSRC / sweep_gf.SPLIT_SOURCE).read_text())
+    assert "split_f32.cuh" in cuda_gf._local_headers(
+        (cuda_gf.CSRC / sweep_gf.SOURCE).read_text())
+
+
+@pytest.mark.parametrize("parts", [2, 4, 8])
+@pytest.mark.parametrize("k,m", [(1, 1), (16, 8), (1, 8), (16, 1), (4, 8)])
+def test_split_product_takes_every_shape_it_took(parts, k, m):
+    # k <= 16 and m <= 8 (either route), any tile that is a multiple of
+    # 32 * parts, ragged n4
+    bits = np.random.RandomState(k * m).randint(0, 2, (8 * m, 8 * k))
+    bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, k))
+    x = torch.from_numpy(_data(k + m, k, 97))
+    want = sweep_gf.split_plain(bp, x, k, m, parts)
+    for tile in (32 * parts, 16384):
+        got = sweep_gf.split_product(bp, x, k, m, "HIGHEST", parts, tile)
+        assert torch.equal(got, want)
 
 
 def test_cpu_split_product_counts_no_launches():

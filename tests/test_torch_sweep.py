@@ -251,6 +251,22 @@ def test_tensor_core_wrappers_check_their_operands():
                                    28, 4).shape == (4, 8)
 
 
+@pytest.mark.parametrize("k,m,n4", [(8, 4, 2048), (8, 1, 1003),
+                                    (8, 3, 4097), (1, 1, 65541)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_copy_rows_takes_every_shape(k, m, n4, aligned):
+    # any m of the rows, a ragged total, a pointer off the 16-byte grid
+    x = torch.from_numpy(_data(k + n4, k, n4))
+    if not aligned:
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32)
+        x = buf[1:].view(x.shape)
+        x.copy_(torch.from_numpy(_data(k + n4, k, n4)))
+        assert x.data_ptr() % 16 == 4
+    got = sweep_gf.copy_rows(x, m)
+    assert got.shape == (m, n4) and torch.equal(got, x[:m])
+    assert got.data_ptr() != x.data_ptr()
+
+
 def test_cpu_runs_plain_versions_without_counting_launches():
     before = dict(sweep_gf.launches)
     d = torch.from_numpy(_data(3, 4, 8))
