@@ -1,9 +1,8 @@
-// sweep_split_f32, shared by the two libraries that launch it:
-// sweep_kernels.cu (Bp staged in shared memory, any k <= 16 and m <= 8) and
-// split_kernel.cu (Bp a kernel parameter read as constant-bank operands,
-// one library per k and m).  Also the field conversion and the transposed
-// Bp staging that sweep_prec_f32 and sweep_planes_f32 (sweep_kernels.cu)
-// use.  cuda_gf.source_digest hashes this header into both builds.
+// sweep_split_f32's kernel, with the field conversion and the transposed
+// Bp staging that sweep_prec_f32 and sweep_planes_f32 use too.
+// sweep_kernels.cu includes it; cuda_gf.source_digest hashes it into that
+// library's digest.  ceph_tpu_torch/tools/split_probe.py builds edited
+// copies of it.
 //
 // sweep_split_f32 replaces experiments/kernel_r4_split.py _kernel_split
 // (:51) at HIGHEST: sweep_prec_f32's function with each tile of T lanes cut
@@ -23,15 +22,8 @@
 //   count's, as float_parity reads bit 0.  Counts reach 8k * 65537, which is
 //   below 2^23 for k <= 15; at k = 16 the accumulators start at 0 and F2I
 //   reads them;
-// - the coefficients, Bp, stay a run-time operand, read by one of two
-//   sources: ParamCoef, a __grid_constant__ kernel parameter, whose reads
-//   are constant-bank operands of the FFMA once the rows unroll (k and m
-//   are compile-time constants of its library); SmemCoef, Bp staged in
-//   shared memory and read as broadcast LDS.128, one for each 8 FFMA, with
-//   k at run time.  The constant bank takes the 8 KiB of Bp at k=8 m=4
-//   without the LDS and the third register operand; its code grows as k * m
-//   and its coefficients outgrow the constant cache, so sweep_gf takes it
-//   for k * m <= 32 and the shared route above.
+// - the coefficients, Bp, stay a run-time operand: staged in shared memory
+//   transposed and read as broadcast LDS.128, one for each 8 FFMA.
 // The product stays dense: all 2 * 8m * 8k FFMA a lane, Bp's zeros
 // included.  One block a tile; the grid is the tiles.
 
@@ -59,80 +51,36 @@ __device__ __forceinline__ void stage_bp_t(const float* __restrict__ bp,
   }
 }
 
-// lanes a thread of sweep_split_f32 keeps, 32 apart (the probe tool times
-// two), and threads a block: 16 warps where a lane's 16m accumulators leave
-// room in 128 registers (m <= 4), else 8
-__host__ __device__ constexpr int split_lanes(int M) {
-  return 1;
-}
+// threads a block of sweep_split_f32: 16 warps where a lane's 16m
+// accumulators leave room in 128 registers (m <= 4), else 8
 __host__ __device__ constexpr int split_threads(int M) {
   return M <= 4 ? 512 : 256;
 }
 
-// Bp staged in shared memory, [8k][8m] (stage_bp_t); k at run time
+// one input row's products for the thread's lane: its 16 fields, converted
+// once, times the coefficients of all 16m accumulators; each coefficient
+// read (an LDS.128 of Bp[4q .. 4q + 3][s*k + j]) feeds 8 FFMA
 template <int M>
-struct SmemCoef {
-  static constexpr int kK = 0;
-  const float* bp;  // [8m, 8k] in device memory
-  __device__ const float* stage(int k) const {
-    __shared__ __align__(16) float sbp[16 * 8 * 8 * M];
-    stage_bp_t(bp, k, 8 * M, sbp);
-    __syncthreads();
-    return sbp;
-  }
-  // Bp[4q .. 4q + 3][s*k + j]
-  __device__ __forceinline__ float4 quad(const float* table, int j, int s,
-                                         int q) const {
-    return reinterpret_cast<const float4*>(table + (j * 8 + s) * 8 * M)[q];
-  }
-};
-
-// Bp as a kernel parameter, [8K][8M] as stage_bp_t lays it out (packed on
-// the host by sweep_gf.split_params): with the rows unrolled every index is
-// a compile-time constant, so each read is a constant-bank operand
-template <int K, int M>
-struct ParamCoef {
-  static constexpr int kK = K;
-  float bp[8 * K * 8 * M];
-  __device__ const float* stage(int) const { return nullptr; }
-  __device__ __forceinline__ float4 quad(const float*, int j, int s,
-                                         int q) const {
-    const float* c = bp + (j * 8 + s) * 8 * M + 4 * q;
-    return make_float4(c[0], c[1], c[2], c[3]);
-  }
-};
-
-// one input row's products for the thread's L lanes: their 16 fields each,
-// converted once, times the coefficients of all 16m accumulators; each
-// coefficient read feeds 2L FFMA
-template <int M, int L, class Coef>
-__device__ __forceinline__ void split_row(const Coef& coef,
-                                          const float* table, int j,
-                                          const uint32_t (&v)[L],
-                                          float (&accL)[L][8 * M],
-                                          float (&accH)[L][8 * M]) {
+__device__ __forceinline__ void split_row(const float* sbp, int j,
+                                          uint32_t v, float (&accL)[8 * M],
+                                          float (&accH)[8 * M]) {
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
-    float lo[L], hi[L];
-#pragma unroll
-    for (int t = 0; t < L; ++t) {
-      lo[t] = field_float((v[t] >> s) & 0x00010001u);
-      hi[t] = field_float((v[t] >> (8 + s)) & 0x00010001u);
-    }
+    const float lo = field_float((v >> s) & 0x00010001u);
+    const float hi = field_float((v >> (8 + s)) & 0x00010001u);
+    const float4* col =
+        reinterpret_cast<const float4*>(sbp + (j * 8 + s) * 8 * M);
 #pragma unroll
     for (int q = 0; q < 2 * M; ++q) {
-      const float4 b = coef.quad(table, j, s, q);
-#pragma unroll
-      for (int t = 0; t < L; ++t) {
-        accL[t][4 * q] = fmaf(b.x, lo[t], accL[t][4 * q]);
-        accL[t][4 * q + 1] = fmaf(b.y, lo[t], accL[t][4 * q + 1]);
-        accL[t][4 * q + 2] = fmaf(b.z, lo[t], accL[t][4 * q + 2]);
-        accL[t][4 * q + 3] = fmaf(b.w, lo[t], accL[t][4 * q + 3]);
-        accH[t][4 * q] = fmaf(b.x, hi[t], accH[t][4 * q]);
-        accH[t][4 * q + 1] = fmaf(b.y, hi[t], accH[t][4 * q + 1]);
-        accH[t][4 * q + 2] = fmaf(b.z, hi[t], accH[t][4 * q + 2]);
-        accH[t][4 * q + 3] = fmaf(b.w, hi[t], accH[t][4 * q + 3]);
-      }
+      const float4 b = col[q];
+      accL[4 * q] = fmaf(b.x, lo, accL[4 * q]);
+      accL[4 * q + 1] = fmaf(b.y, lo, accL[4 * q + 1]);
+      accL[4 * q + 2] = fmaf(b.z, lo, accL[4 * q + 2]);
+      accL[4 * q + 3] = fmaf(b.w, lo, accL[4 * q + 3]);
+      accH[4 * q] = fmaf(b.x, hi, accH[4 * q]);
+      accH[4 * q + 1] = fmaf(b.y, hi, accH[4 * q + 1]);
+      accH[4 * q + 2] = fmaf(b.z, hi, accH[4 * q + 2]);
+      accH[4 * q + 3] = fmaf(b.w, hi, accH[4 * q + 3]);
     }
   }
 }
@@ -166,22 +114,23 @@ __device__ __forceinline__ void store_split(const float (&accL)[8 * M],
 }
 
 // A block takes tile blockIdx.x; warp w of its W takes chunk w mod parts
-// (W is a multiple of parts), 32 L lanes at a time, the W / parts warps of
-// a chunk in turn.
-template <int M, class Coef>
+// (W is a multiple of parts), 32 lanes at a time, the W / parts warps of a
+// chunk in turn.
+template <int M>
 __global__ void __launch_bounds__(split_threads(M))
 sweep_split_f32_kernel(const uint32_t* __restrict__ x,
-                       const __grid_constant__ Coef coef,
+                       const float* __restrict__ bp,
                        uint32_t* __restrict__ out, int k, long long n4, int T,
                        int parts, int wide) {
-  constexpr int L = split_lanes(M);
-  const float* table = coef.stage(k);
+  __shared__ __align__(16) float sbp[16 * 8 * 8 * M];
+  stage_bp_t(bp, k, 8 * M, sbp);
+  __syncthreads();
   const int warps = blockDim.x / 32, warp = threadIdx.x / 32;
   const int span = T / parts, chunk = warp % parts;
   const long long tile0 = static_cast<long long>(blockIdx.x) * T;
   const long long chunk_end = tile0 + static_cast<long long>(chunk + 1) * span;
   const long long stop = chunk_end < n4 ? chunk_end : n4;
-  const long long step = 32LL * L * (warps / parts);
+  const long long step = 32LL * (warps / parts);
   const int lane_id = threadIdx.x % 32;
   const float start = wide ? 0.0f : 8388608.0f;
   // input word j of lane l, 0 past the chunk
@@ -190,64 +139,46 @@ sweep_split_f32_kernel(const uint32_t* __restrict__ x,
   };
 
   long long lane = tile0 + static_cast<long long>(chunk) * span +
-                   32LL * L * (warp / parts) + lane_id;
-  uint32_t next[L];
-#pragma unroll
-  for (int t = 0; t < L; ++t) next[t] = word(0, lane + 32 * t);
+                   32LL * (warp / parts) + lane_id;
+  uint32_t next = word(0, lane);
   for (; lane - lane_id < stop; lane += step) {
-    float accL[L][8 * M], accH[L][8 * M];
+    float accL[8 * M], accH[8 * M];
 #pragma unroll
-    for (int t = 0; t < L; ++t)
-#pragma unroll
-      for (int r = 0; r < 8 * M; ++r) accL[t][r] = accH[t][r] = start;
-    // each word is loaded one row ahead: the next row's, or the first row
-    // of the warp's next lanes
-    auto row = [&](int j, bool last) {
-      uint32_t v[L];
-#pragma unroll
-      for (int t = 0; t < L; ++t) {
-        v[t] = next[t];
-        next[t] = last ? word(0, lane + step + 32 * t)
-                       : word(j + 1, lane + 32 * t);
-      }
-      split_row<M, L>(coef, table, j, v, accL, accH);
-    };
-    if constexpr (Coef::kK > 0) {
-#pragma unroll
-      for (int j = 0; j < Coef::kK; ++j) row(j, j + 1 == Coef::kK);
-    } else {
+    for (int r = 0; r < 8 * M; ++r) accL[r] = accH[r] = start;
 #pragma unroll 1
-      for (int j = 0; j < k; ++j) row(j, j + 1 == k);
+    for (int j = 0; j < k; ++j) {
+      // each word is loaded one row ahead: the next row's, or the first
+      // row of the warp's next lane
+      const uint32_t v = next;
+      const bool last = j + 1 == k;
+      next = word(last ? 0 : j + 1, last ? lane + step : lane);
+      split_row<M>(sbp, j, v, accL, accH);
     }
-#pragma unroll
-    for (int t = 0; t < L; ++t) {
-      if (lane + 32 * t >= stop) continue;
-      if (wide)
-        store_split<M, true>(accL[t], accH[t], out, n4, lane + 32 * t);
-      else
-        store_split<M, false>(accL[t], accH[t], out, n4, lane + 32 * t);
-    }
+    if (lane >= stop) continue;
+    if (wide)
+      store_split<M, true>(accL, accH, out, n4, lane);
+    else
+      store_split<M, false>(accL, accH, out, n4, lane);
   }
 }
 
-// the checks both entry points make: parts 2, 4 or 8, T a positive
-// multiple of 32 * parts, 1 <= k <= 16, and a grid of at most 2^31 - 1
-// tiles
+// the checks of the entry point: parts 2, 4 or 8, T a positive multiple of
+// 32 * parts, 1 <= k <= 16, and a grid of at most 2^31 - 1 tiles
 inline bool split_shape_ok(int k, long long n4, int T, int parts) {
   return T > 0 && (parts == 2 || parts == 4 || parts == 8) &&
          T % (32 * parts) == 0 && k >= 1 && k <= 16 &&
          (n4 + T - 1) / T <= 0x7FFFFFFF;
 }
 
-template <int M, class Coef>
-int launch_split_f32(const void* x, const Coef& coef, void* out, int k,
+template <int M>
+int launch_split_f32(const void* x, const void* bp, void* out, int k,
                      long long n4, int T, int parts, cudaStream_t s) {
   // 8k * 65537 reaches 2^23 at k = 16
   const int wide = 8LL * k * 65537 >= (1LL << 23);
-  sweep_split_f32_kernel<M, Coef>
+  sweep_split_f32_kernel<M>
       <<<static_cast<unsigned>((n4 + T - 1) / T), split_threads(M), 0, s>>>(
-          static_cast<const uint32_t*>(x), coef, static_cast<uint32_t*>(out),
-          k, n4, T, parts, wide);
+          static_cast<const uint32_t*>(x), static_cast<const float*>(bp),
+          static_cast<uint32_t*>(out), k, n4, T, parts, wide);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,9 +21,7 @@
 //   sweep_prec_tf32     the same at precision DEFAULT
 //   sweep_split_f32     replaces experiments/kernel_r4_split.py _kernel_split
 //                       (:51) at precision HIGHEST, parts 2, 4 and 8 (its
-//                       kernel is split_f32.cuh's; this entry stages Bp in
-//                       shared memory, split_kernel.cu's takes it as a
-//                       kernel parameter)
+//                       kernel is split_f32.cuh's)
 //   sweep_extract_fold  replaces experiments/kernel_r4_probe.py
 //                       _extract_kernel (:38)
 //   sweep_planes_f32    replaces experiments/kernel_r4_probe.py _mxu_kernel
@@ -97,21 +95,14 @@ int allow_smem(Kernel kernel, size_t smem) {
 // m * n4 * 4 bytes read and the same written (3.35 TB/s on an H100 SXM); it
 // does no arithmetic.  Its time is what moving this layout costs here, and
 // the yardstick of the other rows, so it has to be at least as fast as the
-// PyTorch's own copy (x[:m].clone()).  Two designs were measured
-// (ceph_tpu_torch/tools/split_probe.py times both, at other settings too);
-// the bulk copy is taken for the aligned copy, as the faster of the two on
-// a cold L2 and the only one faster than the clone there:
-// - the bulk copy (Hopper's TMA engine, cp.async.bulk): one thread a block
-//   keeps a ring of kBulkStages chunks of kBulkChunk bytes in flight from
-//   device memory to shared memory, each completing on an mbarrier, and
-//   stores each filled chunk back with one bulk store; the threads spend no
-//   registers or issue slots on the bytes.  It needs 16-byte aligned
-//   addresses and a total that is a multiple of 16 bytes;
-// - the register copy: a grid sized to the work (no grid-stride loop), each
-//   thread kCopyUnroll 16-byte streaming loads in flight, then
-//   evict-first stores.
-// A ragged total or a pointer that is not 16-byte aligned takes the
-// register copy's 4-byte form.
+// PyTorch's own copy (x[:m].clone()).  Design: a grid sized to the work
+// (no grid-stride loop, no occupancy call), each thread kCopyUnroll
+// 16-byte streaming loads in flight, then evict-first stores; a ragged
+// total or a pointer that is not 16-byte aligned takes its 4-byte form.
+// ceph_tpu_torch/tools/split_probe.py times it beside the clone, at other
+// unroll depths, beside the grid-stride map it replaced and beside a TMA
+// bulk-copy ring (cp.async.bulk through shared memory on mbarriers), the
+// other design measured for it.
 //
 // sweep_extract: out[i] = sum over s < 8 of ((x[i] >> s) & 0x00010001) +
 // ((x[i] >> (8 + s)) & 0x00010001), the bit-plane extraction of the
@@ -196,15 +187,12 @@ int launch_rows(const void* x, void* out, int m, long long n4,
   return launch_map<Op, uint32_t>(x, out, lanes, s);
 }
 
-// the register copy: 16-byte (or 4-byte) elements a thread keeps in flight
+// 16-byte (or 4-byte) elements a thread of the copy keeps in flight
 constexpr int kCopyUnroll = 4;
-// the bulk copy: chunks a block keeps in flight, and the bytes of each
-constexpr int kBulkStages = 8;
-constexpr unsigned kBulkChunk = 8 * 1024;
 
-// The register copy.  T is uint32_t (the 4-byte form) or uint4 (the
-// probe tool's aligned register copy); n counts elements of T.  Each thread
-// takes kCopyUnroll elements kThreads apart, loaded ahead of its stores.
+// T is uint4 (the aligned copy) or uint32_t (the 4-byte form); n counts
+// elements of T.  Each thread takes kCopyUnroll elements kThreads apart,
+// loaded ahead of its stores.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 copy_kernel(const T* __restrict__ x, T* __restrict__ out, long long n) {
@@ -231,134 +219,6 @@ int launch_copy(const void* x, void* out, long long n, cudaStream_t s) {
   if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
   copy_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<T*>(out), n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The bulk copy's PTX (sm_90): mbarriers that count one arrival and the
-// bytes of a bulk load, bulk loads that complete on them, bulk stores in
-// bulk groups.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// make initialised mbarriers visible to the bulk copies
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wait until the phase of parity `parity` of *bar has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// bytes of device memory at src into shared memory at dst; *bar's phase
-// completes when they have landed
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// bytes of shared memory at src to device memory at dst, as one bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-          dst),
-      "r"(smem_u32(src)), "r"(bytes)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// wait until all but the newest bulk group have read their shared memory
-__device__ __forceinline__ void bulk_wait_read_all_but_one() {
-  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-}
-
-// wait until every bulk group has completed
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Chunk c of the copy is bytes [c * kBulkChunk, ...) of x; block b takes
-// chunks b, b + gridDim.x, ...  Its thread 0 loads the first kBulkStages
-// into the ring, then for each chunk in turn: waits for its load, stores it
-// with one bulk store, and refills the stage of the chunk before it (whose
-// store has finished reading shared memory) with the chunk kBulkStages
-// later.  The other threads of the block issue nothing.
-__global__ void __launch_bounds__(32)
-bulk_copy_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
-                 long long nbytes) {
-  extern __shared__ __align__(128) uint8_t ring[];
-  __shared__ __align__(8) uint64_t full[kBulkStages];
-  if (threadIdx.x != 0) return;
-  const long long chunks = (nbytes + kBulkChunk - 1) / kBulkChunk;
-  if (chunks <= blockIdx.x) return;
-  const long long mine = (chunks - 1 - blockIdx.x) / gridDim.x + 1;
-  for (int s = 0; s < kBulkStages; ++s) mbar_init(&full[s]);
-  mbar_fence_init();
-
-  auto offset = [&](long long i) {
-    return (blockIdx.x + i * gridDim.x) * static_cast<long long>(kBulkChunk);
-  };
-  auto size = [&](long long off) {
-    return static_cast<uint32_t>(
-        nbytes - off < kBulkChunk ? nbytes - off : kBulkChunk);
-  };
-  auto load = [&](long long i) {
-    const int s = static_cast<int>(i % kBulkStages);
-    const long long off = offset(i);
-    bulk_load(ring + s * kBulkChunk, x + off, size(off), &full[s]);
-  };
-
-  for (long long i = 0; i < mine && i < kBulkStages; ++i) load(i);
-  for (long long i = 0; i < mine; ++i) {
-    const int s = static_cast<int>(i % kBulkStages);
-    mbar_wait(&full[s], static_cast<uint32_t>(i / kBulkStages) & 1u);
-    const long long off = offset(i);
-    bulk_store(out + off, ring + s * kBulkChunk, size(off));
-    if (i >= 1 && i - 1 + kBulkStages < mine) {
-      // the store of chunk i - 1 has read its stage: refill it
-      bulk_wait_read_all_but_one();
-      load(i - 1 + kBulkStages);
-    }
-  }
-  bulk_wait_all();
-}
-
-int launch_bulk_copy(const void* x, void* out, long long nbytes,
-                     cudaStream_t s) {
-  constexpr size_t smem = static_cast<size_t>(kBulkStages) * kBulkChunk;
-  int rc = allow_smem(bulk_copy_kernel, smem);
-  if (rc != 0) return rc;
-  int blocks = 0;
-  rc = resident_blocks(bulk_copy_kernel, 32, smem,
-                       (nbytes + kBulkChunk - 1) / kBulkChunk, &blocks);
-  if (rc != 0) return rc;
-  bulk_copy_kernel<<<blocks, 32, smem, s>>>(static_cast<const uint8_t*>(x),
-                                            static_cast<uint8_t*>(out),
-                                            nbytes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1365,13 +1225,6 @@ int run_prec_f32(const Src& src, const void* bp, void* out, int k, int m,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int M>
-int launch_split_smem(const void* x, const void* bp, void* out, int k,
-                      long long n4, int T, int parts, cudaStream_t s) {
-  return launch_split_f32<M>(x, SmemCoef<M>{static_cast<const float*>(bp)},
-                             out, k, n4, T, parts, s);
-}
-
 template <class Prec, int JQ, int MS>
 __global__ void __launch_bounds__(kDotThreads)
 sweep_prec_tf32_kernel(const uint32_t* __restrict__ x,
@@ -1491,7 +1344,7 @@ int sweep_copy(const void* x, void* out, int m, long long n4, void* stream) {
   const long long lanes = static_cast<long long>(m) * n4;
   if (lanes % 4 != 0 || !aligned16(x) || !aligned16(out))
     return launch_copy<uint32_t>(x, out, lanes, s);
-  return launch_bulk_copy(x, out, lanes * 4, s);
+  return launch_copy<uint4>(x, out, lanes / 4, s);
 }
 
 // x [>= m, n4] lanes; out [m, n4], the 16 shifted plane sums of x[:m]
@@ -1564,22 +1417,21 @@ int sweep_prec_f32(const void* x, const void* bp, void* out, int k, int m,
 }
 
 // HIGHEST, FFMA, each tile of T lanes in parts column chunks (parts 2, 4
-// or 8; T a positive multiple of 32 * parts); k <= 16, m <= 8; Bp staged
-// in shared memory (split_kernel.cu takes it as a kernel parameter)
+// or 8; T a positive multiple of 32 * parts); k <= 16, m <= 8
 int sweep_split_f32(const void* x, const void* bp, void* out, int k, int m,
                     long long n4, int T, int parts, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!split_shape_ok(k, n4, T, parts))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (m) {
-    case 1: return launch_split_smem<1>(x, bp, out, k, n4, T, parts, s);
-    case 2: return launch_split_smem<2>(x, bp, out, k, n4, T, parts, s);
-    case 3: return launch_split_smem<3>(x, bp, out, k, n4, T, parts, s);
-    case 4: return launch_split_smem<4>(x, bp, out, k, n4, T, parts, s);
-    case 5: return launch_split_smem<5>(x, bp, out, k, n4, T, parts, s);
-    case 6: return launch_split_smem<6>(x, bp, out, k, n4, T, parts, s);
-    case 7: return launch_split_smem<7>(x, bp, out, k, n4, T, parts, s);
-    case 8: return launch_split_smem<8>(x, bp, out, k, n4, T, parts, s);
+    case 1: return launch_split_f32<1>(x, bp, out, k, n4, T, parts, s);
+    case 2: return launch_split_f32<2>(x, bp, out, k, n4, T, parts, s);
+    case 3: return launch_split_f32<3>(x, bp, out, k, n4, T, parts, s);
+    case 4: return launch_split_f32<4>(x, bp, out, k, n4, T, parts, s);
+    case 5: return launch_split_f32<5>(x, bp, out, k, n4, T, parts, s);
+    case 6: return launch_split_f32<6>(x, bp, out, k, n4, T, parts, s);
+    case 7: return launch_split_f32<7>(x, bp, out, k, n4, T, parts, s);
+    case 8: return launch_split_f32<8>(x, bp, out, k, n4, T, parts, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

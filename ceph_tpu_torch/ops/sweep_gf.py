@@ -28,11 +28,8 @@ planes_product      kernel_r4_probe._mxu_kernel (:54)               sweep_planes
 
 ``sweep_xornet`` lives in ``csrc/xornet_kernel.cu``, a frame that includes
 a network generated per bitmatrix (:func:`xornet_source`); the others in
-``csrc/sweep_kernels.cu``.  ``sweep_split_f32`` has two routes, taken by
-shape: for k * m <= ``SPLIT_PARAM_MAX_KM`` ``csrc/split_kernel.cu``, built
-once per k and m (:func:`split_source`), takes Bp as a kernel parameter
-(:func:`split_params`); above, ``sweep_kernels.cu`` stages it in shared
-memory.  Both kernels are ``csrc/split_f32.cuh``'s.
+``csrc/sweep_kernels.cu`` (``sweep_split_f32``'s kernel in the header
+``csrc/split_f32.cuh`` it includes).
 
 Operands are int32 lanes of four little-endian bytes, ``[rows, n4]``, as in
 :mod:`cuda_gf`.  ``pipelined_w8`` takes the nibble tables of
@@ -99,16 +96,6 @@ _XORNET_SIGNATURES = {"sweep_xornet": (_P, _P, _L, _P)}
 #: one lane of 4 lanes of each input row and the 8m accumulators in
 #: registers
 XORNET_MAX_K, XORNET_MAX_M = 16, 8
-
-#: ``sweep_split_f32``'s constant-bank route: a frame that includes a
-#: header generated per k and m, and its entry point (Bp packed on the host)
-SPLIT_SOURCE = "split_kernel.cu"
-SPLIT_HEADER = "split_shape.h"
-_SPLIT_SIGNATURES = {"sweep_split_f32": (_P, _P, _P, _I, _I, _L, _I, _I, _P)}
-#: the widest k * m whose Bp (1 KiB per unit) the constant-bank route takes:
-#: its code grows as k * m, and above 8 KiB its coefficients outgrow the
-#: constant cache; wider codes take the shared-memory route
-SPLIT_PARAM_MAX_KM = 32
 
 #: JAX precision name -> the kernel that computes ``_kernel_prec`` at it
 PREC_KERNELS = {"HIGHEST": "sweep_prec_f32", "HIGH": "sweep_prec_tf32x3",
@@ -226,28 +213,6 @@ def xornet_source(bitmatrix: np.ndarray, k: int, m: int) -> str:
     else:
         lines.append("  (void)x; (void)z;")
     return "\n".join([*lines, "}", ""])
-
-
-def split_source(k: int, m: int) -> str:
-    """The header ``csrc/split_kernel.cu`` includes for codes of k input
-    and m output rows: ``SPLIT_K`` and ``SPLIT_M``, nothing of any
-    bitmatrix (Bp arrives with each launch, :func:`split_params`)."""
-    return "\n".join([
-        "// Generated by ceph_tpu_torch.ops.sweep_gf.split_source: the shape",
-        "// of csrc/split_kernel.cu's library.  Do not edit.",
-        "#pragma once",
-        f"#define SPLIT_K {k}",
-        f"#define SPLIT_M {m}",
-        ""])
-
-
-def split_params(bp: torch.Tensor, k: int, m: int) -> torch.Tensor:
-    """Bp [8m, 8k] -> float32 [8k * 8m] on the CPU, the kernel parameter of
-    ``csrc/split_kernel.cu``: Bp transposed, row j*8 + s holding column
-    s*k + j (input row j's bit plane s) of all 8m bit-rows, as
-    ``stage_bp_t`` stages it in shared memory."""
-    t = bp.detach().to("cpu", torch.float32).view(8 * m, 8, k)
-    return t.permute(2, 1, 0).contiguous().view(-1)
 
 
 def blockdiag_smem_bytes(k: int, m: int) -> int:
@@ -681,21 +646,6 @@ def _split_parts(name: str, parts: int) -> None:
                          f"{', '.join(map(str, SPLIT_PARTS))}")
 
 
-#: id of a Bp table -> (a weak reference to it, its version then, its
-#: :func:`split_params`): packed once per table and version, outside any
-#: CUDA graph capture
-_split_tables: Dict[int, tuple] = {}
-
-
-def _split_params_of(bp: torch.Tensor, k: int, m: int) -> torch.Tensor:
-    seen = _split_tables.get(id(bp))
-    if seen is not None and seen[0]() is bp and seen[1] == bp._version:
-        return seen[2]
-    params = split_params(bp, k, m)
-    _split_tables[id(bp)] = (weakref.ref(bp), bp._version, params)
-    return params
-
-
 def split_product(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
                   precision: str, parts: int,
                   tile: int = PREC_TILES[1]) -> torch.Tensor:
@@ -704,10 +654,7 @@ def split_product(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
     chunks.  At parts 1 the function is ``_kernel_prec``'s, so it is
     :func:`prec_product` at any precision; parts 2, 4 and 8 run at
     "HIGHEST" only (``sweep_split_f32``: a warp takes one chunk, a thread
-    one lane), with ``tile`` a positive multiple of 32 * parts.  For k * m
-    <= ``SPLIT_PARAM_MAX_KM`` the kernel takes Bp as a kernel parameter,
-    from the library built for k and m; above, it stages Bp in shared
-    memory."""
+    one lane), with ``tile`` a positive multiple of 32 * parts."""
     name = "sweep_split_f32"
     _split_parts(name, parts)
     if parts == 1:
@@ -727,17 +674,9 @@ def split_product(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
     if device.type == "cpu":
         return split_plain(bp, x, k, m, parts)
     out = torch.empty((m, x.shape[1]), dtype=torch.int32, device=device)
-    if not x.shape[1]:
-        return out
-    if k * m <= SPLIT_PARAM_MAX_KM:
-        cuda_gf.launch(SPLIT_SOURCE, _SPLIT_SIGNATURES, launches, name,
-                       device, x.data_ptr(),
-                       _split_params_of(bp, k, m).data_ptr(), out.data_ptr(),
-                       k, m, x.shape[1], tile, parts,
-                       generated=(SPLIT_HEADER, split_source(k, m)))
-    else:
-        _launch(name, device, x.data_ptr(), bp.data_ptr(), out.data_ptr(), k,
-                m, x.shape[1], tile, parts)
+    if x.shape[1]:
+        _launch(name, device, x.data_ptr(), bp.data_ptr(), out.data_ptr(),
+                k, m, x.shape[1], tile, parts)
     return out
 
 

@@ -13,17 +13,16 @@ size/4]).  The JAX script's four rows:
                               is ``_kernel_prec``'s, one TF32 pass)
 
 On this card an independent chain is a warp: a warp of
-``sweep_split_f32`` takes one chunk, a thread one lane of it, and at k=8
-m=4 the kernel reads Bp as constant-bank operands of its FFMA (a library
-built for k and m at first use).  Each row is first
-gated against its own plain version (``split_plain``, or ``prec_plain`` at
-DEFAULT; a difference exits 1), then compared with ``gf2_matrix_w8``: the
-HIGHEST rows must be bit-exact (else exit 1), the DEFAULT row is expected
-to MISMATCH, as the JAX script's docstring says (the field value 65537 is
-not representable in one reduced-precision pass).  Then each row is timed
-as the port's kernel sweep times its rows (``ec_kernel_sweep.time_ms``:
-one CUDA graph of ``--iters`` launches) and prints the payload GiB/s, the
-mean ms, the bound and the share of it reached.
+``sweep_split_f32`` takes one chunk, a thread one lane of it.  Each row is
+first gated against its own plain version (``split_plain``, or
+``prec_plain`` at DEFAULT; a difference exits 1), then compared with
+``gf2_matrix_w8``: the HIGHEST rows must be bit-exact (else exit 1), the
+DEFAULT row is expected to MISMATCH, as the JAX script's docstring says
+(the field value 65537 is not representable in one reduced-precision
+pass).  Then each row is timed as the port's kernel sweep times its rows
+(``ec_kernel_sweep.time_ms``: one CUDA graph of ``--iters`` launches) and
+prints the payload GiB/s, the mean ms, the bound and the share of it
+reached.
 
 Run:
     python -m ceph_tpu_torch.tools.kernel_r4_split [--size-mib 8]

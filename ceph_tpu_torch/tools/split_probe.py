@@ -7,43 +7,42 @@ At the kernel sweep's shape -- reed_sol_van k=8 m=4 w=8, lanes [8,
 ``sweep_split_f32``, each at the split-chain probe's three settings
 (parts 2 tile 8192, parts 4 and 8 tile 16384):
 
-  kernel          as the port runs it at k=8 m=4: ``csrc/split_kernel.cu``
-                  built for k=8 m=4, Bp a kernel parameter read as
-                  constant-bank operands of the FFMA
-  ffma alone      a build whose input words are made from the lane index,
-                  not loaded: the conversions, products and epilogue (its
-                  output is not checked)
-  no products     a build whose products are one FADD per field: the
-                  loads, conversions and epilogue (its output is not
-                  checked)
-  256 threads     the kernel with 256 threads a block, not 512
-  two lanes       the kernel with two lanes a thread, 256 threads a block
-  shared memory   the other coefficient route: ``sweep_kernels.cu``'s, Bp
-                  staged in shared memory and read as broadcast LDS.128
-                  (the route of codes with k * m > 32)
-  shared memory, two lanes
-                  the same with two lanes a thread (each LDS.128 feeds 16
-                  FFMA, not 8), 256 threads a block
+  kernel          as shipped (``csrc/sweep_kernels.cu``): Bp staged in
+                  shared memory and read as broadcast LDS.128
+  ffma alone      input words made from the lane index, not loaded: the
+                  conversions, products and epilogue (not checked)
+  no products     the products replaced by one FADD per field: the loads,
+                  conversions and epilogue (not checked)
+  256 threads     256 threads a block, not 512
+  constant bank   the other coefficient route: Bp a ``__grid_constant__``
+                  kernel parameter (packed on the host, :func:`split_params`)
+                  read as constant-bank operands of the FFMA, with k and m
+                  compile-time constants (:func:`param_frame`)
 
 ``sweep_copy`` (out = x[:4]), beside ``x[:4].clone()``:
 
-  kernel          as shipped
-  <design>        the bulk copy at other stage counts and chunk bytes, the
-                  register copy at 2, 4 and 8 16-byte elements a thread,
-                  and the grid-stride design that preceded both
-                  (``COPY_SETTINGS``); each bit-exact
+  kernel          as shipped: the register copy, 4 16-byte elements a
+                  thread
+  register x<u>   the same at <u> 16-byte elements a thread
+  bulk <s> x <c> KiB
+                  the TMA bulk-copy ring of ``bulk_copy_probe.cu`` (the
+                  other design measured), <s> stages of <c> KiB
+  grid-stride     the grid-stride map the register copy replaced
 
 While the split rows run, ``nvidia-smi`` samples the SM clock and the
 power draw every 200 ms; their range is printed after the rows.
 
-Each row is timed back to back, as the port's kernel sweep times its rows
-(``ec_kernel_sweep.time_ms``: one CUDA graph of ``--iters`` launches), and
-flushed (``ec_kernel_sweep.flushed_ms``: L2 overwritten before each of 20
-launches), beside the kernel's bound; the copy rows and the clone in
-``--repeats`` turns.  Each build is a copy of ``split_kernel.cu`` or
-``sweep_kernels.cu`` (and of ``split_f32.cuh``) with constants or
-statements replaced, compiled with the port's nvcc flags into
-``build/split-probe-<n>/``, all at once.
+Each row is first checked against its plain version (the split's two
+probe rows excepted), then timed back to back, as the port's kernel sweep
+times its rows (``ec_kernel_sweep.time_ms``: one CUDA graph of ``--iters``
+launches), and flushed (``ec_kernel_sweep.flushed_ms``: L2 overwritten
+before each of 20 launches), beside the kernel's bound; the copy rows and
+the clone in ``--repeats`` turns.  The split's edited rows are copies of
+``csrc/split_f32.cuh`` with statements replaced, each built into
+``build/split-probe-<n>/`` with a small frame that launches it at m=4
+(:func:`param_frame` for the constant bank); the copy's are copies of
+``csrc/sweep_kernels.cu`` with constants or statements replaced, and
+``bulk_copy_probe.cu``.  All build at once with the port's nvcc flags.
 
 Run (needs an NVIDIA card and nvcc):
     python -m ceph_tpu_torch.tools.split_probe [--iters 200] [--repeats 5]
@@ -57,6 +56,7 @@ import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -67,38 +67,51 @@ from ceph_tpu_torch.tools.ec_kernel_sweep import K, M
 HEADER = "split_f32.cuh"
 #: the split-chain probe's rows: (parts, tile)
 SPLIT_ROWS = ((2, 8192), (4, 16384), (8, 16384))
-#: the header's lines a setting replaces, as they stand
-LANES = "  return 1;\n}\n__host__ __device__ constexpr int split_threads"
-TWO_LANES = ("  return M <= 4 ? 2 : 1;\n}\n"
-             "__host__ __device__ constexpr int split_threads")
+#: the split frame's file name
+FRAME = "split_probe.cu"
+
+#: the header's statements a split row replaces, as they stand
 THREADS = "  return M <= 4 ? 512 : 256;\n"
 LOAD = ("    return l < stop ? __ldg(x + static_cast<long long>(j) * n4 + l) "
         ": 0u;\n")
 NO_LOAD = ("    return l < stop ? static_cast<uint32_t>(l) * 0x9E3779B9u + j "
            ": 0u;\n")
 PRODUCTS = "    for (int q = 0; q < 2 * M; ++q) {\n"
-NO_PRODUCTS = ("    for (int q = 0; q < 1; ++q) {\n"
-               "      for (int t = 0; t < L; ++t) {\n"
-               "        accL[t][s] += lo[t];\n        accH[t][s] += hi[t];\n"
-               "      }\n      continue;\n")
-#: sweep_copy's constants a setting replaces
-COPY_CONSTANTS = {
-    "unroll": "constexpr int kCopyUnroll = {};",
-    "stages": "constexpr int kBulkStages = {};",
-    "chunk": "constexpr unsigned kBulkChunk = {} * 1024;",
-}
-COPY_SHIPPED = {"unroll": 4, "stages": 8, "chunk": 8}
-#: copy rows beside the shipped one: label -> replaced constants
+NO_PRODUCTS = ("    accL[s] += lo;\n    accH[s] += hi;\n"
+               "    for (int q = 0; q < 0; ++q) {\n")
+#: the constant bank: (statement, its replacement), in the header's order
+PARAM_EDITS = (
+    ("                       const float* __restrict__ bp,\n",
+     "                       const __grid_constant__ SplitParam bp,\n"),
+    ("  __shared__ __align__(16) float sbp[16 * 8 * 8 * M];\n"
+     "  stage_bp_t(bp, k, 8 * M, sbp);\n  __syncthreads();\n",
+     "  const float* sbp = bp.v;\n  k = SPLIT_K;  // unrolls the rows\n"),
+    ("#pragma unroll 1\n    for (int j = 0; j < k; ++j) {\n",
+     "#pragma unroll\n    for (int j = 0; j < k; ++j) {\n"),
+    ("      const float4 b = col[q];\n",
+     "      const float* c = reinterpret_cast<const float*>(col + q);\n"
+     "      const float4 b = make_float4(c[0], c[1], c[2], c[3]);\n"),
+    ("static_cast<const float*>(bp)",
+     "*static_cast<const SplitParam*>(bp)"),
+)
+
+#: sweep_copy's constant a register row replaces
+COPY_UNROLL = "constexpr int kCopyUnroll = {};"
+COPY_SHIPPED_UNROLL = 4
+#: the bulk ring's constants a bulk row replaces, and the shipped values
+BULK_SOURCE = "bulk_copy_probe.cu"
+BULK_CONSTANTS = ("constexpr int kBulkStages = {};",
+                  "constexpr unsigned kBulkChunk = {} * 1024;")
+BULK_SHIPPED = (8, 8)
+#: copy rows beside the shipped one: label -> (source name, settings)
 COPY_SETTINGS = {
-    **{f"bulk {s} x {c} KiB": {"stages": s, "chunk": c}
-       for s, c in ((4, 8), (4, 16), (8, 16), (16, 4), (16, 8))},
-    **{f"register x{u}": {"unroll": u} for u in (2, 4, 8)},
+    **{f"register x{u}": ("register", u) for u in (2, 8)},
+    **{f"bulk {s} x {c} KiB": ("bulk", (s, c))
+       for s, c in ((8, 8), (16, 4))},
+    "grid-stride (earlier design)": ("grid-stride", None),
 }
-#: the aligned copy's launch, and the register copy's in its place
-BULK = "  return launch_bulk_copy(x, out, lanes * 4, s);\n"
-REGISTER = "  return launch_copy<uint4>(x, out, lanes / 4, s);\n"
 #: the copy entry's first line, and the grid-stride map of the design
-#: before the bulk and register copies (kept for sweep_extract)
+#: the register copy replaced (sweep_extract's loop)
 COPY_ENTRY = ("int sweep_copy(const void* x, void* out, int m, long long n4, "
               "void* stream) {\n")
 GRID_STRIDE = "  return launch_rows<CopyOp>(x, out, m, n4, stream);\n"
@@ -108,8 +121,8 @@ EXTRACT_OP = "struct ExtractOp {\n"
 
 
 def _replace(text: str, old: str, new: str) -> str:
-    if old not in text:
-        raise RuntimeError(f"no {old!r} in the source")
+    if text.count(old) != 1:
+        raise RuntimeError(f"{old!r} is not in the source exactly once")
     return text.replace(old, new)
 
 
@@ -117,69 +130,87 @@ def _read(name: str) -> str:
     return (cuda_gf.CSRC / name).read_text()
 
 
+def split_params(bp: torch.Tensor, k: int, m: int) -> torch.Tensor:
+    """Bp [8m, 8k] -> float32 [8k * 8m] on the CPU, the constant bank's
+    kernel parameter: Bp transposed, row j*8 + s holding column s*k + j
+    (input row j's bit plane s) of all 8m bit-rows, as ``stage_bp_t``
+    stages it in shared memory."""
+    t = bp.detach().to("cpu", torch.float32).view(8 * m, 8, k)
+    return t.permute(2, 1, 0).contiguous().view(-1)
+
+
+def param_frame(k: int, m: int) -> str:
+    """The frame of the split rows: ``sweep_split_f32`` at m (the shipped
+    entry point's signature) over the header beside it.  For the constant
+    bank it also fixes k and declares the kernel parameter's type: nothing
+    of any bitmatrix, which arrives with each launch."""
+    return "\n".join([
+        "// Generated by ceph_tpu_torch.tools.split_probe: the split kernel",
+        f"// at k={k} m={m}.",
+        "#include <cuda_runtime.h>",
+        "#include <stdint.h>",
+        "",
+        f"#define SPLIT_K {k}",
+        "// Bp transposed, [8k][8m], as stage_bp_t stages it",
+        f"struct SplitParam {{ float v[64 * SPLIT_K * {m}]; }};",
+        "",
+        f'#include "{HEADER}"',
+        "",
+        'extern "C" int sweep_split_f32(const void* x, const void* bp,',
+        "                               void* out, int k, int m, long long n4,",
+        "                               int T, int parts, void* stream) {",
+        f"  if (k != SPLIT_K || m != {m} || !split_shape_ok(k, n4, T, parts))",
+        "    return static_cast<int>(cudaErrorInvalidValue);",
+        f"  return launch_split_f32<{m}>(x, bp, out, k, n4, T, parts,",
+        "                              static_cast<cudaStream_t>(stream));",
+        "}",
+        ""])
+
+
 def split_builds() -> dict:
-    """split row -> (source file name, its text, the header's text), the
-    shipped build first."""
+    """split row -> the header's text, for the rows built here (the
+    shipped kernel is loaded as the port loads it)."""
     header = _read(HEADER)
-    frame, shared = _read(sweep_gf.SPLIT_SOURCE), _read(sweep_gf.SOURCE)
-    two = _replace(_replace(header, LANES, TWO_LANES), THREADS,
-                   "  return 256;\n")
+    param = header
+    for old, new in PARAM_EDITS:
+        param = _replace(param, old, new)
     return {
-        "kernel": (sweep_gf.SPLIT_SOURCE, frame, header),
-        "ffma alone": (sweep_gf.SPLIT_SOURCE, frame,
-                       _replace(header, LOAD, NO_LOAD)),
-        "no products": (sweep_gf.SPLIT_SOURCE, frame,
-                        _replace(header, PRODUCTS, NO_PRODUCTS)),
-        "256 threads": (sweep_gf.SPLIT_SOURCE, frame,
-                        _replace(header, THREADS, "  return 256;\n")),
-        "two lanes": (sweep_gf.SPLIT_SOURCE, frame, two),
-        "shared memory": (sweep_gf.SOURCE, shared, header),
-        "shared memory, two lanes": (sweep_gf.SOURCE, shared, two),
+        "ffma alone": _replace(header, LOAD, NO_LOAD),
+        "no products": _replace(header, PRODUCTS, NO_PRODUCTS),
+        "256 threads": _replace(header, THREADS, "  return 256;\n"),
+        "constant bank": param,
     }
 
 
-def copy_source(**values) -> str:
-    """``sweep_kernels.cu`` with sweep_copy's constants replaced; with
-    ``unroll``, the aligned copy is the register copy."""
-    text = _read(sweep_gf.SOURCE)
-    if "unroll" in values:
-        text = _replace(text, BULK, REGISTER)
-    for key, value in values.items():
-        text = _replace(text, COPY_CONSTANTS[key].format(COPY_SHIPPED[key]),
-                        COPY_CONSTANTS[key].format(value))
-    return text
-
-
-def grid_stride_source() -> str:
-    """``sweep_kernels.cu`` whose sweep_copy runs the grid-stride map."""
-    text = _replace(_read(sweep_gf.SOURCE), EXTRACT_OP, COPY_OP + EXTRACT_OP)
-    return _replace(text, COPY_ENTRY, COPY_ENTRY + GRID_STRIDE)
-
-
 def copy_builds() -> dict:
-    """copy row -> (source file name, its text, the header's text)."""
-    header = _read(HEADER)
-    out = {"kernel": (sweep_gf.SOURCE, _read(sweep_gf.SOURCE), header)}
-    for label, values in COPY_SETTINGS.items():
-        out[label] = (sweep_gf.SOURCE, copy_source(**values), header)
-    out["grid-stride (earlier design)"] = (sweep_gf.SOURCE,
-                                           grid_stride_source(), header)
+    """copy row -> (source file name, its text), for the rows built here."""
+    out = {}
+    for label, (kind, value) in COPY_SETTINGS.items():
+        if kind == "register":
+            out[label] = (sweep_gf.SOURCE, _replace(
+                _read(sweep_gf.SOURCE),
+                COPY_UNROLL.format(COPY_SHIPPED_UNROLL),
+                COPY_UNROLL.format(value)))
+        elif kind == "bulk":
+            text = (Path(__file__).parent / BULK_SOURCE).read_text()
+            for const, old, new in zip(BULK_CONSTANTS, BULK_SHIPPED, value):
+                text = _replace(text, const.format(old), const.format(new))
+            out[label] = (BULK_SOURCE, text)
+        else:
+            text = _replace(_read(sweep_gf.SOURCE), EXTRACT_OP,
+                            COPY_OP + EXTRACT_OP)
+            out[label] = (sweep_gf.SOURCE,
+                          _replace(text, COPY_ENTRY, COPY_ENTRY + GRID_STRIDE))
     return out
 
 
-def _build(n: int, name: str, text: str, header: str) -> ctypes.CDLL:
-    headers = {HEADER: header}
-    signatures = sweep_gf._SIGNATURES
-    if name == sweep_gf.SPLIT_SOURCE:
-        headers[sweep_gf.SPLIT_HEADER] = sweep_gf.split_source(K, M)
-        signatures = sweep_gf._SPLIT_SIGNATURES
+def _build(n: int, name: str, text: str, headers: dict,
+           entry: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(cuda_gf.build_copy(
         cuda_gf.BUILD_DIR / f"split-probe-{n}", name, text, headers)))
-    for entry in ("sweep_copy", "sweep_split_f32"):
-        if entry in signatures:
-            fn = getattr(lib, entry)
-            fn.argtypes = list(signatures[entry])
-            fn.restype = ctypes.c_int
+    fn = getattr(lib, entry)
+    fn.argtypes = list(sweep_gf._SIGNATURES[entry])
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -210,18 +241,26 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    splits, copies = split_builds(), copy_builds()
-    builds = list(splits.values()) + list(copies.values())
-    with ThreadPoolExecutor(len(builds)) as pool:
+    frame = param_frame(K, M)
+    jobs = [(FRAME, frame, {HEADER: header}, "sweep_split_f32")
+            for header in split_builds().values()]
+    jobs += [(name, text, {}, "sweep_copy")
+             for name, text in copy_builds().values()]
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        shipped = pool.submit(cuda_gf.load, sweep_gf.SOURCE,
+                              sweep_gf._SIGNATURES)
         libs = list(pool.map(lambda item: _build(item[0], *item[1]),
-                             enumerate(builds)))
-    split_libs = dict(zip(splits, libs))
-    copy_libs = dict(zip(copies, libs[len(splits):]))
+                             enumerate(jobs)))
+        shipped = shipped.result()
+    split_libs = {"kernel": shipped,
+                  **dict(zip(split_builds(), libs[:len(split_builds())]))}
+    copy_libs = {"kernel": shipped,
+                 **dict(zip(COPY_SETTINGS, libs[len(split_builds()):]))}
 
     _, bits, _, x = ec_kernel_sweep.sweep_data(8, "cuda")
     n4 = x.shape[1]
     bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, K)).to(dev)
-    params = sweep_gf.split_params(bp, K, M)
+    params = split_params(bp, K, M)
     out = torch.empty((M, n4), dtype=torch.int32, device=dev)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     bad = 0
@@ -237,7 +276,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader,nounits", "-lms", "200"],
         stdout=subprocess.PIPE, text=True)
     for name, lib in split_libs.items():
-        table = bp if splits[name][0] == sweep_gf.SOURCE else params
+        table = params if name == "constant bank" else bp
         for parts, tile in SPLIT_ROWS:
             def launch(lib=lib, table=table, parts=parts, tile=tile):
                 _check(lib.sweep_split_f32(

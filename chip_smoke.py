@@ -40,7 +40,7 @@ Phases (any failure raises and exits non-zero):
    (freed after use).  ``sweep_copy`` and its library call,
    ``x[:m].clone()``, are timed in turns (7 of each, flushed and back to
    back; medians and spread).  Then ``sweep_copy`` at m = 1, a ragged
-   total, an unaligned pointer and a last bulk chunk of 16 bytes, and
+   total, an unaligned pointer and a partial last block, and
    ``sweep_split_f32`` at k = 1, k = 16 m = 8, m = 1, 3 and 5, n4 = 1003
    and 100003, unaligned pointers and sums past 2^23, each at parts 2, 4
    and 8 and tiles 32 * parts, 8192 and 16384.  Then the port's kernel
@@ -57,9 +57,8 @@ Phases (any failure raises and exits non-zero):
    during these runs.
 
 The kernel sources build at once, one ``nvcc`` each (the XOR network's for
-reed_sol_van k=8 m=4, the split kernel's constant-bank route for k=8 m=4
-and the edge shapes of phase 5 with k * m <= 32).  It prints the
-``kernels`` JSON line and, last, the device line.
+reed_sol_van k=8 m=4).  It prints the ``kernels`` JSON line and, last, the
+device line.
 """
 
 from __future__ import annotations
@@ -142,8 +141,7 @@ SWEEP_REPLACES = {
 #: the kernels that phase 6's probe tools run, and count
 PROBE_KERNELS = ("sweep_split_f32", "sweep_extract_fold", "sweep_planes_f32")
 XORNET_SOURCE_PATH = "ceph_tpu_torch/csrc/xornet_kernel.cu"
-#: the split kernel, which split_kernel.cu (Bp a kernel parameter, the
-#: route at k=8 m=4) and sweep_kernels.cu (Bp in shared memory) include
+#: the split kernel's header, which sweep_kernels.cu includes
 SPLIT_SOURCE_PATH = "ceph_tpu_torch/csrc/split_f32.cuh"
 #: why a sweep kernel has no library call to time beside it
 _PRODUCT = "no single PyTorch call computes extraction + product + parity"
@@ -616,27 +614,16 @@ def _split_edge_cases():
     ]
 
 
-def _split_libraries():
-    """(source, generated header) of each library the constant-bank route
-    of ``sweep_split_f32`` builds in this run: k=8 m=4 and the edge shapes
-    with k * m <= ``SPLIT_PARAM_MAX_KM``."""
-    shapes = {(K, M)} | {(k, m) for _, k, m, _, _, _ in _split_edge_cases()
-                         if k * m <= sweep_gf.SPLIT_PARAM_MAX_KM}
-    return [(sweep_gf.SPLIT_SOURCE,
-             (sweep_gf.SPLIT_HEADER, sweep_gf.split_source(k, m)))
-            for k, m in sorted(shapes)]
-
-
 def phase_sweep_edges(dev, gen) -> None:
     """``sweep_copy`` and ``sweep_split_f32`` against their plain versions
     at edge shapes: the copy at m = 1, a ragged total, an unaligned
-    pointer and a last bulk chunk of 16 bytes; the split at
+    pointer and a partial last block; the split at
     :func:`_split_edge_cases`, each at parts 2, 4 and 8 and tiles 32 *
     parts, 8192 and 16384."""
     for label, k, m, n4, aligned in (
             ("m=1", K, 1, 1003, True), ("ragged total", K, 3, 4097, True),
             ("unaligned", K, M, 4096, False),
-            ("a last bulk chunk of 16 bytes", 1, 1, 262148, True)):
+            ("a partial last block", 1, 1, 262148, True)):
         x = _lanes(gen, dev, k, n4, aligned)
         got = sweep_gf.copy_rows(x, m)
         assert torch.equal(got, sweep_gf.copy_plain(x, m)), \
@@ -809,8 +796,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     builds = ((cuda_gf.SOURCE.name, None), (sweep_gf.SOURCE, None),
               (sweep_gf.XORNET_SOURCE,
-               sweep_gf.make_xornet(_sweep_bits(), K, M).generated),
-              *_split_libraries())
+               sweep_gf.make_xornet(_sweep_bits(), K, M).generated))
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda b: cuda_gf.build(*b), builds))
     print(f"[build] {', '.join(lib.name for lib in libs)} in "

@@ -46,12 +46,11 @@ def test_port_files_import_no_jax_and_no_reference_package():
 
 def test_port_cuda_sources_include_only_toolkit_and_generated_headers():
     # the kernels build from the checkout alone: CUDA runtime and C headers,
-    # the headers that the port generates at build time (the XOR network's,
-    # the split kernel's shape), and the headers of csrc/ itself (the w=8
-    # lookup body both table kernels share, the split kernel both of its
-    # libraries share)
+    # the XOR network's header that the port generates at build time, and
+    # the headers of csrc/ itself (the w=8 lookup body both table kernels
+    # share)
     headers = sorted((PORT / "csrc").glob("*.cuh"))
-    allowed = {"cuda_runtime.h", "stdint.h", "xornet_net.h", "split_shape.h",
+    allowed = {"cuda_runtime.h", "stdint.h", "xornet_net.h",
                *(h.name for h in headers)}
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert len(sources) >= 3

@@ -12,6 +12,7 @@ uniform over 0..255.
 """
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +25,8 @@ from jax.experimental.pallas import tpu as pltpu
 from ceph_tpu.ops import pallas_gf
 from ceph_tpu_torch.matrices import bitmatrix, reed_sol
 from ceph_tpu_torch.ops import cuda_gf, sweep_gf
-from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_split
+from ceph_tpu_torch.tools import (ec_kernel_sweep, kernel_r4_split,
+                                  split_probe)
 from experiments import kernel_r4_split as j_split
 
 K, M, N4, TILE = 8, 4, 4096, 1024
@@ -165,12 +167,12 @@ def test_split_product_checks_its_operands():
 
 @pytest.mark.parametrize("k,m", [(8, 4), (3, 2), (16, 2), (7, 5)])
 def test_split_params_hold_bp_for_the_kernel_split(k, m):
-    # the kernel parameter of the constant-bank route, read back in the
-    # order split_f32.cuh reads it (row j*8 + s, bit-row r), gives the JAX
-    # product through the plain route
+    # the probe tool's kernel parameter for the constant-bank route, read
+    # back in the order split_f32.cuh reads Bp (row j*8 + s, bit-row r),
+    # gives the JAX product through the plain route
     bits, d32 = _bits(k, m), _data(40 + k, k, 512)
     bp = sweep_gf.prep_shift_major_w8(bits, k)
-    params = sweep_gf.split_params(torch.from_numpy(bp), k, m)
+    params = split_probe.split_params(torch.from_numpy(bp), k, m)
     assert params.dtype == torch.float32 and params.device.type == "cpu"
     assert params.shape == (64 * k * m,) and params.is_contiguous()
     table = params.view(k, 8, 8 * m)
@@ -186,21 +188,30 @@ def test_split_params_hold_bp_for_the_kernel_split(k, m):
 
 
 def test_split_source_holds_the_shape_and_no_bitmatrix():
-    gen = sweep_gf.split_source(8, 4)
-    body = [line for line in gen.splitlines() if line and
-            not line.startswith("//")]
-    assert body == ["#pragma once", "#define SPLIT_K 8", "#define SPLIT_M 4"]
-    # one header (and library) per shape, whatever the bitmatrix
-    digests = {(k, m): cuda_gf.source_digest(
-        sweep_gf.SPLIT_SOURCE, (sweep_gf.SPLIT_HEADER,
-                                sweep_gf.split_source(k, m)))
-        for k in (1, 8, 16) for m in (1, 2, 4)}
-    assert len(set(digests.values())) == len(digests)
-    assert digests[8, 4] == cuda_gf.source_digest(
-        sweep_gf.SPLIT_SOURCE, (sweep_gf.SPLIT_HEADER, gen))
-    # the shared header is hashed into both libraries' digests
-    assert "split_f32.cuh" in cuda_gf._local_headers(
-        (cuda_gf.CSRC / sweep_gf.SPLIT_SOURCE).read_text())
+    # the probe tool's frame fixes k and m and holds nothing of a bitmatrix
+    # (Bp arrives with each launch); every edit of the shipped header that
+    # it builds finds its statement there once
+    for k, m in ((8, 4), (16, 2), (3, 5)):
+        gen = split_probe.param_frame(k, m)
+        assert f"#define SPLIT_K {k}" in gen
+        assert f"float v[64 * SPLIT_K * {m}];" in gen
+        assert f"launch_split_f32<{m}>" in gen
+        # its only numbers are k, m and the 64 bit-rows x planes of a unit
+        assert set(re.findall(r"\b\d+\b", gen)) == {str(k), str(m), "64"}
+    shipped = (cuda_gf.CSRC / split_probe.HEADER).read_text()
+    builds = split_probe.split_builds()
+    assert set(builds) == {"ffma alone", "no products", "256 threads",
+                           "constant bank"}
+    for name, header in builds.items():
+        assert header != shipped, name
+    assert "__grid_constant__ SplitParam bp" in builds["constant bank"]
+    assert "stage_bp_t(bp" not in builds["constant bank"]
+    # the copy rows edit sweep_kernels.cu and the bulk ring's source
+    copies = split_probe.copy_builds()
+    assert set(copies) == set(split_probe.COPY_SETTINGS)
+    assert {name for name, _ in copies.values()} == {
+        sweep_gf.SOURCE, split_probe.BULK_SOURCE}
+    # the shipped header is hashed into sweep_kernels.cu's digest
     assert "split_f32.cuh" in cuda_gf._local_headers(
         (cuda_gf.CSRC / sweep_gf.SOURCE).read_text())
 
@@ -208,7 +219,7 @@ def test_split_source_holds_the_shape_and_no_bitmatrix():
 @pytest.mark.parametrize("parts", [2, 4, 8])
 @pytest.mark.parametrize("k,m", [(1, 1), (16, 8), (1, 8), (16, 1), (4, 8)])
 def test_split_product_takes_every_shape_it_took(parts, k, m):
-    # k <= 16 and m <= 8 (either route), any tile that is a multiple of
+    # k <= 16 and m <= 8, any tile that is a multiple of
     # 32 * parts, ragged n4
     bits = np.random.RandomState(k * m).randint(0, 2, (8 * m, 8 * k))
     bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(bits, k))
