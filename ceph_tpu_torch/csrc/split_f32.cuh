@@ -1,12 +1,13 @@
-// sweep_split_f32's kernel, with the field conversion and the transposed
-// Bp staging that sweep_prec_f32 and sweep_planes_f32 use too.
-// sweep_kernels.cu includes it; cuda_gf.source_digest hashes it into that
-// library's digest.  ceph_tpu_torch/tools/split_probe.py builds edited
-// copies of it.
+// sweep_split_f32's and sweep_prec_f32's kernel, with the field conversion
+// and count reading that prec_tf32.cuh uses too and the transposed Bp
+// staging that sweep_planes_f32 uses.  sweep_kernels.cu includes it;
+// cuda_gf.source_digest hashes it into that library's digest.
+// ceph_tpu_torch/tools/split_probe.py builds edited copies of it.
 //
 // sweep_split_f32 replaces experiments/kernel_r4_split.py _kernel_split
-// (:51) at HIGHEST: sweep_prec_f32's function with each tile of T lanes cut
-// into parts column chunks of T/parts lanes.  On the TPU the chunks are
+// (:51) at HIGHEST: _kernel_prec's function with each tile of T lanes cut
+// into parts column chunks of T/parts lanes.  At parts 1 it is
+// _kernel_prec's (:315) at HIGHEST, sweep_prec_f32.  On the TPU the chunks are
 // independent chains that let extraction overlap the products; on this card
 // an independent chain is a warp, so warp w of a block takes chunk w mod
 // parts, 32 lanes at a time, and a thread keeps one lane.  Bound:
@@ -59,7 +60,10 @@ __host__ __device__ constexpr int split_threads(int M) {
 
 // one input row's products for the thread's lane: its 16 fields, converted
 // once, times the coefficients of all 16m accumulators; each coefficient
-// read (an LDS.128 of Bp[4q .. 4q + 3][s*k + j]) feeds 8 FFMA
+// read (an LDS.128 of Bp[4q .. 4q + 3][s*k + j]) feeds 8 FFMA, ordered so
+// that each shares a coefficient or a field with the one before it (its
+// operand then comes from the reuse cache; split_probe.py's lo, then hi
+// row is the order this replaced)
 template <int M>
 __device__ __forceinline__ void split_row(const float* sbp, int j,
                                           uint32_t v, float (&accL)[8 * M],
@@ -74,13 +78,13 @@ __device__ __forceinline__ void split_row(const float* sbp, int j,
     for (int q = 0; q < 2 * M; ++q) {
       const float4 b = col[q];
       accL[4 * q] = fmaf(b.x, lo, accL[4 * q]);
-      accL[4 * q + 1] = fmaf(b.y, lo, accL[4 * q + 1]);
-      accL[4 * q + 2] = fmaf(b.z, lo, accL[4 * q + 2]);
-      accL[4 * q + 3] = fmaf(b.w, lo, accL[4 * q + 3]);
       accH[4 * q] = fmaf(b.x, hi, accH[4 * q]);
       accH[4 * q + 1] = fmaf(b.y, hi, accH[4 * q + 1]);
+      accL[4 * q + 1] = fmaf(b.y, lo, accL[4 * q + 1]);
+      accL[4 * q + 2] = fmaf(b.z, lo, accL[4 * q + 2]);
       accH[4 * q + 2] = fmaf(b.z, hi, accH[4 * q + 2]);
       accH[4 * q + 3] = fmaf(b.w, hi, accH[4 * q + 3]);
+      accL[4 * q + 3] = fmaf(b.w, lo, accL[4 * q + 3]);
     }
   }
 }
@@ -162,10 +166,11 @@ sweep_split_f32_kernel(const uint32_t* __restrict__ x,
   }
 }
 
-// the checks of the entry point: parts 2, 4 or 8, T a positive multiple of
-// 32 * parts, 1 <= k <= 16, and a grid of at most 2^31 - 1 tiles
+// the checks of the entry points: parts 1, 2, 4 or 8, T a positive
+// multiple of 32 * parts, 1 <= k <= 16, and a grid of at most 2^31 - 1
+// tiles
 inline bool split_shape_ok(int k, long long n4, int T, int parts) {
-  return T > 0 && (parts == 2 || parts == 4 || parts == 8) &&
+  return T > 0 && (parts == 1 || parts == 2 || parts == 4 || parts == 8) &&
          T % (32 * parts) == 0 && k >= 1 && k <= 16 &&
          (n4 + T - 1) / T <= 0x7FFFFFFF;
 }
@@ -180,6 +185,25 @@ int launch_split_f32(const void* x, const void* bp, void* out, int k,
           static_cast<const uint32_t*>(x), static_cast<const float*>(bp),
           static_cast<uint32_t*>(out), k, n4, T, parts, wide);
   return static_cast<int>(cudaGetLastError());
+}
+
+// m <= 8
+inline int run_split_f32(const void* x, const void* bp, void* out, int k,
+                         int m, long long n4, int T, int parts,
+                         cudaStream_t s) {
+  if (!split_shape_ok(k, n4, T, parts))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (m) {
+    case 1: return launch_split_f32<1>(x, bp, out, k, n4, T, parts, s);
+    case 2: return launch_split_f32<2>(x, bp, out, k, n4, T, parts, s);
+    case 3: return launch_split_f32<3>(x, bp, out, k, n4, T, parts, s);
+    case 4: return launch_split_f32<4>(x, bp, out, k, n4, T, parts, s);
+    case 5: return launch_split_f32<5>(x, bp, out, k, n4, T, parts, s);
+    case 6: return launch_split_f32<6>(x, bp, out, k, n4, T, parts, s);
+    case 7: return launch_split_f32<7>(x, bp, out, k, n4, T, parts, s);
+    case 8: return launch_split_f32<8>(x, bp, out, k, n4, T, parts, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

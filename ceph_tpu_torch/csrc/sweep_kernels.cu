@@ -16,9 +16,11 @@
 //   sweep_bf16_blockdiag  replaces experiments/kernel_r4.py
 //                       _kernel_bf16_blockdiag (:100)
 //   sweep_prec_f32      replaces experiments/kernel_r4.py _kernel_prec (:315)
-//                       at precision HIGHEST
-//   sweep_prec_tf32x3   the same at precision HIGH
-//   sweep_prec_tf32     the same at precision DEFAULT
+//                       at precision HIGHEST (sweep_split_f32's kernel at
+//                       parts 1)
+//   sweep_prec_tf32x3   the same at precision HIGH (its kernel is
+//                       prec_tf32.cuh's)
+//   sweep_prec_tf32     the same at precision DEFAULT (prec_tf32.cuh's)
 //   sweep_split_f32     replaces experiments/kernel_r4_split.py _kernel_split
 //                       (:51) at precision HIGHEST, parts 2, 4 and 8 (its
 //                       kernel is split_f32.cuh's)
@@ -44,6 +46,7 @@
 #include <stdint.h>
 
 #include "gf_w8_tables.cuh"
+#include "prec_tf32.cuh"
 #include "split_f32.cuh"
 
 namespace {
@@ -1009,7 +1012,8 @@ int launch_blockdiag(const void* x, const void* bblk, void* out, int k,
 
 // ---------------------------------------------------------------------------
 // sweep_prec_f32, sweep_prec_tf32x3, sweep_prec_tf32: the production
-// product's field sums at three precisions (the sweep's precision stage)
+// product's field sums at three precisions (the sweep's precision stage);
+// sweep_planes_f32, the HIGHEST product over planes made beforehand
 // ---------------------------------------------------------------------------
 //
 // Replace experiments/kernel_r4.py _kernel_prec (:315) as main_prec (:341)
@@ -1024,23 +1028,19 @@ int launch_blockdiag(const void* x, const void* bblk, void* out, int k,
 //
 //   JAX precision  kernel             route on Hopper                exact?
 //   HIGHEST        sweep_prec_f32     FFMA on the CUDA cores         yes
-//   HIGH           sweep_prec_tf32x3  split TF32 on mma.sync         yes
-//   DEFAULT        sweep_prec_tf32    one TF32 pass on mma.sync      no
+//   HIGH           sweep_prec_tf32x3  split TF32 on wgmma            yes
+//   DEFAULT        sweep_prec_tf32    one TF32 pass on wgmma         no
 //
 // sweep_prec_tf32 rounds each plane with cvt.rna.tf32.f32: 65537 = 0x10001
 // needs 17 significant bits, TF32 keeps 11, so it becomes 65536 and bytes 0
 // and 1 lose the count of that plane -- as the TPU's one bf16 pass at
 // DEFAULT does, which is why the JAX tool expects that row to MISMATCH.
 // sweep_prec_tf32x3 splits each plane b into b_big = cvt.rna(b) and b_small
-// = cvt.rna(b - b_big) and accumulates Bp * b_big + Bp * b_small in float32:
-// exact.  3xTF32's third pass, Bp_small * b_big, multiplies zeros here --
-// Bp is 0 or 1, exact in TF32 -- so the kernel skips it; the wrapper checks
-// on the host that the table holds only 0 and 1.
+// = b - b_big and accumulates Bp * b_big + Bp * b_small in float32: exact.
+// Their kernel is prec_tf32.cuh's (the note there gives its design).
 //
-// The tile: the JAX BlockSpec width (4096 or 16384 lanes) is here the lanes
-// a block takes per step of its walk over a persistent grid (tiles i, i +
-// gridDim.x, ...), so both tiles run on as many blocks as fit on the card;
-// at 16384 and 2097152 lanes only 128 tiles exist, and 128 blocks work.
+// sweep_prec_f32 is _kernel_split's function at parts 1, so it runs
+// split_f32.cuh's one-pass FFMA kernel with one chunk a tile.
 //
 // Bound on the card: the function's 2 * 2 * 8m * 8k * n4 operations (two
 // products, a multiply-add counted twice) at the float32 rate of the CUDA
@@ -1049,104 +1049,33 @@ int launch_blockdiag(const void* x, const void* bblk, void* out, int k,
 // whichever is longer: operations at k=8 m=4 for sweep_prec_f32 (0.2564
 // ms), operations for the TF32 kernels (0.0347 ms, bytes 0.0300).
 //
-// sweep_prec_f32 design: one thread per lane.  Bp sits in shared memory
-// transposed, [8k][8m] (row j*8 + s holds column s*k + j), so for input row
-// j and plane s the 8m coefficients are consecutive and every warp reads
-// them as broadcast 16-byte loads: one LDS.128 feeds 8 FFMA (4 rows, lo and
-// hi).  The thread keeps 16m float accumulators (8m each for accL and
-// accH), walks the k input rows with one coalesced 4-byte load each, and
-// turns each field into a float with an OR of 2^23's exponent and one FADD
-// (no I2F).  Shared memory: the widest table, 16 * 8 * 8m floats (32 KiB
-// at m = 8), static.
-//
-// sweep_prec_tf32x3 and sweep_prec_tf32 design: sweep_f32_4dot's (Tf32Op
-// m16n8k8, Bp's fragments in registers, one input lane a thread builds its
-// B fragments from), with two products in place of four: K-step (jq, h)
-// takes planes s = 2h and 2h + 1 of rows j = t + 4jq from bits 8*half + 2h
-// of the lane.  The epilogue differs: each accumulator carries four parity
-// bits (bit 8b of z), not one, so a ballot per register would take four
-// ballots and four 8-bit gathers.  Instead each thread converts its
-// accumulators (F2I), forms z & 0x01010101 at its own bit-row g (shifted
-// left by g), and three xor-shuffles across the 8 threads of equal t OR the
-// eight bit-rows of an output row together: the finished word, 3 shuffles
-// and 3 ORs a register.  Thread g < 4 of each quad column stores register
-// g's word (row 2mt + g/2, lane 2t + g%2).
-//
 // sweep_planes_f32 replaces experiments/kernel_r4_probe.py _mxu_kernel
 // (:54): sweep_prec_f32's product and epilogue at HIGHEST over planes
 // extracted beforehand, float32 [2, 8k, n4] (lo rows s*k + j, then hi).
-// It is sweep_prec_f32's kernel with another source of planes (FromPlanes
-// in place of FromLanes): each plane value is one 4-byte load, and a warp's
-// load is one whole 128-byte line.  Bound: bytes, the planes are 64 times
-// the payload: (16k + m) * n4 * 4 bytes, 0.3305 ms at k=8 m=4 and 2097152
-// lanes, above the FFMA bound of 0.2564.  A thread keeps one lane: four
-// lanes a thread (16-byte loads) would need 4 x 16m accumulators.
+// One thread per lane over a persistent grid (tiles i, i + gridDim.x, ...).
+// Bp sits in shared memory transposed, [8k][8m] (stage_bp_t), so for input
+// row j and plane s the 8m coefficients are consecutive and every warp
+// reads them as broadcast 16-byte loads: one LDS.128 feeds 8 FFMA (4 rows,
+// lo and hi).  The thread keeps 16m float accumulators; each plane value
+// is one 4-byte load, and a warp's load is one whole 128-byte line.
+// Bound: bytes, the planes are 64 times the payload: (16k + m) * n4 * 4
+// bytes, 0.3305 ms at k=8 m=4 and 2097152 lanes, above the FFMA bound of
+// 0.2564.  A thread keeps one lane: four lanes a thread (16-byte loads)
+// would need 4 x 16m accumulators.
 
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// precision policies: a plane value -> the B operand of each mma pass
-struct PrecTf32 {  // DEFAULT: one pass, the plane rounded to TF32
-  static constexpr int kPasses = 1;
-  __device__ static void split(float v, uint32_t (&b)[kPasses]) {
-    b[0] = tf32_rna(v);
-  }
-};
-
-struct PrecTf32x3 {  // HIGH: b_big, then b_small (Bp_small is zero)
-  static constexpr int kPasses = 2;
-  __device__ static void split(float v, uint32_t (&b)[kPasses]) {
-    b[0] = tf32_rna(v);
-    b[1] = tf32_rna(v - __uint_as_float(b[0]));
-  }
-};
-
-// where sweep_prec_f32_kernel takes plane s of input row j: extracted from
-// the lanes (sweep_prec_f32) or loaded as floats (sweep_planes_f32)
-struct FromLanes {
-  const uint32_t* x;  // [k, n4] lanes
-  using Row = uint32_t;
-  __device__ __forceinline__ Row row(int j, long long n4,
-                                     long long lane) const {
-    return __ldg(x + static_cast<long long>(j) * n4 + lane);
-  }
-  __device__ __forceinline__ float lo(Row v, int s) const {
-    return field_float((v >> s) & 0x00010001u);
-  }
-  __device__ __forceinline__ float hi(Row v, int s) const {
-    return field_float((v >> (8 + s)) & 0x00010001u);
-  }
-};
-
-struct FromPlanes {
-  const float* p;  // [2, 8k, n4]: lo rows s*k + j, then hi rows
-  long long step;  // k * n4: plane s to plane s + 1 of one input row
-  using Row = const float*;
-  __device__ __forceinline__ Row row(int j, long long n4,
-                                     long long lane) const {
-    return p + static_cast<long long>(j) * n4 + lane;
-  }
-  __device__ __forceinline__ float lo(Row r, int s) const {
-    return __ldg(r + s * step);
-  }
-  __device__ __forceinline__ float hi(Row r, int s) const {
-    return __ldg(r + (8 + s) * step);
-  }
-};
-
-template <int M, class Src>
+template <int M>
 __global__ void __launch_bounds__(kThreads)
-sweep_prec_f32_kernel(const Src src, const float* __restrict__ bp,
-                      uint32_t* __restrict__ out, int k, long long n4,
-                      int T) {
+sweep_planes_f32_kernel(const float* __restrict__ planes,
+                        const float* __restrict__ bp,
+                        uint32_t* __restrict__ out, int k, long long n4,
+                        int T) {
   constexpr int R = 8 * M;  // bit-rows
   __shared__ __align__(16) float sbp[16 * 8 * R];
   stage_bp_t(bp, k, R, sbp);
   __syncthreads();
 
+  // plane s of input row j to plane s + 1, and lo to hi
+  const long long step = static_cast<long long>(k) * n4;
   const long long ntiles = (n4 + T - 1) / T;
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long end = (tile + 1) * T < n4 ? (tile + 1) * T : n4;
@@ -1156,12 +1085,12 @@ sweep_prec_f32_kernel(const Src src, const float* __restrict__ bp,
 #pragma unroll
       for (int r = 0; r < R; ++r) accL[r] = accH[r] = 0.0f;
       for (int j = 0; j < k; ++j) {
-        const typename Src::Row v = src.row(j, n4, lane);
+        const float* v = planes + static_cast<long long>(j) * n4 + lane;
         const float4* col = reinterpret_cast<const float4*>(sbp + j * 8 * R);
 #pragma unroll
         for (int s = 0; s < 8; ++s) {
-          const float lo = src.lo(v, s);
-          const float hi = src.hi(v, s);
+          const float lo = __ldg(v + s * step);
+          const float hi = __ldg(v + (8 + s) * step);
 #pragma unroll
           for (int q = 0; q < R / 4; ++q) {
             const float4 b = col[s * (R / 4) + q];
@@ -1191,147 +1120,18 @@ sweep_prec_f32_kernel(const Src src, const float* __restrict__ bp,
   }
 }
 
-template <int M, class Src>
-int launch_prec_f32(const Src& src, const void* bp, void* out, int k,
-                    long long n4, int T, cudaStream_t s) {
+template <int M>
+int launch_planes_f32(const void* planes, const void* bp, void* out, int k,
+                      long long n4, int T, cudaStream_t s) {
   const long long ntiles = (n4 + T - 1) / T;
   int blocks = 0;
-  const int rc = resident_blocks(sweep_prec_f32_kernel<M, Src>, kThreads, 0,
+  const int rc = resident_blocks(sweep_planes_f32_kernel<M>, kThreads, 0,
                                  ntiles, &blocks);
   if (rc != 0) return rc;
-  sweep_prec_f32_kernel<M, Src><<<blocks, kThreads, 0, s>>>(
-      src, static_cast<const float*>(bp), static_cast<uint32_t*>(out), k, n4,
-      T);
+  sweep_planes_f32_kernel<M><<<blocks, kThreads, 0, s>>>(
+      static_cast<const float*>(planes), static_cast<const float*>(bp),
+      static_cast<uint32_t*>(out), k, n4, T);
   return static_cast<int>(cudaGetLastError());
-}
-
-// k <= 16, m <= 8, T a positive multiple of 32
-template <class Src>
-int run_prec_f32(const Src& src, const void* bp, void* out, int k, int m,
-                 long long n4, int T, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T <= 0 || T % 32 != 0 || k < 1 || k > 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (m) {
-    case 1: return launch_prec_f32<1>(src, bp, out, k, n4, T, s);
-    case 2: return launch_prec_f32<2>(src, bp, out, k, n4, T, s);
-    case 3: return launch_prec_f32<3>(src, bp, out, k, n4, T, s);
-    case 4: return launch_prec_f32<4>(src, bp, out, k, n4, T, s);
-    case 5: return launch_prec_f32<5>(src, bp, out, k, n4, T, s);
-    case 6: return launch_prec_f32<6>(src, bp, out, k, n4, T, s);
-    case 7: return launch_prec_f32<7>(src, bp, out, k, n4, T, s);
-    case 8: return launch_prec_f32<8>(src, bp, out, k, n4, T, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <class Prec, int JQ, int MS>
-__global__ void __launch_bounds__(kDotThreads)
-sweep_prec_tf32_kernel(const uint32_t* __restrict__ x,
-                       const uint32_t* __restrict__ bp,
-                       uint32_t* __restrict__ out, int k, int m,
-                       long long n4, int T) {
-  using Op = Tf32Op;
-  constexpr int H = 8 / Op::P, KS = JQ * H;
-  const int lane_id = threadIdx.x % 32;
-  const int g = lane_id / 4, t = lane_id % 4;
-
-  uint32_t a[MS][KS][4];
-  load_a_frags<Op, JQ, MS>(bp, k, m, a);
-
-  const long long ntiles = (n4 + T - 1) / T;
-  const int spans = T / kDotWarpLanes, warps = blockDim.x / 32;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    for (int sp = threadIdx.x / 32; sp < spans; sp += warps) {
-      const long long lane0 =
-          tile * T + static_cast<long long>(sp) * kDotWarpLanes;
-      if (lane0 >= n4) break;
-      uint32_t v[kDotGroups][JQ];
-      load_b_lanes<JQ>(x, k, n4, lane0, v);
-#pragma unroll
-      for (int c = 0; c < kDotGroups; ++c) {
-        float acc[2][MS][4] = {};
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks) {
-            const uint32_t bits = v[c][ks / H] >> (8 * half + 2 * (ks % H));
-            uint32_t b0[Prec::kPasses], b1[Prec::kPasses];
-            Prec::split(field_float(bits & 0x00010001u), b0);
-            Prec::split(field_float((bits >> 1) & 0x00010001u), b1);
-#pragma unroll
-            for (int pass = 0; pass < Prec::kPasses; ++pass)
-#pragma unroll
-              for (int mt = 0; mt < MS; ++mt)
-                Op::mma(acc[half][mt], a[mt][ks], b0[pass], b1[pass]);
-          }
-#pragma unroll
-        for (int mt = 0; mt < MS; ++mt) {
-          // word[2h + p]: output row 2mt + h, lane 2t + p of group c
-          uint32_t word[4];
-#pragma unroll
-          for (int ci = 0; ci < 4; ++ci) {
-            const uint32_t z = __float2uint_rn(acc[0][mt][ci]) +
-                               (__float2uint_rn(acc[1][mt][ci]) << 8);
-            uint32_t w = (z & 0x01010101u) << g;
-            w |= __shfl_xor_sync(0xffffffffu, w, 4);
-            w |= __shfl_xor_sync(0xffffffffu, w, 8);
-            w |= __shfl_xor_sync(0xffffffffu, w, 16);
-            word[ci] = w;
-          }
-          if (g < 4) {
-            const int row = 2 * mt + g / 2;
-            const long long lane = lane0 + 8 * c + 2 * t + g % 2;
-            const uint32_t mine = g == 0   ? word[0]
-                                  : g == 1 ? word[1]
-                                  : g == 2 ? word[2]
-                                           : word[3];
-            if (row < m && lane < n4)
-              out[static_cast<long long>(row) * n4 + lane] = mine;
-          }
-        }
-      }
-    }
-  }
-}
-
-template <class Prec, int JQ, int MS>
-int launch_prec_tf32(const void* x, const void* bp, void* out, int k, int m,
-                     long long n4, int T, cudaStream_t s) {
-  const long long ntiles = (n4 + T - 1) / T;
-  int blocks = 0;
-  const int rc = resident_blocks(sweep_prec_tf32_kernel<Prec, JQ, MS>,
-                                 kDotThreads, 0, ntiles, &blocks);
-  if (rc != 0) return rc;
-  sweep_prec_tf32_kernel<Prec, JQ, MS><<<blocks, kDotThreads, 0, s>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(bp),
-      static_cast<uint32_t*>(out), k, m, n4, T);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the instance for ceil(k/4) = jq and ceil(m/2) = ms, or an error beyond
-// Tf32Op's limits (k <= 8, m <= 4)
-template <class Prec, int JQ = 1, int MS = 1>
-int dispatch_prec(int jq, int ms, const void* x, const void* bp, void* out,
-                  int k, int m, long long n4, int T, cudaStream_t s) {
-  if (jq == JQ && ms == MS)
-    return launch_prec_tf32<Prec, JQ, MS>(x, bp, out, k, m, n4, T, s);
-  if constexpr (MS < Tf32Op::kMaxMS)
-    return dispatch_prec<Prec, JQ, MS + 1>(jq, ms, x, bp, out, k, m, n4, T,
-                                           s);
-  else if constexpr (JQ < Tf32Op::kMaxJQ)
-    return dispatch_prec<Prec, JQ + 1, 1>(jq, ms, x, bp, out, k, m, n4, T,
-                                          s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <class Prec>
-int run_prec_tf32(const void* x, const void* bp, void* out, int k, int m,
-                  long long n4, int T, void* stream) {
-  if (T <= 0 || T % kDotWarpLanes != 0 || k < 1 || m < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_prec<Prec>((k + 3) / 4, (m + 1) / 2, x, bp, out, k, m, n4,
-                             T, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1409,31 +1209,19 @@ int sweep_bf16_blockdiag(const void* x, const void* bblk, void* out, int k,
 // x [k, n4] lanes; bp [8m, 8k] float32 0/1, shift-major; out [m, n4]; T
 // lanes a block takes per step, a positive multiple of 32
 
-// HIGHEST: FFMA; k <= 16, m <= 8
+// HIGHEST: FFMA, split_f32.cuh's kernel at parts 1; k <= 16, m <= 8
 int sweep_prec_f32(const void* x, const void* bp, void* out, int k, int m,
                    long long n4, int T, void* stream) {
-  return run_prec_f32(FromLanes{static_cast<const uint32_t*>(x)}, bp, out, k,
-                      m, n4, T, stream);
+  return run_split_f32(x, bp, out, k, m, n4, T, 1,
+                       static_cast<cudaStream_t>(stream));
 }
 
-// HIGHEST, FFMA, each tile of T lanes in parts column chunks (parts 2, 4
-// or 8; T a positive multiple of 32 * parts); k <= 16, m <= 8
+// HIGHEST, FFMA, each tile of T lanes in parts column chunks (parts 1, 2,
+// 4 or 8; T a positive multiple of 32 * parts); k <= 16, m <= 8
 int sweep_split_f32(const void* x, const void* bp, void* out, int k, int m,
                     long long n4, int T, int parts, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!split_shape_ok(k, n4, T, parts))
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (m) {
-    case 1: return launch_split_f32<1>(x, bp, out, k, n4, T, parts, s);
-    case 2: return launch_split_f32<2>(x, bp, out, k, n4, T, parts, s);
-    case 3: return launch_split_f32<3>(x, bp, out, k, n4, T, parts, s);
-    case 4: return launch_split_f32<4>(x, bp, out, k, n4, T, parts, s);
-    case 5: return launch_split_f32<5>(x, bp, out, k, n4, T, parts, s);
-    case 6: return launch_split_f32<6>(x, bp, out, k, n4, T, parts, s);
-    case 7: return launch_split_f32<7>(x, bp, out, k, n4, T, parts, s);
-    case 8: return launch_split_f32<8>(x, bp, out, k, n4, T, parts, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run_split_f32(x, bp, out, k, m, n4, T, parts,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // planes [2, 8k, n4] float32 (lo rows s*k + j, then hi rows), as
@@ -1441,9 +1229,20 @@ int sweep_split_f32(const void* x, const void* bp, void* out, int k, int m,
 // FFMA; k <= 16, m <= 8
 int sweep_planes_f32(const void* planes, const void* bp, void* out, int k,
                      int m, long long n4, int T, void* stream) {
-  return run_prec_f32(FromPlanes{static_cast<const float*>(planes),
-                                 static_cast<long long>(k) * n4},
-                      bp, out, k, m, n4, T, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T <= 0 || T % 32 != 0 || k < 1 || k > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (m) {
+    case 1: return launch_planes_f32<1>(planes, bp, out, k, n4, T, s);
+    case 2: return launch_planes_f32<2>(planes, bp, out, k, n4, T, s);
+    case 3: return launch_planes_f32<3>(planes, bp, out, k, n4, T, s);
+    case 4: return launch_planes_f32<4>(planes, bp, out, k, n4, T, s);
+    case 5: return launch_planes_f32<5>(planes, bp, out, k, n4, T, s);
+    case 6: return launch_planes_f32<6>(planes, bp, out, k, n4, T, s);
+    case 7: return launch_planes_f32<7>(planes, bp, out, k, n4, T, s);
+    case 8: return launch_planes_f32<8>(planes, bp, out, k, n4, T, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x [k, n4] lanes; out [m, n4] int32: the sum over planes r = s*k + j with
@@ -1468,13 +1267,13 @@ int sweep_extract_fold(const void* x, void* out, int k, int m, long long n4,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// HIGH: split TF32 (Bp must hold only 0 and 1); k <= 8, m <= 4
+// HIGH: split TF32 on wgmma (Bp must hold only 0 and 1); k <= 16, m <= 8
 int sweep_prec_tf32x3(const void* x, const void* bp, void* out, int k,
                       int m, long long n4, int T, void* stream) {
   return run_prec_tf32<PrecTf32x3>(x, bp, out, k, m, n4, T, stream);
 }
 
-// DEFAULT: one TF32 pass; k <= 8, m <= 4
+// DEFAULT: one TF32 pass on wgmma; k <= 16, m <= 8
 int sweep_prec_tf32(const void* x, const void* bp, void* out, int k, int m,
                     long long n4, int T, void* stream) {
   return run_prec_tf32<PrecTf32>(x, bp, out, k, m, n4, T, stream);

@@ -28,8 +28,11 @@ planes_product      kernel_r4_probe._mxu_kernel (:54)               sweep_planes
 
 ``sweep_xornet`` lives in ``csrc/xornet_kernel.cu``, a frame that includes
 a network generated per bitmatrix (:func:`xornet_source`); the others in
-``csrc/sweep_kernels.cu`` (``sweep_split_f32``'s kernel in the header
-``csrc/split_f32.cuh`` it includes).
+``csrc/sweep_kernels.cu``, whose entry points ``sweep_split_f32`` and
+``sweep_prec_f32`` (one FFMA kernel, at parts 2/4/8 and 1) run the header
+``csrc/split_f32.cuh`` and ``sweep_prec_tf32x3`` and ``sweep_prec_tf32``
+(one wgmma kernel, two passes or one) the header ``csrc/prec_tf32.cuh``
+(:data:`KERNEL_SOURCES`).
 
 Operands are int32 lanes of four little-endian bytes, ``[rows, n4]``, as in
 :mod:`cuda_gf`.  ``pipelined_w8`` takes the nibble tables of
@@ -97,14 +100,21 @@ _XORNET_SIGNATURES = {"sweep_xornet": (_P, _P, _L, _P)}
 #: registers
 XORNET_MAX_K, XORNET_MAX_M = 16, 8
 
+#: kernel -> the file of ``csrc/`` that holds its kernel, where it is not
+#: the library's source (``SOURCE``)
+KERNEL_SOURCES = {"sweep_xornet": XORNET_SOURCE,
+                  "sweep_split_f32": "split_f32.cuh",
+                  "sweep_prec_f32": "split_f32.cuh",
+                  "sweep_prec_tf32x3": "prec_tf32.cuh",
+                  "sweep_prec_tf32": "prec_tf32.cuh"}
 #: JAX precision name -> the kernel that computes ``_kernel_prec`` at it
 PREC_KERNELS = {"HIGHEST": "sweep_prec_f32", "HIGH": "sweep_prec_tf32x3",
                 "DEFAULT": "sweep_prec_tf32"}
-#: precision kernel -> (the widest k, the widest m): the FFMA kernel keeps
-#: 16m accumulators a thread and stages Bp in shared memory; the TF32
-#: kernels keep Bp's fragments in registers as ``sweep_f32_4dot`` does
-PREC_LIMITS = {"sweep_prec_f32": (16, 8), "sweep_prec_tf32x3": (8, 4),
-               "sweep_prec_tf32": (8, 4)}
+#: precision kernel -> (the widest k, the widest m): both stage Bp in
+#: shared memory; the FFMA kernel keeps 16m accumulators a thread, the
+#: wgmma kernel two 32-bit-row halves of accumulators at most
+PREC_LIMITS = {"sweep_prec_f32": (16, 8), "sweep_prec_tf32x3": (16, 8),
+               "sweep_prec_tf32": (16, 8)}
 #: the JAX tool's tiles (``main_prec``): lanes a block takes per step
 PREC_TILES = (4096, 16384)
 #: ``_kernel_split``'s column chunks a tile is cut into; above 1 only at
@@ -613,11 +623,11 @@ def prec_product(bp: torch.Tensor, x: torch.Tensor, k: int, m: int,
                  precision: str, tile: int = PREC_TILES[0]) -> torch.Tensor:
     """bp [8m, 8k] float32 0/1 (``prep_shift_major_w8``) x lanes [k, n4] ->
     parity lanes [m, n4]: ``_kernel_prec``'s field-sum product at JAX
-    ``precision`` "HIGHEST" (``sweep_prec_f32``, FFMA), "HIGH"
-    (``sweep_prec_tf32x3``, split TF32) or "DEFAULT" (``sweep_prec_tf32``,
-    one TF32 pass, which rounds the plane value 65537 to 65536 as the TPU's
-    one bf16 pass does).  A block takes ``tile`` lanes (a positive multiple
-    of 32) per step of its walk."""
+    ``precision`` "HIGHEST" (``sweep_prec_f32``, FFMA: the split's kernel
+    at parts 1), "HIGH" (``sweep_prec_tf32x3``, split TF32 on wgmma) or
+    "DEFAULT" (``sweep_prec_tf32``, one TF32 pass, which rounds the plane
+    value 65537 to 65536 as the TPU's one bf16 pass does).  A block takes
+    ``tile`` lanes (a positive multiple of 32) at a time."""
     if precision not in PREC_KERNELS:
         raise ValueError(f"precision {precision!r} is not one of "
                          f"{', '.join(PREC_KERNELS)}")

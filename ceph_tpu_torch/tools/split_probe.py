@@ -14,6 +14,15 @@ At the kernel sweep's shape -- reed_sol_van k=8 m=4 w=8, lanes [8,
   no products     the products replaced by one FADD per field: the loads,
                   conversions and epilogue (not checked)
   256 threads     256 threads a block, not 512
+  pure ffma       the products alone: words made from the lane index, each
+                  field one shift (no extraction), the coefficients four
+                  registers a row (no LDS); the FFMA rate this register
+                  budget reaches (not checked)
+  register coefficients, one-shift fields
+                  the kernel with only the coefficients, or only the
+                  fields, made as pure ffma makes them (not checked)
+  lo, then hi     the kernel with each coefficient's 8 FFMA in the order
+                  the shipped zig-zag replaced: lo's four, then hi's
   constant bank   the other coefficient route: Bp a ``__grid_constant__``
                   kernel parameter (packed on the host, :func:`split_params`)
                   read as constant-bank operands of the FFMA, with k and m
@@ -79,6 +88,28 @@ NO_LOAD = ("    return l < stop ? static_cast<uint32_t>(l) * 0x9E3779B9u + j "
 PRODUCTS = "    for (int q = 0; q < 2 * M; ++q) {\n"
 NO_PRODUCTS = ("    accL[s] += lo;\n    accH[s] += hi;\n"
                "    for (int q = 0; q < 0; ++q) {\n")
+#: the pure-FFMA row's fields and coefficients
+FIELDS = ("    const float lo = field_float((v >> s) & 0x00010001u);\n"
+          "    const float hi = field_float((v >> (8 + s)) & 0x00010001u);\n")
+SHIFTED = ("    const float lo = __uint_as_float(v >> s);\n"
+           "    const float hi = __uint_as_float(v >> (8 + s));\n")
+COEFFICIENTS = "      const float4 b = col[q];\n"
+REGISTER_COEFFICIENTS = (
+    "      const float4 b = make_float4(__int_as_float(j + 1), "
+    "__int_as_float(j + 2),\n"
+    "                                   __int_as_float(j + 3), "
+    "__int_as_float(j + 4));\n")
+#: a coefficient's 8 FFMA as shipped (zig-zag: each shares a coefficient or
+#: a field with the one before it), and lo's four, then hi's
+LO_THEN_HI = "".join(
+    f"      acc{h}[4 * q{i}] = fmaf(b.{c}, {f}, acc{h}[4 * q{i}]);\n"
+    for h, f in (("L", "lo"), ("H", "hi"))
+    for i, c in (("", "x"), (" + 1", "y"), (" + 2", "z"), (" + 3", "w")))
+FFMA_BLOCK = "".join(
+    f"      acc{h}[4 * q{i}] = fmaf(b.{c}, {f}, acc{h}[4 * q{i}]);\n"
+    for i, c, order in (("", "x", "LH"), (" + 1", "y", "HL"),
+                        (" + 2", "z", "LH"), (" + 3", "w", "HL"))
+    for h in order for f in ({"L": "lo", "H": "hi"}[h],))
 #: the constant bank: (statement, its replacement), in the header's order
 PARAM_EDITS = (
     ("                       const float* __restrict__ bp,\n",
@@ -174,8 +205,14 @@ def split_builds() -> dict:
     param = header
     for old, new in PARAM_EDITS:
         param = _replace(param, old, new)
+    pure = _replace(_replace(header, LOAD, NO_LOAD), FIELDS, SHIFTED)
     return {
         "ffma alone": _replace(header, LOAD, NO_LOAD),
+        "pure ffma": _replace(pure, COEFFICIENTS, REGISTER_COEFFICIENTS),
+        "register coefficients": _replace(header, COEFFICIENTS,
+                                          REGISTER_COEFFICIENTS),
+        "one-shift fields": _replace(header, FIELDS, SHIFTED),
+        "lo, then hi": _replace(header, FFMA_BLOCK, LO_THEN_HI),
         "no products": _replace(header, PRODUCTS, NO_PRODUCTS),
         "256 threads": _replace(header, THREADS, "  return 256;\n"),
         "constant bank": param,
@@ -286,7 +323,8 @@ def main(argv=None) -> int:
             launch()
             torch.cuda.synchronize(dev)
             verdict = "n/a (probe)"
-            if name not in ("ffma alone", "no products"):
+            if name not in ("ffma alone", "no products", "pure ffma",
+                            "register coefficients", "one-shift fields"):
                 ok = torch.equal(out, want)
                 verdict = "bit-exact" if ok else "MISMATCH"
                 bad += not ok

@@ -35,15 +35,18 @@ Phases (any failure raises and exits non-zero):
    shape, lanes [8, 2097152], and at a ragged one: ``sweep_xornet`` for
    reed_sol_van and for cauchy_good k=8 m=4 (a second library, built for
    that bitmatrix), the three ``sweep_prec_*`` kernels at tiles 4096 and
-   16384, ``sweep_split_f32`` at parts 2 (tile 8192) and parts 4 and 8
-   (tile 16384), ``sweep_planes_f32`` over the 1 GiB of ``field_planes``
+   16384 (beside their PR 5 designs' times), ``sweep_split_f32`` at parts
+   2 (tile 8192) and parts 4 and 8 (tile 16384), ``sweep_planes_f32``
+   over the 1 GiB of ``field_planes``
    (freed after use).  ``sweep_copy`` and its library call,
    ``x[:m].clone()``, are timed in turns (7 of each, flushed and back to
    back; medians and spread).  Then ``sweep_copy`` at m = 1, a ragged
    total, an unaligned pointer and a partial last block, and
    ``sweep_split_f32`` at k = 1, k = 16 m = 8, m = 1, 3 and 5, n4 = 1003
    and 100003, unaligned pointers and sums past 2^23, each at parts 2, 4
-   and 8 and tiles 32 * parts, 8192 and 16384.  Then the port's kernel
+   and 8 and tiles 32 * parts, 8192 and 16384, and the three precision
+   kernels at the same cases, each at tiles 4096, 16384 and 4128 (a
+   ragged last 64-lane sub-tile).  Then the port's kernel
    sweep (``ec_kernel_sweep.main``, all three stages) at 8 MiB chunks,
    which must exit 0 with every variant and probe row bit-exact, the
    HIGHEST and HIGH precision rows bit-exact and the DEFAULT rows
@@ -117,11 +120,12 @@ MASK_TABLE_MS = {"gf2_matrix_w8": 0.0970, "gf2_matrix_w16": 0.0998,
 #: design at phase 5's shape (the mask-table ``sweep_pipelined_w8``; same
 #: card and limit), printed beside the time measured now
 EARLIER_MS = {"sweep_pipelined_w8": 0.0932, "sweep_copy": 0.0296,
-              "sweep_split_f32": 0.6323}
+              "sweep_split_f32": 0.6323, "sweep_prec_f32": 0.5431,
+              "sweep_prec_tf32x3": 0.2974, "sweep_prec_tf32": 0.1963}
 #: turns of the interleaved copy and clone timings (each a mean of 20
 #: flushed launches and a CUDA graph of 48 back to back)
 COPY_TURNS = 7
-SWEEP_SOURCE = "ceph_tpu_torch/csrc/sweep_kernels.cu"
+CSRC_PATH = "ceph_tpu_torch/csrc/"
 SWEEP_REPLACES = {
     "sweep_copy": "tools/ec_kernel_sweep.py:117",
     "sweep_extract": "tools/ec_kernel_sweep.py:121",
@@ -140,9 +144,6 @@ SWEEP_REPLACES = {
 }
 #: the kernels that phase 6's probe tools run, and count
 PROBE_KERNELS = ("sweep_split_f32", "sweep_extract_fold", "sweep_planes_f32")
-XORNET_SOURCE_PATH = "ceph_tpu_torch/csrc/xornet_kernel.cu"
-#: the split kernel's header, which sweep_kernels.cu includes
-SPLIT_SOURCE_PATH = "ceph_tpu_torch/csrc/split_f32.cuh"
 #: why a sweep kernel has no library call to time beside it
 _PRODUCT = "no single PyTorch call computes extraction + product + parity"
 NO_LIBRARY = {
@@ -571,9 +572,8 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
             del arg
             results[name] = {
                 "name": name, "route": "cuda",
-                "source": {"sweep_xornet": XORNET_SOURCE_PATH,
-                           "sweep_split_f32": SPLIT_SOURCE_PATH}.get(
-                               name, SWEEP_SOURCE),
+                "source": CSRC_PATH + sweep_gf.KERNEL_SOURCES.get(
+                    name, sweep_gf.SOURCE),
                 "replaces": SWEEP_REPLACES[name], "max_abs_err": max_abs_err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": library_ms,
@@ -614,12 +614,18 @@ def _split_edge_cases():
     ]
 
 
+#: the precision kernels' tiles at the edge shapes: the JAX tool's two, and
+#: one that leaves a ragged last 64-lane sub-tile in each tile
+PREC_EDGE_TILES = (*sweep_gf.PREC_TILES, 4128)
+
+
 def phase_sweep_edges(dev, gen) -> None:
-    """``sweep_copy`` and ``sweep_split_f32`` against their plain versions
-    at edge shapes: the copy at m = 1, a ragged total, an unaligned
-    pointer and a partial last block; the split at
-    :func:`_split_edge_cases`, each at parts 2, 4 and 8 and tiles 32 *
-    parts, 8192 and 16384."""
+    """``sweep_copy``, ``sweep_split_f32`` and the three precision kernels
+    against their plain versions at edge shapes: the copy at m = 1, a
+    ragged total, an unaligned pointer and a partial last block; the split
+    at :func:`_split_edge_cases`, each at parts 2, 4 and 8 and tiles 32 *
+    parts, 8192 and 16384; the precision kernels at the same cases, each
+    at ``PREC_EDGE_TILES``."""
     for label, k, m, n4, aligned in (
             ("m=1", K, 1, 1003, True), ("ragged total", K, 3, 4097, True),
             ("unaligned", K, M, 4096, False),
@@ -650,6 +656,16 @@ def phase_sweep_edges(dev, gen) -> None:
         print(f"[sweep-edge] sweep_split_f32 {label} lanes {tuple(x.shape)}: "
               "bit-exact at parts 2, 4, 8 x tiles 32 * parts, 8192, 16384",
               flush=True)
+        for prec, name in sweep_gf.PREC_KERNELS.items():
+            want = sweep_gf.prec_plain(bp, x, k, m, prec)
+            for tile in PREC_EDGE_TILES:
+                got = sweep_gf.prec_product(bp, x, k, m, prec, tile)
+                assert torch.equal(got, want), \
+                    f"{name} ({label}, tile {tile}): kernel != plain " \
+                    f"version at lanes {tuple(x.shape)}"
+        print(f"[sweep-edge] {', '.join(sweep_gf.PREC_KERNELS.values())} "
+              f"{label} lanes {tuple(x.shape)}: bit-exact at tiles "
+              f"{', '.join(map(str, PREC_EDGE_TILES))}", flush=True)
 
 
 def _tool_lines(tool, argv) -> list:

@@ -368,6 +368,8 @@ def test_xornet_builds_one_library_per_bitmatrix(dev):
     (3, 2, 4099, True),      # K-steps half padded, one m-tile
     (5, 3, 1000, True),      # half of the last m-tile
     (8, 4, 1, True),         # one lane
+    (16, 8, 4099, True),     # the widest code: both 32-row halves
+    (1, 5, 1003, False),     # one K-step, m past one half
 ])
 def test_precision_kernels_match_prec_plain(dev, prec, tile, k, m, n4,
                                             aligned):
@@ -395,9 +397,9 @@ def test_precision_f32_kernel_at_its_widest_code(dev):
 
 
 def test_sweep_wrappers_refuse_what_their_kernels_do_not_take(dev):
-    d9 = torch.zeros((9, 64), dtype=torch.int32, device=dev)
+    d17 = torch.zeros((17, 64), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="the kernel takes"):
-        sweep_gf.prec_product(torch.zeros((32, 72), device=dev), d9, 9, 4,
+        sweep_gf.prec_product(torch.zeros((32, 136), device=dev), d17, 17, 4,
                               "HIGH")
     d = torch.zeros((8, 64), dtype=torch.int32, device=dev)
     bp = torch.zeros((32, 64), device=dev)

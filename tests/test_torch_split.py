@@ -201,7 +201,11 @@ def test_split_source_holds_the_shape_and_no_bitmatrix():
     shipped = (cuda_gf.CSRC / split_probe.HEADER).read_text()
     builds = split_probe.split_builds()
     assert set(builds) == {"ffma alone", "no products", "256 threads",
-                           "constant bank"}
+                           "constant bank", "pure ffma",
+                           "register coefficients", "one-shift fields",
+                           "lo, then hi"}
+    assert "col[q]" not in builds["pure ffma"]
+    assert "__ldg" not in builds["pure ffma"]
     for name, header in builds.items():
         assert header != shipped, name
     assert "__grid_constant__ SplitParam bp" in builds["constant bank"]
