@@ -48,6 +48,8 @@
 //   takes tiles blockIdx.x, + gridDim.x, ... (as many blocks as fit), and
 //   its warpgroups walk a tile's 64-lane sub-tiles in turn; the last
 //   sub-tile of a tile may be ragged (the tile is any multiple of 32).
+// The descriptor, the fences, the ring and the walk are wgmma_walk.cuh's,
+// which dot_wgmma.cuh's product kernel shares.
 
 #pragma once
 
@@ -55,10 +57,9 @@
 #include <stdint.h>
 
 #include "split_f32.cuh"
+#include "wgmma_walk.cuh"
 
 namespace {
-
-constexpr int kSubLanes = 64;  // wgmma's M: lanes a warpgroup takes a step
 
 // warpgroups a block: 4 (128 registers a thread) while the accumulators
 // of one 32-row half leave room, 2 with both halves.  More warpgroups an
@@ -92,27 +93,6 @@ struct PrecTf32x3 {  // HIGH: big, then small = v - big (0 or 1, exact)
   }
 };
 
-// wgmma's shared-memory descriptor of a no-swizzle K-major operand: start
-// address, LBO = 128 bytes (the two 16-byte K halves of a K-step), SBO =
-// 256 bytes (8-row groups), all in 16-byte units; layout type 0
-__device__ __forceinline__ uint64_t b_desc(const float* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         static_cast<uint64_t>(128 >> 4) << 16 |
-         static_cast<uint64_t>(256 >> 4) << 32;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // d (+)= A . B over 64 lanes x 32 bit-rows x 8 planes; scale_d 0 starts d
 __device__ __forceinline__ void wgmma_tf32(float (&d)[16],
                                            const uint32_t (&a)[4],
@@ -127,20 +107,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[16],
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-// an accumulator read after wait_group: not before it
-__device__ __forceinline__ void fence_acc(float& acc) {
-  asm volatile("" : "+f"(acc)::"memory");
-}
-
-// registers of A fragments kept live up to this point
-template <int P>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[P][4]) {
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[p][r])::"memory");
 }
 
 // Bp [8m, 8k] (column s*k + j) -> B [K-step j][8-row group][K half][row
@@ -232,74 +198,6 @@ __device__ __forceinline__ void store_prec(const float (&accL)[NB][16],
     }
 }
 
-// sub-tiles a group keeps in flight: its ring of shared-memory slots
-constexpr int kRing = 4;
-
-// one cp.async of VEC lanes (16 or 4 bytes); bytes < 4 VEC zero-fill the
-// rest
-template <int VEC>
-__device__ __forceinline__ void ring_copy(uint32_t* dst, const uint32_t* src,
-                                          int bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if constexpr (VEC == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(bytes)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(src), "r"(bytes)
-                 : "memory");
-}
-
-// A group's walk: sub-tile sub (64 lanes) of tile tile; each block takes
-// tiles blockIdx.x, + gridDim.x, ..., its groups the sub-tiles of a tile in
-// turn
-struct Walk {
-  long long tile;
-  int sub;
-  long long ntiles, n4;
-  int T, groups;
-  __device__ long long stop() const {
-    const long long end = (tile + 1) * T;
-    return end < n4 ? end : n4;
-  }
-  __device__ long long lane0() const { return tile * T + kSubLanes * sub; }
-  __device__ bool done() const { return tile >= ntiles; }
-  // past sub-tiles that start beyond their tile
-  __device__ void settle(int group) {
-    while (!done() && lane0() >= stop()) {
-      tile += gridDim.x;
-      sub = group;
-    }
-  }
-  __device__ void next(int group) {
-    sub += groups;
-    settle(group);
-  }
-};
-
-// the k rows of a sub-tile into a ring slot [k][64] (zero past the tile or
-// n4; nothing once the walk is done), one commit group either way
-template <int VEC>
-__device__ __forceinline__ void fetch(uint32_t* slot,
-                                      const uint32_t* __restrict__ x, int k,
-                                      const Walk& w, int tid) {
-  constexpr int kPerRow = kSubLanes / VEC;
-  const int chunks = w.done() ? 0 : k * kPerRow;
-  const long long lane0 = w.lane0(), stop = w.stop();
-  for (int c = tid; c < chunks; c += 128) {
-    const int j = c / kPerRow, q = c % kPerRow;
-    const long long lane = lane0 + VEC * q;
-    const long long left = stop - lane;
-    const int bytes = left >= VEC ? 4 * VEC
-                      : left > 0  ? 4 * static_cast<int>(left)
-                                  : 0;
-    ring_copy<VEC>(slot + j * kSubLanes + VEC * q,
-                   bytes ? x + j * w.n4 + lane : x, bytes);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // NB: 32-row halves of the output bit-rows (m <= 4 NB); VEC: lanes a copy
 // (4 where x is 16-byte aligned and n4 a multiple of 4, else 1).  Shared
 // memory: Bp^T (8k x 32 NB floats), then each group's ring of kRing slots
@@ -329,8 +227,7 @@ sweep_prec_tf32_kernel(const uint32_t* __restrict__ x,
   uint32_t* ring = reinterpret_cast<uint32_t*>(sb + 8 * k * N) +
                    group * kRing * slot_words;
 
-  Walk cur{blockIdx.x, group, (n4 + T - 1) / T, n4, T, groups};
-  cur.settle(group);
+  Walk cur(blockIdx.x, group, n4, T, groups);
   if (cur.done()) return;
   Walk ahead = cur;
   for (int s = 0; s < kRing - 1; ++s) {
@@ -403,7 +300,7 @@ sweep_prec_tf32_kernel(const uint32_t* __restrict__ x,
           accH[h][r] += acc[p][1][h][r];
         }
       }
-    const long long lane = cur.lane0() + 16 * warp + g, stop = cur.stop();
+    const long long lane = cur.lane0 + 16 * warp + g, stop = cur.stop;
     if (wide)
       store_prec<NB, true>(accL, accH, out, m, n4, lane, stop, t);
     else

@@ -8,13 +8,13 @@
 //   sweep_pipelined_w8  replaces tools/ec_kernel_sweep.py _pipelined_call
 //                       (:76, emit_pipeline over pallas_gf._matrix_kernel)
 //   sweep_int8_4dot     replaces experiments/kernel_r4.py _kernel_int8_4dot
-//                       (:76)
+//                       (:76) (its kernel is dot_wgmma.cuh's)
 //   sweep_bf16_4dot     replaces experiments/kernel_r4.py _kernel_bf16_4dot
-//                       (:52) with dtype bfloat16
+//                       (:52) with dtype bfloat16 (dot_wgmma.cuh's)
 //   sweep_f32_4dot      replaces experiments/kernel_r4.py _kernel_bf16_4dot
-//                       (:52) with dtype float32
+//                       (:52) with dtype float32 (dot_wgmma.cuh's)
 //   sweep_bf16_blockdiag  replaces experiments/kernel_r4.py
-//                       _kernel_bf16_blockdiag (:100)
+//                       _kernel_bf16_blockdiag (:100) (dot_wgmma.cuh's)
 //   sweep_prec_f32      replaces experiments/kernel_r4.py _kernel_prec (:315)
 //                       at precision HIGHEST (sweep_split_f32's kernel at
 //                       parts 1)
@@ -45,6 +45,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dot_wgmma.cuh"
 #include "gf_w8_tables.cuh"
 #include "prec_tf32.cuh"
 #include "split_f32.cuh"
@@ -537,478 +538,31 @@ int launch_pipelined(const uint32_t* x, const uint32_t* tables, uint32_t* out,
 }
 
 // ---------------------------------------------------------------------------
-// sweep_int8_4dot, sweep_bf16_4dot, sweep_f32_4dot: one tensor-core product
-// per byte position
+// sweep_int8_4dot, sweep_bf16_4dot, sweep_f32_4dot, sweep_bf16_blockdiag:
+// the single-bit-plane products on wgmma
 // ---------------------------------------------------------------------------
 //
 // For each byte position b < 4: planes[s*k + j] = (x[j] >> (8b + s)) & 1,
 // [8k, n4]; acc = Bp @ planes, with Bp the shift-major 0/1 bitmatrix
-// [8m, 8k]; bit l of byte b of output row i is acc[8i + l] & 1.  Every sum
-// is at most 8k, exact in int32 and in float32.  The three entry points
-// differ only in the operand type of the product:
+// [8m, 8k]; bit l of byte b of output row i is acc[8i + l] & 1.  The four
+// entry points differ in the operand type of the product and in its table:
 //
-//   sweep_int8_4dot  kernel_r4._kernel_int8_4dot (:76): int8 operands,
-//                    mma m16n8k32 .s8.s8.s32, int32 accumulators
-//   sweep_bf16_4dot  kernel_r4._kernel_bf16_4dot (:52) with bf16: mma
-//                    m16n8k16 .f32.bf16.bf16.f32 (1.0 is 0x3F80)
-//   sweep_f32_4dot   kernel_r4._kernel_bf16_4dot (:52) with float32: mma
-//                    m16n8k8 .f32.tf32.tf32.f32, the tensor-core path that
-//                    takes 32-bit float operands (1.0 is 0x3F800000; 0, 1
-//                    and sums <= 8k are exact in TF32 and float32)
+//   sweep_int8_4dot       kernel_r4._kernel_int8_4dot (:76): int8, int32
+//                         sums (wgmma .s32.s8.s8, k32)
+//   sweep_bf16_4dot       kernel_r4._kernel_bf16_4dot (:52) with bf16: float
+//                         sums (wgmma .f32.bf16.bf16, k16)
+//   sweep_f32_4dot        kernel_r4._kernel_bf16_4dot (:52) with float32:
+//                         TF32 operands, float sums (wgmma .f32.tf32.tf32,
+//                         k8; 0, 1 and sums <= 8k are exact in TF32)
+//   sweep_bf16_blockdiag  kernel_r4._kernel_bf16_blockdiag (:100): the
+//                         four byte positions as one dense bf16 product
+//                         with the block-diagonal Bblk [32m, 32k], zero
+//                         blocks included (the formulation the row prices)
 //
-// Bound on the card: the product's 2 * 4 * 8m * 8k * n4 operations at the
-// type's dense rate (1,979 TOP/s int8, 989 TFLOP/s bf16, 495 TFLOP/s
-// TF32) or the (k + m) * n4 * 4 bytes at 3.35 TB/s, whichever is longer:
-// bytes for int8, operations for bf16 and TF32 at k=8 m=4.  Besides the
-// products, what costs is the integer work around them -- making the
-// planes and packing the parity -- so the design keeps all of it in
-// registers, with no shared memory and no block barrier:
-//
-// - Products: mma.sync with A = Bp (16 bit-rows, i.e. two output rows, by
-//   one K-step of plane rows) and B = planes (one K-step by 8 lanes of one
-//   byte position).  In each of the three shapes a thread (g, t) =
-//   (lane / 4, lane % 4) holds in B register i, and in A registers 2i and
-//   2i + 1 (bit-rows g and g + 8), E = P/2 K-indices of the step, one in
-//   each element (E = 4 int8, 2 bf16 or 1 TF32 element a register):
-//     m16n8k32 (P = 8): K 4t + e (i = 0) and 4t + 16 + e (i = 1), e < 4
-//     m16n8k16 (P = 4): K 2t + e (i = 0) and 2t + 8 + e (i = 1), e < 2
-//     m16n8k8  (P = 2): K t (i = 0) and t + 4 (i = 1)
-//   The K-steps are ordered so that these are bit planes of one input row:
-//   K-step ks = H*jq + h (H = 8/P steps cover the 8 planes of 4 rows)
-//   gives element e of register i the plane (s, j) = (P*h + E*i + e,
-//   t + 4jq).  So a thread builds its B fragment from one 32-bit lane of
-//   x[j]: a shift and a mask select E bits, which are spread to the E
-//   elements and multiplied by the type's 1.0.  Bp's fragments are loaded
-//   once, in the same order, and stay in registers: 4 ceil(m/2) ceil(k/4)
-//   8/P of them, at most 64 (the limits below).
-// - Parity: the accumulator layout is the same in the three shapes
-//   (registers 2h + p: row g + 8h, column 2t + p).  A ballot of the parity
-//   of each accumulator register -- bit 0 of an int32, of the float's
-//   mantissa after adding 2^23 -- gives, for 8 bit-rows by 4 columns, the
-//   parity bits of the whole warp; each thread gathers the 8 bits of one
-//   output byte of its own (row, lane) from it.
-//
-// A warp takes 32 lanes (four groups of 8) at a time and walks its lanes;
-// the grid is as many blocks as fit on the card.  Templates on ceil(k/4)
-// and the 16-row tiles of Bp (ceil(m/2)) keep every fragment index
-// constant.  At k=8 m=4 a byte position of an 8-lane group takes 4 mma
-// (int8), 8 (bf16) or 16 (TF32).  wgmma is a later step.
-
-constexpr int kDotThreads = 128;
-constexpr int kDotGroups = 4;                  // 8-lane groups a warp takes
-constexpr int kDotWarpLanes = 8 * kDotGroups;  // lanes a warp takes at once
-
-// bits 0..3 of nib to bit 0 of bytes 0..3 (the partial products of the
-// multiply land on distinct bits, so nothing carries)
-__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
-  return (nib * 0x00204081u) & 0x01010101u;
-}
-
-// bits t, t + 4, ..., t + 28 of mask to bits 0..7
-__device__ __forceinline__ uint32_t gather8(uint32_t mask, int t) {
-  uint32_t v = (mask >> t) & 0x11111111u;
-  v = (v | (v >> 3)) & 0x03030303u;
-  v = (v | (v >> 6)) & 0x000F000Fu;
-  return (v | (v >> 12)) & 0xFFu;
-}
-
-// parity of a float accumulator holding an integer below 2^23: adding 2^23
-// puts the integer's bit 0 in the mantissa's bit 0, exactly
-__device__ __forceinline__ uint32_t float_parity(float acc) {
-  return __float_as_uint(acc + 8388608.0f) & 1u;
-}
-
-// Operand types.  P: bit planes of one input row in a K-step; Bits: a
-// table element, copied as raw bits into the A fragments; kMaxJQ, kMaxMS:
-// the widest ceil(k/4) and ceil(m/2) whose A fragments stay in registers.
-struct Int8Op {
-  static constexpr int P = 8, kMaxJQ = 4, kMaxMS = 4;  // k <= 16, m <= 8
-  using Bits = uint8_t;
-  using Acc = int;
-  __device__ static uint32_t frag(uint32_t bits) { return spread4(bits); }
-  __device__ static uint32_t parity(int acc) { return acc & 1; }
-  __device__ static void mma(int (&d)[4], const uint32_t (&a)[4],
-                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-struct Bf16Op {
-  static constexpr int P = 4, kMaxJQ = 4, kMaxMS = 2;  // k <= 16, m <= 4
-  using Bits = uint16_t;
-  using Acc = float;
-  // bits 0 and 1 to bf16 0.0 or 1.0 in the low and high half
-  __device__ static uint32_t frag(uint32_t bits) {
-    return ((bits & 1u) | ((bits & 2u) << 15)) * 0x3F80u;
-  }
-  __device__ static uint32_t parity(float acc) { return float_parity(acc); }
-  __device__ static void mma(float (&d)[4], const uint32_t (&a)[4],
-                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-struct Tf32Op {
-  static constexpr int P = 2, kMaxJQ = 2, kMaxMS = 2;  // k <= 8, m <= 4
-  using Bits = uint32_t;
-  using Acc = float;
-  __device__ static uint32_t frag(uint32_t bits) { return bits * 0x3F800000u; }
-  __device__ static uint32_t parity(float acc) { return float_parity(acc); }
-  __device__ static void mma(float (&d)[4], const uint32_t (&a)[4],
-                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-// Bp's A fragments, loaded once and kept in registers for a whole walk:
-// register r of tile (mt, ks = H*jq + h) holds Bp row 16mt + g + 8(r & 1),
-// plane rows (s, j) = (P*h + E*(r >> 1) + e, t + 4jq) in element e; zero
-// past the 8m rows or the k inputs
-template <class Op, int JQ, int MS>
-__device__ __forceinline__ void load_a_frags(
-    const typename Op::Bits* __restrict__ bp, int k, int m,
-    uint32_t (&a)[MS][JQ * (8 / Op::P)][4]) {
-  constexpr int P = Op::P, H = 8 / P, KS = JQ * H;
-  constexpr int E = P / 2, EB = 32 / E;  // elements a register, their bits
-  const int lane_id = threadIdx.x % 32;
-  const int g = lane_id / 4, t = lane_id % 4;
-  const int rows = 8 * m, depth = 8 * k;
-#pragma unroll
-  for (int mt = 0; mt < MS; ++mt)
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = 16 * mt + g + 8 * (r & 1), j = t + 4 * (ks / H);
-        uint32_t word = 0u;
-        if (row < rows && j < k) {
-#pragma unroll
-          for (int e = 0; e < E; ++e) {
-            const int s = P * (ks % H) + E * (r >> 1) + e;
-            word |= static_cast<uint32_t>(bp[row * depth + s * k + j])
-                    << (EB * e);
-          }
-        }
-        a[mt][ks][r] = word;
-      }
-}
-
-// x[t + 4jq] of lanes lane0 + 8c + g, c < kDotGroups: column g of each
-// 8-lane group's B fragments (0 past n4 or k)
-template <int JQ>
-__device__ __forceinline__ void load_b_lanes(
-    const uint32_t* __restrict__ x, int k, long long n4, long long lane0,
-    uint32_t (&v)[kDotGroups][JQ]) {
-  const int lane_id = threadIdx.x % 32;
-  const int g = lane_id / 4, t = lane_id % 4;
-#pragma unroll
-  for (int c = 0; c < kDotGroups; ++c)
-#pragma unroll
-    for (int jq = 0; jq < JQ; ++jq) {
-      const long long lane = lane0 + 8 * c + g;
-      const int j = t + 4 * jq;
-      v[c][jq] = lane < n4 && j < k
-                     ? __ldg(x + static_cast<long long>(j) * n4 + lane)
-                     : 0u;
-    }
-}
-
-template <class Op, int JQ, int MS>
-__global__ void __launch_bounds__(kDotThreads)
-sweep_4dot_kernel(const uint32_t* __restrict__ x,
-                  const typename Op::Bits* __restrict__ bp,
-                  uint32_t* __restrict__ out, int k, int m, long long n4) {
-  constexpr int P = Op::P, H = 8 / P, KS = JQ * H;
-  constexpr int E = P / 2;  // elements a register
-  // output rows a thread packs: (lane / 8) + 4q for q < Q
-  constexpr int Q = (MS + 1) / 2;
-  const int lane_id = threadIdx.x % 32;
-
-  uint32_t a[MS][KS][4];
-  load_a_frags<Op, JQ, MS>(bp, k, m, a);
-
-  const int my_n = lane_id % 8;  // lane within an 8-lane group
-  const int my_t = my_n / 2, my_p = my_n % 2;
-  const long long warps =
-      static_cast<long long>(gridDim.x) * (blockDim.x / 32);
-  const long long spans = (n4 + kDotWarpLanes - 1) / kDotWarpLanes;
-  for (long long span = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-       span < spans; span += warps) {
-    const long long lane0 = span * kDotWarpLanes;
-    uint32_t v[kDotGroups][JQ];
-    load_b_lanes<JQ>(x, k, n4, lane0, v);
-#pragma unroll
-    for (int c = 0; c < kDotGroups; ++c) {
-      uint32_t word[Q];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) word[q] = 0u;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        uint32_t bf[KS][2];
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const uint32_t bits = v[c][ks / H] >> (8 * b + P * (ks % H));
-          bf[ks][0] = Op::frag(bits & ((1u << E) - 1u));
-          bf[ks][1] = Op::frag((bits >> E) & ((1u << E) - 1u));
-        }
-        uint32_t mine[Q];
-#pragma unroll
-        for (int q = 0; q < Q; ++q) mine[q] = 0u;
-#pragma unroll
-        for (int mt = 0; mt < MS; ++mt) {
-          typename Op::Acc acc[4] = {};
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks)
-            Op::mma(acc, a[mt][ks], bf[ks][0], bf[ks][1]);
-          // bit 4g' + t' of bal[2h + p]: parity of bit-row 16mt + 8h + g'
-          // (bit g' of output row 2mt + h), column 2t' + p
-          uint32_t bal[4];
-#pragma unroll
-          for (int ci = 0; ci < 4; ++ci)
-            bal[ci] = __ballot_sync(0xffffffffu, Op::parity(acc[ci]));
-#pragma unroll
-          for (int q = 0; q < Q; ++q) {
-            const int i = lane_id / 8 + 4 * q;
-            if (i / 2 == mt) {
-              const uint32_t lo = my_p ? bal[1] : bal[0];
-              const uint32_t hi = my_p ? bal[3] : bal[2];
-              mine[q] = (i % 2) ? hi : lo;
-            }
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < Q; ++q) word[q] |= gather8(mine[q], my_t) << (8 * b);
-      }
-      const long long lane = lane0 + 8 * c + my_n;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int i = lane_id / 8 + 4 * q;
-        if (i < m && lane < n4)
-          out[static_cast<long long>(i) * n4 + lane] = word[q];
-      }
-    }
-  }
-}
-
-// blocks for a kernel whose warps each take kDotWarpLanes lanes at a time
-template <typename Kernel>
-int dot_blocks(Kernel kernel, size_t smem, long long n4, int* blocks) {
-  const long long spans = (n4 + kDotWarpLanes - 1) / kDotWarpLanes;
-  const long long items = (spans + kDotThreads / 32 - 1) / (kDotThreads / 32);
-  return resident_blocks(kernel, kDotThreads, smem, items, blocks);
-}
-
-template <class Op, int JQ, int MS>
-int launch_4dot(const void* x, const void* bp, void* out, int k, int m,
-                long long n4, cudaStream_t s) {
-  int blocks = 0;
-  const int rc = dot_blocks(sweep_4dot_kernel<Op, JQ, MS>, 0, n4, &blocks);
-  if (rc != 0) return rc;
-  sweep_4dot_kernel<Op, JQ, MS><<<blocks, kDotThreads, 0, s>>>(
-      static_cast<const uint32_t*>(x),
-      static_cast<const typename Op::Bits*>(bp), static_cast<uint32_t*>(out),
-      k, m, n4);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the instance for ceil(m/2) = ms, counted up from MS
-template <class Op, int JQ, int MS = 1>
-int dispatch_ms(int ms, const void* x, const void* bp, void* out, int k,
-                int m, long long n4, cudaStream_t s) {
-  if (ms == MS) return launch_4dot<Op, JQ, MS>(x, bp, out, k, m, n4, s);
-  if constexpr (MS < Op::kMaxMS)
-    return dispatch_ms<Op, JQ, MS + 1>(ms, x, bp, out, k, m, n4, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the instance for ceil(k/4) and ceil(m/2), or an error beyond Op's limits
-template <class Op, int JQ = 1>
-int dispatch_4dot(const void* x, const void* bp, void* out, int k, int m,
-                  long long n4, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((k + 3) / 4 == JQ && m >= 1)
-    return dispatch_ms<Op, JQ>((m + 1) / 2, x, bp, out, k, m, n4, s);
-  if constexpr (JQ < Op::kMaxJQ)
-    return dispatch_4dot<Op, JQ + 1>(x, bp, out, k, m, n4, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ---------------------------------------------------------------------------
-// sweep_bf16_blockdiag: one dense bf16 product over all four byte positions
-// ---------------------------------------------------------------------------
-//
-// Replaces kernel_r4._kernel_bf16_blockdiag (:100).  planes[b*8k + s*k + j]
-// = (x[j] >> (8b + s)) & 1, all 32k plane rows at once; acc = Bblk @
-// planes, with Bblk [32m, 32k] block-diagonal: block b (rows b*8m.., columns
-// b*8k..) is the shift-major Bp, the rest zero; bit l of byte b of output
-// row i is acc[b*8m + 8i + l] & 1.
-//
-// The product is dense, zero blocks included: that one [32m, 32k] product
-// is the formulation this row prices (on the TPU it fills the 128-row
-// matrix unit).  Skipping the zero blocks would make it sweep_bf16_4dot
-// again.  So it does 4x the operations the function needs: at k=8 m=4, 8
-// m-tiles by 16 K-steps = 128 mma m16n8k16 per 8-lane group, against 32
-// for sweep_bf16_4dot.  Bound on the card: the function's operations,
-// 2 * 4 * 8m * 8k * n4 at 989 TFLOP/s (bf16), over its bytes at k=8 m=4;
-// the dense product's own operations take 4x that.
-//
-// Design: sweep_bf16_4dot's B fragments, ballots and walk, with Bblk in
-// shared memory instead of registers (64 KiB at k=8 m=4, 128 x 256 bf16,
-// far more than a thread's registers).  Each block stages the table once,
-// with its columns permuted into the kernel's K order: K-step ks = 8jq +
-// 2b + h holds planes (b, s = 4h + 2i + e, j = t + 4jq) at the m16n8k16
-// B positions of thread t (i, e as in sweep_bf16_4dot), zero where j >= k.
-// Rows are padded by 16 bytes, so the 8 rows an ldmatrix reads fall in
-// distinct banks.  One barrier, then each warp walks its 32-lane spans: for
-// each group of 4 input rows it loads one lane a row per group, and for
-// each of the 8 K-steps of those rows builds the 4 groups' B fragments
-// and runs every m-tile on them, A fragments from one ldmatrix.x4 each,
-// shared by the 4 groups.  All 2m m-tiles' accumulators of the 4 groups
-// stay in registers (32m floats a thread: m <= 4), and the parity is
-// packed by ballots as in sweep_bf16_4dot.  Shared memory: 32m rows of
-// 128 ceil(k/4) + 8 bf16, opted in above 48 KiB; the wrapper refuses a
-// table over the card's 227 KiB.  wgmma (64-row tiles, A from shared
-// memory) fits this shape and is a later step.
-
-// the staged table's row pitch in bf16 elements: 16 K-steps of 16 per
-// group of 4 input rows, and 8 elements (16 bytes) of padding
-__host__ __device__ constexpr int blockdiag_pitch(int k) {
-  return 128 * ((k + 3) / 4) + 8;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4],
-                                            const uint16_t* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr));
-}
-
-template <int M>
-__global__ void __launch_bounds__(kDotThreads)
-sweep_blockdiag_kernel(const uint32_t* __restrict__ x,
-                       const uint16_t* __restrict__ bblk,
-                       uint32_t* __restrict__ out, int k, long long n4) {
-  constexpr int MT = 2 * M;  // 16-row m-tiles of the 32M table rows
-  extern __shared__ __align__(16) uint16_t blk_smem[];
-  const int pitch = blockdiag_pitch(k);
-  const int kcols = pitch - 8, depth = 32 * k;
-  // staged column 16ks + kappa holds the plane at K-index kappa of step
-  // ks: thread t = (kappa % 8) / 2, register i = kappa / 8, element
-  // e = kappa % 2
-  for (int idx = threadIdx.x; idx < 32 * M * kcols; idx += blockDim.x) {
-    const int row = idx / kcols, col = idx % kcols;
-    const int ks = col / 16, kappa = col % 16;
-    const int jq = ks / 8, b = (ks % 8) / 2, h = ks % 2;
-    const int s = 4 * h + 2 * (kappa / 8) + kappa % 2;
-    const int j = (kappa % 8) / 2 + 4 * jq;
-    blk_smem[row * pitch + col] =
-        j < k ? bblk[row * depth + b * 8 * k + s * k + j] : uint16_t{0};
-  }
-  __syncthreads();
-
-  const int lane_id = threadIdx.x % 32;
-  const int g = lane_id / 4, t = lane_id % 4;
-  const int my_n = lane_id % 8, my_t = my_n / 2, my_p = my_n % 2;
-  // the row of the 8x8 matrix this thread addresses for ldmatrix.x4:
-  // matrices 0..3 are (rows +0, cols +0), (+8, +0), (+0, +8), (+8, +8)
-  const uint16_t* a_base = blk_smem +
-                           (lane_id % 8 + 8 * ((lane_id / 8) % 2)) * pitch +
-                           8 * (lane_id / 16);
-  const long long warps =
-      static_cast<long long>(gridDim.x) * (blockDim.x / 32);
-  const long long spans = (n4 + kDotWarpLanes - 1) / kDotWarpLanes;
-  for (long long span = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-       span < spans; span += warps) {
-    const long long lane0 = span * kDotWarpLanes;
-    float acc[MT][kDotGroups][4] = {};
-    for (int jq = 0; jq < (k + 3) / 4; ++jq) {
-      const int j = t + 4 * jq;
-      uint32_t v[kDotGroups];
-#pragma unroll
-      for (int c = 0; c < kDotGroups; ++c) {
-        const long long lane = lane0 + 8 * c + g;
-        v[c] = lane < n4 && j < k
-                   ? __ldg(x + static_cast<long long>(j) * n4 + lane)
-                   : 0u;
-      }
-#pragma unroll
-      for (int bh = 0; bh < 8; ++bh) {  // byte position bh / 2, half bh % 2
-        uint32_t bf[kDotGroups][2];
-#pragma unroll
-        for (int c = 0; c < kDotGroups; ++c) {
-          const uint32_t bits = v[c] >> (4 * bh);
-          bf[c][0] = Bf16Op::frag(bits & 3u);
-          bf[c][1] = Bf16Op::frag((bits >> 2) & 3u);
-        }
-        const uint16_t* a_col = a_base + 16 * (8 * jq + bh);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t a[4];
-          ldmatrix_x4(a, a_col + 16 * mt * pitch);
-#pragma unroll
-          for (int c = 0; c < kDotGroups; ++c)
-            Bf16Op::mma(acc[mt][c], a, bf[c][0], bf[c][1]);
-        }
-      }
-    }
-    // bit-rows 16mt + 8h + g' form octet o = 2mt + h: byte o / M of
-    // output row o % M.  A thread packs output row lane / 8 (< 4).
-    const int i = lane_id / 8;
-#pragma unroll
-    for (int c = 0; c < kDotGroups; ++c) {
-      uint32_t word = 0u;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t bal[4];
-#pragma unroll
-        for (int ci = 0; ci < 4; ++ci)
-          bal[ci] = __ballot_sync(0xffffffffu, float_parity(acc[mt][c][ci]));
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int o = 2 * mt + h;
-          if (o % M == i)
-            word |= gather8(my_p ? bal[2 * h + 1] : bal[2 * h], my_t)
-                    << (8 * (o / M));
-        }
-      }
-      const long long lane = lane0 + 8 * c + my_n;
-      if (i < M && lane < n4) out[static_cast<long long>(i) * n4 + lane] = word;
-    }
-  }
-}
-
-size_t blockdiag_smem(int k, int m) {
-  return static_cast<size_t>(32 * m) * blockdiag_pitch(k) * sizeof(uint16_t);
-}
-
-template <int M>
-int launch_blockdiag(const void* x, const void* bblk, void* out, int k,
-                     long long n4, cudaStream_t s) {
-  const size_t smem = blockdiag_smem(k, M);
-  int rc = allow_smem(sweep_blockdiag_kernel<M>, smem);
-  if (rc != 0) return rc;
-  int blocks = 0;
-  rc = dot_blocks(sweep_blockdiag_kernel<M>, smem, n4, &blocks);
-  if (rc != 0) return rc;
-  sweep_blockdiag_kernel<M><<<blocks, kDotThreads, smem, s>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint16_t*>(bblk),
-      static_cast<uint32_t*>(out), k, n4);
-  return static_cast<int>(cudaGetLastError());
-}
+// One kernel template serves all four: dot_wgmma.cuh's (the note there
+// gives its design and bounds).  The 4-dot takes k <= 16 and m <= 8; the
+// block-diagonal product m <= 4 and any k whose table and one warpgroup's
+// ring fit in the card's shared memory.
 
 // ---------------------------------------------------------------------------
 // sweep_prec_f32, sweep_prec_tf32x3, sweep_prec_tf32: the production
@@ -1170,40 +724,33 @@ int sweep_pipelined_w8(const void* x, const void* tables, void* out, int k,
 }
 
 // x [k, n4] lanes; bp [8m, 8k] 0/1, shift-major (column s*k + j is bit s
-// of chunk j), of the product's operand type; out [m, n4]
+// of chunk j), of the product's operand type; out [m, n4]; k <= 16, m <= 8
 
-// int8 bp; k <= 16, m <= 8
+// int8 bp
 int sweep_int8_4dot(const void* x, const void* bp, void* out, int k, int m,
                     long long n4, void* stream) {
-  return dispatch_4dot<Int8Op>(x, bp, out, k, m, n4, stream);
+  return run_4dot<Int8Dot>(x, bp, out, k, m, n4, stream);
 }
 
-// bf16 bp; k <= 16, m <= 4
+// bf16 bp
 int sweep_bf16_4dot(const void* x, const void* bp, void* out, int k, int m,
                     long long n4, void* stream) {
-  return dispatch_4dot<Bf16Op>(x, bp, out, k, m, n4, stream);
+  return run_4dot<Bf16Dot>(x, bp, out, k, m, n4, stream);
 }
 
-// float32 bp (used as TF32); k <= 8, m <= 4
+// float32 bp (used as TF32)
 int sweep_f32_4dot(const void* x, const void* bp, void* out, int k, int m,
                    long long n4, void* stream) {
-  return dispatch_4dot<Tf32Op>(x, bp, out, k, m, n4, stream);
+  return run_4dot<Tf32Dot>(x, bp, out, k, m, n4, stream);
 }
 
 // x [k, n4] lanes; bblk [32m, 32k] bf16, block-diagonal (block b is the
-// shift-major bp); out [m, n4]; m <= 4, and 32m * (128 ceil(k/4) + 8) * 2
-// bytes of staged table within the card's shared memory
+// shift-major bp); out [m, n4]; m <= 4, and the staged table (32 bytes for
+// each of 4 ceil(k/2) K-steps of 32m rows) and one warpgroup's ring (4
+// sub-tiles of [k][64] words) within the card's shared memory
 int sweep_bf16_blockdiag(const void* x, const void* bblk, void* out, int k,
                          int m, long long n4, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (m) {
-    case 1: return launch_blockdiag<1>(x, bblk, out, k, n4, s);
-    case 2: return launch_blockdiag<2>(x, bblk, out, k, n4, s);
-    case 3: return launch_blockdiag<3>(x, bblk, out, k, n4, s);
-    case 4: return launch_blockdiag<4>(x, bblk, out, k, n4, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run_blockdiag(x, bblk, out, k, m, n4, stream);
 }
 
 // x [k, n4] lanes; bp [8m, 8k] float32 0/1, shift-major; out [m, n4]; T

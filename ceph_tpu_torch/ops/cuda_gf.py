@@ -111,14 +111,21 @@ def _nvcc() -> str:
 
 
 def _local_headers(text: str) -> list:
-    """The headers of ``csrc/`` that a source includes by name."""
-    names = re.findall(r'^#include "([^"]+)"', text, re.M)
-    return sorted(n for n in names if (CSRC / n).exists())
+    """The headers of ``csrc/`` that a source includes by name, and those
+    that they include in turn."""
+    found, todo = set(), [text]
+    while todo:
+        for name in re.findall(r'^#include "([^"]+)"', todo.pop(), re.M):
+            if name not in found and (CSRC / name).exists():
+                found.add(name)
+                todo.append((CSRC / name).read_text())
+    return sorted(found)
 
 
 def source_digest(source: str, generated: Generated = None) -> str:
     """sha256 over ``csrc/<source>``, the headers of ``csrc/`` it includes
-    (``gf_w8_tables.cuh``), the generated header (name and text) if there
+    (``gf_w8_tables.cuh``; ``wgmma_walk.cuh`` through the headers that
+    include it), the generated header (name and text) if there
     is one, and ``NVCC_FLAGS``: what a build depends on."""
     text = (CSRC / source).read_bytes()
     h = hashlib.sha256(text)

@@ -30,8 +30,11 @@ planes_product      kernel_r4_probe._mxu_kernel (:54)               sweep_planes
 a network generated per bitmatrix (:func:`xornet_source`); the others in
 ``csrc/sweep_kernels.cu``, whose entry points ``sweep_split_f32`` and
 ``sweep_prec_f32`` (one FFMA kernel, at parts 2/4/8 and 1) run the header
-``csrc/split_f32.cuh`` and ``sweep_prec_tf32x3`` and ``sweep_prec_tf32``
-(one wgmma kernel, two passes or one) the header ``csrc/prec_tf32.cuh``
+``csrc/split_f32.cuh``, ``sweep_prec_tf32x3`` and ``sweep_prec_tf32``
+(one wgmma kernel, two passes or one) the header ``csrc/prec_tf32.cuh``,
+and ``sweep_int8_4dot``, ``sweep_bf16_4dot``, ``sweep_f32_4dot`` and
+``sweep_bf16_blockdiag`` (one wgmma kernel template, three operand types
+and two tables) the header ``csrc/dot_wgmma.cuh``
 (:data:`KERNEL_SOURCES`).
 
 Operands are int32 lanes of four little-endian bytes, ``[rows, n4]``, as in
@@ -106,7 +109,10 @@ KERNEL_SOURCES = {"sweep_xornet": XORNET_SOURCE,
                   "sweep_split_f32": "split_f32.cuh",
                   "sweep_prec_f32": "split_f32.cuh",
                   "sweep_prec_tf32x3": "prec_tf32.cuh",
-                  "sweep_prec_tf32": "prec_tf32.cuh"}
+                  "sweep_prec_tf32": "prec_tf32.cuh",
+                  **dict.fromkeys(("sweep_int8_4dot", "sweep_bf16_4dot",
+                                   "sweep_f32_4dot", "sweep_bf16_blockdiag"),
+                                  "dot_wgmma.cuh")}
 #: JAX precision name -> the kernel that computes ``_kernel_prec`` at it
 PREC_KERNELS = {"HIGHEST": "sweep_prec_f32", "HIGH": "sweep_prec_tf32x3",
                 "DEFAULT": "sweep_prec_tf32"}
@@ -132,16 +138,21 @@ _BYTE_BIT0 = 0x01010101
 #: lanes per stage of ``pipelined_w8`` unless the caller picks another
 DEFAULT_TILE = 1024
 #: single-plane product kernel -> (its table's dtype, the widest k, the
-#: widest m): each kernel keeps Bp's fragments in registers, at most 64 of
-#: them a thread
+#: widest m): the wgmma kernel stages Bp in shared memory and keeps four
+#: accumulators of 32 or 64 bit-rows a thread (m <= 4 or 8)
 DOT_KERNELS = {
     "sweep_int8_4dot": (torch.int8, 16, 8),
-    "sweep_bf16_4dot": (torch.bfloat16, 16, 4),
-    "sweep_f32_4dot": (torch.float32, 8, 4),
+    "sweep_bf16_4dot": (torch.bfloat16, 16, 8),
+    "sweep_f32_4dot": (torch.float32, 16, 8),
 }
 #: the widest m ``bf16_blockdiag`` takes: a thread keeps the accumulators
-#: of all 2m row tiles of four 8-lane groups, 32m floats
+#: of 32m columns, 16m floats; its widest k follows from shared memory
+#: (:func:`blockdiag_smem_bytes`)
 BLOCKDIAG_MAX_M = 4
+#: sub-tiles of 64 lanes a warpgroup of the wgmma kernels keeps in flight,
+#: each [k][64] words of shared memory (``kRing`` of
+#: ``csrc/wgmma_walk.cuh``)
+WGMMA_RING = 4
 
 
 def reset_launches() -> None:
@@ -225,11 +236,14 @@ def xornet_source(bitmatrix: np.ndarray, k: int, m: int) -> str:
     return "\n".join([*lines, "}", ""])
 
 
-def blockdiag_smem_bytes(k: int, m: int) -> int:
-    """Shared memory of one ``sweep_bf16_blockdiag`` block: the table's 32m
-    rows, each 128 ceil(k/4) bf16 (its columns in the kernel's K order)
-    and 16 bytes of padding."""
-    return 32 * m * (128 * -(-k // 4) + 8) * 2
+def blockdiag_smem_bytes(k: int, m: int, groups: int = 1) -> int:
+    """Shared memory of one ``sweep_bf16_blockdiag`` block of ``groups``
+    warpgroups: the table, 32m rows of 32 bytes (16 bf16) in each of its
+    4 ceil(k/2) K-steps (its columns in the kernel's K order), and each
+    warpgroup's ring of ``WGMMA_RING`` sub-tiles of [k][64] words.  The
+    kernel takes up to 4 warpgroups, as many as fit; the wrapper refuses a
+    k at which one does not."""
+    return 4 * -(-k // 2) * 32 * (32 * m) + groups * WGMMA_RING * k * 64 * 4
 
 
 # ---------------------------------------------------------------------------
@@ -557,7 +571,8 @@ def bf16_blockdiag(bblk: torch.Tensor, x: torch.Tensor, k: int,
                    m: int) -> torch.Tensor:
     """bblk [32m, 32k] bfloat16 (``prep_blockdiag_w8``) x lanes [k, n4] ->
     parity lanes [m, n4]: one dense bf16 product over the four byte
-    positions, its table staged in shared memory."""
+    positions, its table staged in shared memory (m <=
+    ``BLOCKDIAG_MAX_M``, and k within :func:`blockdiag_smem_bytes`)."""
     name = "sweep_bf16_blockdiag"
     device = _dot_operands(name, bblk, torch.bfloat16, (32 * m, 32 * k), x,
                            k, m)
@@ -567,7 +582,7 @@ def bf16_blockdiag(bblk: torch.Tensor, x: torch.Tensor, k: int,
     smem = blockdiag_smem_bytes(k, m)
     if smem > cuda_gf.SMEM_LIMIT:
         raise ValueError(f"{name}: k={k} m={m} stages {smem} bytes of "
-                         f"table, over {cuda_gf.SMEM_LIMIT}")
+                         f"table and ring, over {cuda_gf.SMEM_LIMIT}")
     return _dot_run(name, device, bblk, x, k, m, bf16_blockdiag_plain)
 
 

@@ -46,7 +46,12 @@ Phases (any failure raises and exits non-zero):
    and 100003, unaligned pointers and sums past 2^23, each at parts 2, 4
    and 8 and tiles 32 * parts, 8192 and 16384, and the three precision
    kernels at the same cases, each at tiles 4096, 16384 and 4128 (a
-   ragged last 64-lane sub-tile).  Then the port's kernel
+   ragged last 64-lane sub-tile), and the four wgmma product rows
+   (``sweep_int8_4dot``, ``sweep_bf16_4dot``, ``sweep_f32_4dot``,
+   ``sweep_bf16_blockdiag``) at the same cases where they take k and m,
+   with an all-ones table over all-ones words (k=8 m=4 and k=16 m=8) and
+   the block-diagonal row at its widest k (24 at m = 4, 75 at m = 1),
+   unaligned and ragged.  Then the port's kernel
    sweep (``ec_kernel_sweep.main``, all three stages) at 8 MiB chunks,
    which must exit 0 with every variant and probe row bit-exact, the
    HIGHEST and HIGH precision rows bit-exact and the DEFAULT rows
@@ -121,7 +126,9 @@ MASK_TABLE_MS = {"gf2_matrix_w8": 0.0970, "gf2_matrix_w16": 0.0998,
 #: card and limit), printed beside the time measured now
 EARLIER_MS = {"sweep_pipelined_w8": 0.0932, "sweep_copy": 0.0296,
               "sweep_split_f32": 0.6323, "sweep_prec_f32": 0.5431,
-              "sweep_prec_tf32x3": 0.2974, "sweep_prec_tf32": 0.1963}
+              "sweep_prec_tf32x3": 0.2974, "sweep_prec_tf32": 0.1963,
+              "sweep_int8_4dot": 0.1562, "sweep_bf16_4dot": 0.2380,
+              "sweep_f32_4dot": 0.2738, "sweep_bf16_blockdiag": 0.6130}
 #: turns of the interleaved copy and clone timings (each a mean of 20
 #: flushed launches and a CUDA graph of 48 back to back)
 COPY_TURNS = 7
@@ -619,13 +626,44 @@ def _split_edge_cases():
 PREC_EDGE_TILES = (*sweep_gf.PREC_TILES, 4128)
 
 
+def _dot_rows(B, k: int, m: int, dev) -> dict:
+    """name -> (wrapper, plain version, table on the card) of the wgmma
+    product rows that take k and m, for the bitmatrix ``B`` [8m, 8k]."""
+    bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(B, k)).to(dev)
+    rows = {name: (getattr(sweep_gf, name.removeprefix("sweep_")),
+                   getattr(sweep_gf, name.removeprefix("sweep_") + "_plain"),
+                   bp.to(dtype))
+            for name, (dtype, max_k, max_m) in sweep_gf.DOT_KERNELS.items()
+            if k <= max_k and m <= max_m}
+    if m <= sweep_gf.BLOCKDIAG_MAX_M and sweep_gf.blockdiag_smem_bytes(
+            k, m) <= cuda_gf.SMEM_LIMIT:
+        rows["sweep_bf16_blockdiag"] = (
+            sweep_gf.bf16_blockdiag, sweep_gf.bf16_blockdiag_plain,
+            torch.from_numpy(sweep_gf.prep_blockdiag_w8(B, k, m)).to(
+                dev, torch.bfloat16))
+    return rows
+
+
+def _check_dot_rows(label, x, B, k, m, dev) -> None:
+    rows = _dot_rows(B, k, m, dev)
+    for name, (wrapper, plain, table) in rows.items():
+        assert torch.equal(wrapper(table, x, k, m), plain(table, x, k, m)), \
+            f"{name} ({label}): kernel != plain version at lanes " \
+            f"{tuple(x.shape)}"
+    print(f"[sweep-edge] {', '.join(rows)} {label} lanes {tuple(x.shape)}: "
+          "bit-exact", flush=True)
+
+
 def phase_sweep_edges(dev, gen) -> None:
-    """``sweep_copy``, ``sweep_split_f32`` and the three precision kernels
-    against their plain versions at edge shapes: the copy at m = 1, a
-    ragged total, an unaligned pointer and a partial last block; the split
-    at :func:`_split_edge_cases`, each at parts 2, 4 and 8 and tiles 32 *
-    parts, 8192 and 16384; the precision kernels at the same cases, each
-    at ``PREC_EDGE_TILES``."""
+    """``sweep_copy``, ``sweep_split_f32``, the three precision kernels and
+    the four wgmma product rows against their plain versions at edge
+    shapes: the copy at m = 1, a ragged total, an unaligned pointer and a
+    partial last block; the split at :func:`_split_edge_cases`, each at
+    parts 2, 4 and 8 and tiles 32 * parts, 8192 and 16384; the precision
+    kernels at the same cases, each at ``PREC_EDGE_TILES``; the product
+    rows at the same cases where they take k and m (:func:`_dot_rows`), an
+    all-ones table over all-ones words at k=8 m=4 and k=16 m=8, and the
+    block-diagonal row at its widest k at m = 4 and m = 1."""
     for label, k, m, n4, aligned in (
             ("m=1", K, 1, 1003, True), ("ragged total", K, 3, 4097, True),
             ("unaligned", K, M, 4096, False),
@@ -666,6 +704,28 @@ def phase_sweep_edges(dev, gen) -> None:
         print(f"[sweep-edge] {', '.join(sweep_gf.PREC_KERNELS.values())} "
               f"{label} lanes {tuple(x.shape)}: bit-exact at tiles "
               f"{', '.join(map(str, PREC_EDGE_TILES))}", flush=True)
+        _check_dot_rows(label, x, B, k, m, dev)
+    # the largest sums (every table entry 1 over words of all ones), and
+    # the block-diagonal product at its widest k
+    for label, k, m, n4, aligned in (
+            ("all-ones table over all-ones words", K, M, 4099, True),
+            ("k=16 m=8, all-ones table over all-ones words", 16, 8, 1003,
+             False)):
+        x = _lanes(gen, dev, k, n4, aligned)
+        x[:, :n4 // 2] = -1
+        _check_dot_rows(label, x, np.ones((8 * m, 8 * k), np.uint8), k, m,
+                        dev)
+    # at m = 1 the widest k passes 31, where its sums may reach 256 and
+    # the epilogue takes each byte position's parity on its own
+    for m in (M, 1):
+        widest = max(k for k in range(1, 128)
+                     if sweep_gf.blockdiag_smem_bytes(k, m)
+                     <= cuda_gf.SMEM_LIMIT)
+        x = _lanes(gen, dev, widest, RAGGED_N4, False)
+        x[:, :4096] = -1
+        _check_dot_rows(f"k={widest} m={m} (the block-diagonal's widest k), "
+                        "unaligned", x, _bits(8 * m, 8 * widest), widest, m,
+                        dev)
 
 
 def _tool_lines(tool, argv) -> list:

@@ -239,14 +239,18 @@ def test_copy_kernel_matches_plain_version(dev, k, m, n4, aligned):
     assert torch.equal(got, d[:m])
 
 
-def _tensor_core_cases(k, m, dev):
-    """name -> (kernel wrapper, plain version, table on the card)."""
-    B = bitmatrix.matrix_to_bitmatrix(
-        reed_sol.vandermonde_coding_matrix(k, m, 8), 8)
+def _tensor_core_cases(k, m, dev, B=None):
+    """name -> (kernel wrapper, plain version, table on the card), for
+    reed_sol_van k, m unless a bitmatrix ``B`` is given."""
+    if B is None:
+        B = bitmatrix.matrix_to_bitmatrix(
+            reed_sol.vandermonde_coding_matrix(k, m, 8), 8)
     bp = torch.from_numpy(sweep_gf.prep_shift_major_w8(B, k)).to(dev)
     bblk = torch.from_numpy(sweep_gf.prep_blockdiag_w8(B, k, m)).to(
         dev, torch.bfloat16)
     return {
+        "sweep_int8_4dot": (sweep_gf.int8_4dot, sweep_gf.int8_4dot_plain,
+                            bp.to(torch.int8)),
         "sweep_bf16_4dot": (sweep_gf.bf16_4dot, sweep_gf.bf16_4dot_plain,
                             bp.to(torch.bfloat16)),
         "sweep_f32_4dot": (sweep_gf.f32_4dot, sweep_gf.f32_4dot_plain, bp),
@@ -255,27 +259,66 @@ def _tensor_core_cases(k, m, dev):
     }
 
 
-@pytest.mark.parametrize("kernel", ["sweep_bf16_4dot", "sweep_f32_4dot",
+#: the widest code each wgmma product kernel takes (the block-diagonal
+#: one's k is its widest at m = 4 in 227 KiB of shared memory)
+WIDEST = {"sweep_int8_4dot": (16, 8), "sweep_bf16_4dot": (16, 8),
+          "sweep_f32_4dot": (16, 8), "sweep_bf16_blockdiag": (24, 4)}
+
+
+@pytest.mark.parametrize("kernel", ["sweep_int8_4dot", "sweep_bf16_4dot",
+                                    "sweep_f32_4dot",
                                     "sweep_bf16_blockdiag"])
 @pytest.mark.parametrize("k,m,n4,aligned", [
     (8, 4, 4096, True),    # the sweep's code
-    (8, 4, 100003, True),  # ragged: no multiple of a warp's 32 lanes
+    (8, 4, 100003, True),  # ragged: no multiple of a 64-lane sub-tile
     (8, 4, 4096, False),   # a pointer off the 16-byte grid
-    (3, 2, 4099, False),   # K-steps half padded, one m-tile
-    (5, 3, 1000, True),    # k not a multiple of 4, half of the last m-tile
+    (3, 2, 4099, False),   # K-steps padded past k, N padded past 8m
+    (5, 3, 1000, True),    # k no multiple of 2 or 4, odd m
     (8, 4, 1, True),       # one lane
+    (16, 4, 2000, True),   # k = 16 at the m of every kernel
     (None, None, 777, True),  # the widest code the wrapper takes
 ])
 def test_tensor_core_kernels_match_plain_versions(dev, kernel, k, m, n4,
                                                    aligned):
     if k is None:
-        k, m = {"sweep_bf16_4dot": (16, 4), "sweep_f32_4dot": (8, 4),
-                "sweep_bf16_blockdiag": (28, 4)}[kernel]
+        k, m = WIDEST[kernel]
     rs = np.random.RandomState(k * 1000 + n4)
     d = _lanes(rs, k, n4, dev)
     if not aligned:
         d = _unaligned(d)
     wrapper, plain, table = _tensor_core_cases(k, m, dev)[kernel]
+    assert torch.equal(wrapper(table, d, k, m), plain(table, d, k, m))
+
+
+@pytest.mark.parametrize("k,m", [(32, 1), (40, 1), (75, 1), (33, 2),
+                                 (44, 2), (32, 3)])
+def test_blockdiag_kernel_past_k_31(dev, k, m):
+    # sums may reach 256: the epilogue takes each byte position's parity on
+    # its own; all-ones words over all-ones table rows in the first 300
+    # lanes (sums 8k), up to the widest k that fits at each m
+    rs = np.random.RandomState(k * 10 + m)
+    B = rs.randint(0, 2, (8 * m, 8 * k)).astype(np.uint8)
+    B[::3] = 1
+    d = _lanes(rs, k, 2053, dev)
+    d[:, :300] = -1
+    wrapper, plain, table = _tensor_core_cases(
+        k, m, dev, B)["sweep_bf16_blockdiag"]
+    assert torch.equal(wrapper(table, d, k, m), plain(table, d, k, m))
+
+
+@pytest.mark.parametrize("kernel", ["sweep_int8_4dot", "sweep_bf16_4dot",
+                                    "sweep_f32_4dot"])
+@pytest.mark.parametrize("k,m", [(16, 8), (1, 8), (9, 5), (7, 7), (2, 6),
+                                 (16, 1)])
+def test_4dot_kernels_take_k_16_and_m_8(dev, kernel, k, m):
+    # m > 4: the second accumulator half (N = 64); all-ones tables over
+    # all-ones words in the first 300 lanes: every sum 8k
+    rs = np.random.RandomState(k * 10 + m)
+    B = rs.randint(0, 2, (8 * m, 8 * k)).astype(np.uint8)
+    B[::5] = 1
+    d = _lanes(rs, k, 4099, dev)
+    d[:, :300] = -1
+    wrapper, plain, table = _tensor_core_cases(k, m, dev, B)[kernel]
     assert torch.equal(wrapper(table, d, k, m), plain(table, d, k, m))
 
 
@@ -307,7 +350,6 @@ def test_sweep_wrappers_count_launches_and_refuse_mixed_devices(dev):
     sweep_gf.copy_rows(d, 2)
     sweep_gf.extract_rows(d, 2)
     sweep_gf.pipelined_w8(w8_tables, d, 4, 2)
-    sweep_gf.int8_4dot(bp, d, 4, 2)
     for wrapper, _, table in _tensor_core_cases(4, 2, dev).values():
         wrapper(table, d, 4, 2)
     xornet(d)

@@ -229,26 +229,27 @@ def test_tensor_core_wrappers_check_their_operands():
         return (torch.zeros((rows, cols), dtype=dtype),
                 torch.zeros((k, 8), dtype=torch.int32))
 
-    # the register fragments: bf16 k <= 16 m <= 4, TF32 k <= 8 m <= 4; the
-    # block-diagonal accumulators m <= 4, its staged table <= 227 KiB
+    # the wgmma kernel: every 4-dot type k <= 16 m <= 8; the block-diagonal
+    # accumulators m <= 4, its staged table and one warpgroup's ring
+    # <= 227 KiB
     for wrapper, dtype, k, m in ((sweep_gf.bf16_4dot, torch.bfloat16, 17, 1),
-                                 (sweep_gf.bf16_4dot, torch.bfloat16, 4, 5),
-                                 (sweep_gf.f32_4dot, torch.float32, 9, 1),
-                                 (sweep_gf.f32_4dot, torch.float32, 4, 5)):
+                                 (sweep_gf.bf16_4dot, torch.bfloat16, 4, 9),
+                                 (sweep_gf.f32_4dot, torch.float32, 17, 1),
+                                 (sweep_gf.f32_4dot, torch.float32, 4, 9)):
         with pytest.raises(ValueError, match="the kernel takes"):
             wrapper(*zeros(8 * m, 8 * k, dtype, k), k, m)
     with pytest.raises(ValueError, match="the kernel takes"):
         sweep_gf.bf16_blockdiag(*zeros(160, 128, torch.bfloat16, 4), 4, 5)
     with pytest.raises(ValueError, match="bytes of table"):
-        sweep_gf.bf16_blockdiag(*zeros(128, 32 * 29, torch.bfloat16, 29), 29,
+        sweep_gf.bf16_blockdiag(*zeros(128, 32 * 25, torch.bfloat16, 25), 25,
                                 4)
     # the widest k of each, which the card tests run
-    assert sweep_gf.bf16_4dot(*zeros(32, 128, torch.bfloat16, 16), 16,
-                              4).shape == (4, 8)
-    assert sweep_gf.f32_4dot(*zeros(32, 64, torch.float32, 8), 8,
-                             4).shape == (4, 8)
-    assert sweep_gf.bf16_blockdiag(*zeros(128, 32 * 28, torch.bfloat16, 28),
-                                   28, 4).shape == (4, 8)
+    assert sweep_gf.bf16_4dot(*zeros(64, 128, torch.bfloat16, 16), 16,
+                              8).shape == (8, 8)
+    assert sweep_gf.f32_4dot(*zeros(64, 128, torch.float32, 16), 16,
+                             8).shape == (8, 8)
+    assert sweep_gf.bf16_blockdiag(*zeros(128, 32 * 24, torch.bfloat16, 24),
+                                   24, 4).shape == (4, 8)
 
 
 @pytest.mark.parametrize("k,m,n4", [(8, 4, 2048), (8, 1, 1003),
