@@ -187,7 +187,8 @@ def build_copy(directory: Path, name: str, text: str,
     """Compile ``text``, an edited copy of ``csrc/<name>``, with the port's
     flags into ``directory`` (``headers``: edited copies of headers it
     includes, written beside it, where they shadow ``csrc/``'s) and return
-    the library path.  The probe tools build their settings with it."""
+    the library path (nvcc's report beside it, ``<library>.log``).  The
+    probe tools build their settings with it."""
     directory.mkdir(parents=True, exist_ok=True)
     src = directory / name
     src.write_text(text)
@@ -199,6 +200,7 @@ def build_copy(directory: Path, name: str, text: str,
                           text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     return lib
 
 

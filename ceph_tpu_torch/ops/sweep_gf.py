@@ -99,8 +99,8 @@ XORNET_SOURCE = "xornet_kernel.cu"
 XORNET_HEADER = "xornet_net.h"
 _XORNET_SIGNATURES = {"sweep_xornet": (_P, _P, _L, _P)}
 #: the widest code whose network ``sweep_xornet`` builds: a thread keeps
-#: one lane of 4 lanes of each input row and the 8m accumulators in
-#: registers
+#: 8 lanes of a batch of input rows, one row's 8 planes and the 8m
+#: accumulators in registers
 XORNET_MAX_K, XORNET_MAX_M = 16, 8
 
 #: kernel -> the file of ``csrc/`` that holds its kernel, where it is not
@@ -133,7 +133,7 @@ FOLD_MAX_M = 8
 #: the fields the extraction probe and the precision product keep of each
 #: shifted lane
 _FIELDS = 0x00010001
-#: bit 0 of each byte of a lane: one bit plane of the XOR network
+#: bit 0 of each byte of a lane: one bit plane of ``xornet_plain``
 _BYTE_BIT0 = 0x01010101
 #: lanes per stage of ``pipelined_w8`` unless the caller picks another
 DEFAULT_TILE = 1024
@@ -205,35 +205,42 @@ def _support(bitmatrix: np.ndarray, k: int, m: int) -> np.ndarray:
 
 def xornet_source(bitmatrix: np.ndarray, k: int, m: int) -> str:
     """The header ``csrc/xornet_kernel.cu`` includes for one [8m, 8k]
-    bitmatrix: ``XORNET_K``, ``XORNET_M`` and ``xornet_network``, the
-    static XOR network as straight-line statements, input-major: for each
-    input row j and each bit s that some bit-row uses, the plane
-    ``(x[j] >> s) & 0x01010101`` XORed into those bit-rows' accumulators.
-    Deterministic: the same bitmatrix gives the same text (and library)."""
+    bitmatrix: ``XORNET_K``, ``XORNET_M`` and ``xornet_row<J>``, the static
+    XOR network over whole 32-bit planes as straight-line statements,
+    input-major: for each input row j that some bit-row uses, a
+    specialization that XORs each used plane ``p[s]`` into the accumulators
+    of the bit-rows whose support holds (j, s), one statement per 1 of the
+    bitmatrix (no shift, no mask).  Deterministic: the same bitmatrix gives
+    the same text (and library)."""
     B = _support(bitmatrix, k, m)
+    ones, used = int(B.sum()), int(B.any(0).sum())
+    xors = ones - int(B.any(1).sum())
+    signature = ("(const uint32_t (&p)[8], "
+                 "uint32_t (&z)[8 * XORNET_M])")
     lines = [
         "// Generated by ceph_tpu_torch.ops.sweep_gf.xornet_source from one",
-        f"// [{8 * m}, {8 * k}] w=8 bitmatrix ({int(B.sum())} ones); the "
-        "static XOR",
-        "// network that csrc/xornet_kernel.cu runs.  Do not edit.",
+        f"// [{8 * m}, {8 * k}] w=8 bitmatrix: {ones} ones, {xors} XORs "
+        f"over {used} of {8 * k} planes;",
+        "// the static XOR network that csrc/xornet_kernel.cu runs.  Do not "
+        "edit.",
         "#pragma once",
         f"#define XORNET_K {k}",
         f"#define XORNET_M {m}",
-        "__device__ __forceinline__ void xornet_network(",
-        "    const uint32_t (&x)[XORNET_K], uint32_t (&z)[8 * XORNET_M]) {",
+        "template <int J>",
+        f"__device__ __forceinline__ void xornet_row{signature} {{}}",
     ]
-    body = []
     for j in range(k):
+        body = []
         for s in range(8):
             rows = np.flatnonzero(B[:, j * 8 + s])
             if rows.size:
-                body.append(f"  q = (x[{j}] >> {s}) & 0x01010101u;")
-                body.append("  " + " ".join(f"z[{r}] ^= q;" for r in rows))
-    if body:
-        lines += ["  uint32_t q;", *body]
-    else:
-        lines.append("  (void)x; (void)z;")
-    return "\n".join([*lines, "}", ""])
+                body.append("  " + " ".join(f"z[{r}] ^= p[{s}];"
+                                            for r in rows))
+        if body:
+            lines += ["template <>",
+                      f"__device__ __forceinline__ void xornet_row<{j}>"
+                      f"{signature} {{", *body, "}"]
+    return "\n".join([*lines, ""])
 
 
 def blockdiag_smem_bytes(k: int, m: int, groups: int = 1) -> int:

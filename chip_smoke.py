@@ -51,7 +51,10 @@ Phases (any failure raises and exits non-zero):
    ``sweep_bf16_blockdiag``) at the same cases where they take k and m,
    with an all-ones table over all-ones words (k=8 m=4 and k=16 m=8) and
    the block-diagonal row at its widest k (24 at m = 4, 75 at m = 1),
-   unaligned and ragged.  Then the port's kernel
+   unaligned and ragged, and ``sweep_xornet`` at every n4 % 8, n4 = 4,
+   an unaligned pointer, k = 1, k = 16 m = 8, m = 1, 3 and 5, and all-ones
+   words (under both bitmatrices and the all-ones one), also against
+   ``matrix_encode_w8``.  Then the port's kernel
    sweep (``ec_kernel_sweep.main``, all three stages) at 8 MiB chunks,
    which must exit 0 with every variant and probe row bit-exact, the
    HIGHEST and HIGH precision rows bit-exact and the DEFAULT rows
@@ -64,9 +67,9 @@ Phases (any failure raises and exits non-zero):
    ``sweep_extract_fold`` and ``sweep_planes_f32``'s launches are counted
    during these runs.
 
-The kernel sources build at once, one ``nvcc`` each (the XOR network's for
-reed_sol_van k=8 m=4).  It prints the ``kernels`` JSON line and, last, the
-device line.
+The kernel sources build at once, one ``nvcc`` each (the XOR network's
+once per bitmatrix that phase 5 runs).  It prints the ``kernels`` JSON
+line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -128,7 +131,8 @@ EARLIER_MS = {"sweep_pipelined_w8": 0.0932, "sweep_copy": 0.0296,
               "sweep_split_f32": 0.6323, "sweep_prec_f32": 0.5431,
               "sweep_prec_tf32x3": 0.2974, "sweep_prec_tf32": 0.1963,
               "sweep_int8_4dot": 0.1562, "sweep_bf16_4dot": 0.2380,
-              "sweep_f32_4dot": 0.2738, "sweep_bf16_blockdiag": 0.6130}
+              "sweep_f32_4dot": 0.2738, "sweep_bf16_blockdiag": 0.6130,
+              "sweep_xornet": 0.0741}
 #: turns of the interleaved copy and clone timings (each a mean of 20
 #: flushed launches and a CUDA graph of 48 back to back)
 COPY_TURNS = 7
@@ -392,8 +396,14 @@ def phase_codec_edges(dev, gen) -> None:
               f"{tuple(got.shape)[0]} rows out: bit-exact", flush=True)
 
 
+def _code_bits(code: str, k: int, m: int) -> np.ndarray:
+    coding = {"reed_sol_van": reed_sol.vandermonde_coding_matrix,
+              "cauchy_good": cauchy.good_general_coding_matrix}[code]
+    return matrix_to_bitmatrix(coding(k, m, 8), 8)
+
+
 def _sweep_bits():
-    return matrix_to_bitmatrix(reed_sol.vandermonde_coding_matrix(K, M, 8), 8)
+    return _code_bits("reed_sol_van", K, M)
 
 
 def _sweep_cases(dev):
@@ -468,7 +478,7 @@ def _sweep_more_cases(dev):
     tables fit in shared memory and at the widest whose stages fit (its
     tables then read through L1), and the XOR network of a second
     bitmatrix (cauchy_good k=8 m=4 w=8: another generated library)."""
-    bits = matrix_to_bitmatrix(cauchy.good_general_coding_matrix(K, M, 8), 8)
+    bits = _code_bits("cauchy_good", K, M)
     xornet = sweep_gf.make_xornet(bits, K, M)
     w8 = torch.from_numpy(cuda_gf.prep_matrix_w8(_sweep_bits(), K)).to(dev)
     bp32 = torch.from_numpy(sweep_gf.prep_shift_major_w8(_sweep_bits(),
@@ -601,6 +611,31 @@ def phase_sweep_kernels(dev, gen, flush) -> dict:
     return results
 
 
+def _xornet_edge_cases():
+    """(label, bitmatrix, k, m, n4, aligned, all-ones words) of the shapes
+    ``sweep_xornet`` must take, for reed_sol_van and cauchy_good: every n4
+    % 8 from 1 to 7, less than one group of 8 lanes, a pointer 4 bytes off
+    the 16-byte grid, k = 1, k = 16 m = 8, m = 1, 3 and 5; and all-ones
+    words under both k=8 m=4 bitmatrices and under the all-ones bitmatrix
+    at k=8 m=4 and k=16 m=8."""
+    shapes = [*[(f"n4 % 8 = {r}", K, M, 2048 + r, True) for r in range(1, 8)],
+              ("less than one group", K, M, 4, True),
+              ("unaligned", K, M, 4096, False),
+              ("k=1", 1, 4, 1003, True), ("k=16 m=8", 16, 8, 1003, True),
+              ("m=1", K, 1, 1003, True), ("m=3, unaligned", K, 3, 1003, False),
+              ("m=5", 7, 5, 1003, True)]
+    cases = [(f"{code} {label}", _code_bits(code, k, m), k, m, n4, aligned,
+              False)
+             for code in ("reed_sol_van", "cauchy_good")
+             for label, k, m, n4, aligned in shapes]
+    cases += [(f"{code}, all-ones words", _code_bits(code, K, M), K, M, 4099,
+               True, True) for code in ("reed_sol_van", "cauchy_good")]
+    cases += [(f"all-ones bitmatrix k={k} m={m}, all-ones words",
+               np.ones((8 * m, 8 * k), np.uint8), k, m, 4099, aligned, True)
+              for k, m, aligned in ((K, M, True), (16, 8, False))]
+    return cases
+
+
 def _split_edge_cases():
     """(label, k, m, n4, aligned, bitmatrix or None): the shapes
     ``sweep_split_f32`` must take at every parts and tile (None: all-ones
@@ -655,10 +690,12 @@ def _check_dot_rows(label, x, B, k, m, dev) -> None:
 
 
 def phase_sweep_edges(dev, gen) -> None:
-    """``sweep_copy``, ``sweep_split_f32``, the three precision kernels and
-    the four wgmma product rows against their plain versions at edge
-    shapes: the copy at m = 1, a ragged total, an unaligned pointer and a
-    partial last block; the split at :func:`_split_edge_cases`, each at
+    """``sweep_copy``, ``sweep_xornet``, ``sweep_split_f32``, the three
+    precision kernels and the four wgmma product rows against their plain
+    versions at edge shapes: the copy at m = 1, a ragged total, an
+    unaligned pointer and a partial last block; the XOR network at
+    :func:`_xornet_edge_cases`, also against ``matrix_encode_w8``; the
+    split at :func:`_split_edge_cases`, each at
     parts 2, 4 and 8 and tiles 32 * parts, 8192 and 16384; the precision
     kernels at the same cases, each at ``PREC_EDGE_TILES``; the product
     rows at the same cases where they take k and m (:func:`_dot_rows`), an
@@ -675,6 +712,20 @@ def phase_sweep_edges(dev, gen) -> None:
             f"{tuple(x.shape)}"
         print(f"[sweep-edge] sweep_copy {label} lanes {tuple(x.shape)}, "
               f"{m} rows: bit-exact", flush=True)
+    for label, bits, k, m, n4, aligned, ones in _xornet_edge_cases():
+        x = _lanes(gen, dev, k, n4, aligned)
+        if ones:
+            x[:, :n4 // 2] = -1
+        got = sweep_gf.make_xornet(bits, k, m)(x)
+        w8 = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k)).to(dev)
+        assert torch.equal(got, sweep_gf.xornet_plain(bits, x, k, m)), \
+            f"sweep_xornet ({label}): kernel != plain version at lanes " \
+            f"{tuple(x.shape)}"
+        assert torch.equal(got, cuda_gf.matrix_encode_w8(w8, x, k, m)), \
+            f"sweep_xornet ({label}): kernel != matrix_encode_w8 at lanes " \
+            f"{tuple(x.shape)}"
+        print(f"[sweep-edge] sweep_xornet {label} lanes {tuple(x.shape)}: "
+              "bit-exact (plain version and matrix_encode_w8)", flush=True)
     for label, k, m, n4, aligned, B in _split_edge_cases():
         x = _lanes(gen, dev, k, n4, aligned)
         if B is None:
@@ -870,9 +921,15 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
+    # the XOR network: one library per bitmatrix (the sweep's, phase 5's
+    # second and those of its edge shapes)
+    networks = {sweep_gf.make_xornet(bits, k, m).generated: None
+                for bits, k, m in (
+                    (_sweep_bits(), K, M), (_code_bits("cauchy_good", K, M),
+                                            K, M),
+                    *((c[1], c[2], c[3]) for c in _xornet_edge_cases()))}
     builds = ((cuda_gf.SOURCE.name, None), (sweep_gf.SOURCE, None),
-              (sweep_gf.XORNET_SOURCE,
-               sweep_gf.make_xornet(_sweep_bits(), K, M).generated))
+              *((sweep_gf.XORNET_SOURCE, gen) for gen in networks))
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda b: cuda_gf.build(*b), builds))
     print(f"[build] {', '.join(lib.name for lib in libs)} in "

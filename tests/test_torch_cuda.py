@@ -373,7 +373,7 @@ def _code_bits(code, k, m):
 @pytest.mark.parametrize("code", ["reed_sol_van", "cauchy_good"])
 @pytest.mark.parametrize("k,m,n4,aligned", [
     (8, 4, 4096, True),     # 16-byte loads and stores
-    (8, 4, 100003, True),   # ragged: the one-lane form
+    (8, 4, 100003, True),   # ragged: the one-word form
     (8, 4, 4096, False),    # a pointer off the 16-byte grid
     (3, 2, 1001, True),
     (16, 8, 777, True),     # the widest network
@@ -388,6 +388,47 @@ def test_xornet_kernel_matches_plain_version(dev, code, k, m, n4, aligned):
     got = sweep_gf.make_xornet(bits, k, m)(d)
     assert torch.equal(got, sweep_gf.xornet_plain(bits, d, k, m))
     assert torch.equal(got, cuda_gf.matrix_encode_w8(w8_tables, d, k, m))
+
+
+#: the XOR network's edge shapes (k, m, n4, aligned): every n4 % 8 from 1
+#: to 7 (a last group of fewer than 8 lanes), less than one group, a pointer
+#: 4 bytes off the 16-byte grid, and k = 1, k = 16 m = 8, m = 1, 3 and 5
+XORNET_EDGES = [
+    *[(8, 4, 2048 + r, True) for r in range(1, 8)],
+    (8, 4, 4, True),
+    (8, 4, 4096, False),
+    (1, 4, 1003, True), (16, 8, 1003, True), (8, 1, 1003, True),
+    (8, 3, 1003, False), (7, 5, 1003, True),
+]
+
+
+def _xornet_check(bits, d, k, m):
+    w8_tables = torch.from_numpy(cuda_gf.prep_matrix_w8(bits, k)).to(d.device)
+    got = sweep_gf.make_xornet(bits, k, m)(d)
+    assert torch.equal(got, sweep_gf.xornet_plain(bits, d, k, m))
+    assert torch.equal(got, cuda_gf.matrix_encode_w8(w8_tables, d, k, m))
+
+
+@pytest.mark.parametrize("code", ["reed_sol_van", "cauchy_good"])
+@pytest.mark.parametrize("k,m,n4,aligned", XORNET_EDGES)
+def test_xornet_kernel_at_edge_shapes(dev, code, k, m, n4, aligned):
+    d = _lanes(np.random.RandomState(k * 7 + m * 1000 + n4), k, n4, dev)
+    if not aligned:
+        d = _unaligned(d)
+    _xornet_check(_code_bits(code, k, m), d, k, m)
+
+
+@pytest.mark.parametrize("bits_of,k,m", [
+    ("reed_sol_van", 8, 4), ("cauchy_good", 8, 4),
+    ("all ones", 8, 4), ("all ones", 16, 8)])
+def test_xornet_kernel_over_all_ones_words(dev, bits_of, k, m):
+    # every word all ones in the first half; the all-ones bitmatrix XORs
+    # every plane into every bit-row
+    d = _lanes(np.random.RandomState(k + m), k, 4099, dev)
+    d[:, :2049] = -1
+    bits = (np.ones((8 * m, 8 * k), np.uint8) if bits_of == "all ones"
+            else _code_bits(bits_of, k, m))
+    _xornet_check(bits, d, k, m)
 
 
 def test_xornet_builds_one_library_per_bitmatrix(dev):
