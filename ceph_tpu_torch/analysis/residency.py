@@ -8,6 +8,13 @@ copies (the pipeline's pinned staging).  They land in one process-wide
 ledger of h2d/d2h ops and bytes, which the benchmark snapshots around
 a stage.  The reference's device-resident-section verifier and lint
 wait for a later slice.
+
+The reference also counts ``jit_retraces``: a JAX program is compiled
+once per shape.  A CUDA library is built once per source, so the port
+counts ``library_builds`` instead (:func:`note_library_build`, called
+where a kernel library -- or the host crc32c library -- is built or first
+loaded in the process): setup work that must not recur on a steady-state
+hot path.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ import torch
 class ResidencyCounters:
     """Process-wide transfer ledger (thread-safe)."""
 
-    __slots__ = ("_lock", "h2d_ops", "h2d_bytes", "d2h_ops", "d2h_bytes")
+    __slots__ = ("_lock", "h2d_ops", "h2d_bytes", "d2h_ops", "d2h_bytes",
+                 "library_builds")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -30,6 +38,7 @@ class ResidencyCounters:
         self.h2d_bytes = 0
         self.d2h_ops = 0
         self.d2h_bytes = 0
+        self.library_builds = 0
 
     def note_h2d(self, nbytes: int) -> None:
         with self._lock:
@@ -41,6 +50,10 @@ class ResidencyCounters:
             self.d2h_ops += 1
             self.d2h_bytes += int(nbytes)
 
+    def note_library_build(self) -> None:
+        with self._lock:
+            self.library_builds += 1
+
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return {
@@ -48,6 +61,7 @@ class ResidencyCounters:
                 "h2d_bytes": self.h2d_bytes,
                 "d2h_ops": self.d2h_ops,
                 "d2h_bytes": self.d2h_bytes,
+                "library_builds": self.library_builds,
             }
 
 
@@ -88,3 +102,8 @@ def note_d2h(nbytes: int) -> None:
     host buffers)."""
     _COUNTERS.note_d2h(nbytes)
 
+
+
+def note_library_build() -> None:
+    """Count one library built or first loaded in this process."""
+    _COUNTERS.note_library_build()

@@ -49,6 +49,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ceph_tpu_torch.analysis import residency
+
 #: bytes per device lane of every kernel operand (int32 lanes)
 LANE_BYTES = 4
 
@@ -219,6 +221,7 @@ def load(source: str, signatures: Dict[str, tuple],
         lib = _libs.get(key)
         if lib is None:
             lib = ctypes.CDLL(str(build(source, generated)))
+            residency.note_library_build()
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)

@@ -60,6 +60,23 @@ _DEFAULT_DEPTH = 3
 #: upload N+1 is queued before compute N)
 _OVERLAP = 2
 
+_stats_lock = threading.Lock()
+_granules_dispatched = 0
+
+
+def granules_dispatched() -> int:
+    """Process-wide count of fused granule dispatches -- the residency
+    ledger's denominator: h2d_ops_delta / granules_delta is the
+    "<= 1 H2D per granule" number the storage-path benchmark reports."""
+    with _stats_lock:
+        return _granules_dispatched
+
+
+def _note_granule() -> None:
+    global _granules_dispatched
+    with _stats_lock:
+        _granules_dispatched += 1
+
 
 class DeviceStream:
     """One uploaded GF(2) matrix + the kernel that applies it.
@@ -326,6 +343,7 @@ class EncodePipeline:
         d, ready, keep, entries = self._staged.popleft()
         out = self.stream.compute(d, ready)
         host, done = self.stream.start_d2h(out)
+        _note_granule()
         self._inflight.append(_Granule(host, done, out if keep else None,
                                        entries, d if keep else None))
 

@@ -44,6 +44,10 @@ class _CudaMixin:
 
     _device_codec: DeviceCodec | None = None
     _shared_pipe: EncodePipeline | None = None
+    #: the shard-major helpers (``osd/ecutil.py``) may pad this codec's
+    #: odd blocks up the shared rung ladder (ops/bucketing.py), so that
+    #: they ride the pipeline's whole-lane kernels; parity is trimmed back
+    shape_bucketing = True
 
     def init(self, profile: ErasureCodeProfile) -> None:
         for key in _MESH_KEYS:

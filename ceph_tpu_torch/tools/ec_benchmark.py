@@ -1,17 +1,26 @@
 #!/usr/bin/env python
 """ceph_erasure_code_benchmark-compatible CLI for the port's plugins.
 
-Port of the ``encode``/``decode`` workloads of ``tools/ec_benchmark.py``
-(reference: src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137
-setup, :150-188 encode, :253-327 decode): prints
+Port of the ``encode``, ``decode`` and ``storage-path`` workloads of
+``tools/ec_benchmark.py`` (reference:
+src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137 setup,
+:150-188 encode, :253-327 decode): encode and decode print
 ``<elapsed_seconds>\\t<KiB>`` where KiB = iterations * size / 1024 (times
 the batch size with ``--batch``), so throughput = KiB / seconds.
+``storage-path`` runs ``osd/storage_bench.py`` (``--objects`` objects of
+``--size`` bytes, ``--writers`` concurrent writers, best of
+``--iterations`` timed cycles) and prints its result as one JSON line, or
+with ``--profile`` the transfer-ledger cut of it, the JSON keys of the
+reference's with ``steady_library_builds`` in place of
+``steady_jit_retraces`` (see ``osd/storage_bench.py``).
 
 Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark -p cuda -w encode \\
         -s 8388608 -i 3 -b 8 -P k=8 -P m=4
     python -m ceph_tpu_torch.tools.ec_benchmark -p cuda -w decode \\
         -s 8388608 -i 3 -b 8 --erased 1 --erased 6 -P k=8 -P m=4
+    python -m ceph_tpu_torch.tools.ec_benchmark -w storage-path \\
+        --objects 64 -s 4194304 --profile -P k=8 -P m=4
 
 The default plugin is ``cuda``, which runs on the card and raises where
 there is none; ``-P device=cpu`` runs it on the CPU, and ``-p jerasure``
@@ -21,6 +30,7 @@ times the numpy plugin on the host.
 from __future__ import annotations
 
 import argparse
+import json
 import random
 import sys
 import time
@@ -40,7 +50,7 @@ def parse_args(argv):
                    help="erasure code plugin name (default: cuda, on the "
                         "card)")
     p.add_argument("-w", "--workload", default="encode",
-                   choices=["encode", "decode"])
+                   choices=["encode", "decode", "storage-path"])
     p.add_argument("-e", "--erasures", type=int, default=1,
                    help="number of erasures when decoding")
     p.add_argument("--erased", type=int, action="append", default=[],
@@ -54,6 +64,16 @@ def parse_args(argv):
                         "API (encode_batch/decode_batch); bytes processed "
                         "scale by the batch size. 0 = reference per-call "
                         "loop")
+    p.add_argument("--writers", type=int, default=8,
+                   help="concurrent writers for --workload storage-path")
+    p.add_argument("--objects", type=int, default=64,
+                   help="objects per storage-path pass")
+    p.add_argument("--profile", action="store_true",
+                   help="storage-path only: print the per-stage transfer "
+                        "ledger (h2d/d2h ops+bytes, library builds, "
+                        "granules, h2d-per-granule) as one JSON object "
+                        "instead of the full result.  Exits nonzero on any "
+                        "steady-state library build (the harness gate)")
     p.add_argument("--payload", default="X", choices=["X", "random"],
                    help="payload contents: 'X' matches the reference tool "
                         "(ceph_erasure_code_benchmark.cc:173); 'random' "
@@ -135,6 +155,9 @@ def main(argv=None) -> int:
         )
         return -22
 
+    if args.workload == "storage-path":
+        return _storage_path(args, ec)
+
     if args.payload == "random":
         payload = np.random.RandomState(42).randint(
             0, 256, size=args.size, dtype=np.uint8
@@ -208,6 +231,47 @@ def main(argv=None) -> int:
         elapsed = time.perf_counter() - begin
 
     print(f"{elapsed:.6f}\t{args.iterations * (args.size // 1024)}")
+    return 0
+
+
+def _storage_path(args, ec) -> int:
+    """The host OSD storage path: assemble -> transpose -> encode ->
+    commit (+ signature-grouped degraded decode) with concurrent writers,
+    coalescing on and off, bit-exactness gated before timing."""
+    from ceph_tpu_torch.osd.storage_bench import run_storage_path_bench
+
+    result = run_storage_path_bench(
+        ec, n_objects=args.objects, obj_bytes=args.size,
+        writers=args.writers, iters=max(1, args.iterations),
+    )
+    if args.profile:
+        # the transfer-ledger cut of the result (a steady-state library
+        # build already raised inside the harness -> nonzero exit)
+        print(json.dumps({
+            "workload": "storage-path",
+            "k": result["k"], "m": result["m"],
+            "n_objects": result["n_objects"],
+            "obj_bytes": result["obj_bytes"],
+            "bit_exact": result["bit_exact"],
+            "steady_library_builds": result["steady_library_builds"],
+            "ledger": {
+                mode: result[mode]["residency"]
+                for mode in ("per_op", "coalesced")
+            },
+            "write_h2d_per_granule": (
+                result["coalesced"]["residency"]["write"]
+                ["h2d_per_granule"]),
+        }))
+        return 0
+    print(json.dumps(result))
+    print(
+        f"storage-path k={result['k']} m={result['m']} "
+        f"{args.objects}x{args.size}B x{args.writers} writers: "
+        f"coalesced write {result['coalesced']['write_GiBs']:.4f} "
+        f"GiB/s ({result['write_speedup']}x per-op), read "
+        f"{result['coalesced']['read_GiBs']:.4f} GiB/s "
+        f"({result['read_speedup']}x)", file=sys.stderr,
+    )
     return 0
 
 

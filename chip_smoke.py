@@ -28,8 +28,22 @@ Phases (any failure raises and exits non-zero):
    plugin.  The same runs at 1 MiB chunks and a batch of 4 for reed_sol_van
    w=16 and cauchy_good packetsize=2048.  Each kernel's launch count must
    rise during its profile.
+3b. The storage path (``osd/storage_bench.py``, the OSD write and degraded
+   read cycles over ``ecutil``, the batch coalescer and crc32c) on the
+   card: reed_sol_van k=8 m=4 w=8 with 64 objects of 4 MiB (RBD's default
+   object size, RGW's stripe), 8 writers, 2 erasures, best of 2 timed
+   cycles; w=16 and cauchy_good packetsize=2048 with 16 objects each.
+   The harness gates bit-exactness (per-op against coalesced, and the
+   degraded read) and steady-state library builds; beside it, every
+   object's stored shards are compared with the port's numpy
+   ``jerasure`` plugin's encode of the same payload, the degraded read
+   with the payload, and the C crc32c with its plain version over 64 KiB
+   of a shard.  It prints write and read GiB/s per mode, the stage times,
+   ``h2d_per_granule`` and ``steady_library_builds``; each configuration's
+   codec kernel must be launched during it (counts zeroed at the start).
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
-   erased).
+   erased), and one of ``-w storage-path --profile`` at the flagship
+   profile (64 objects of 4 MiB).
 5. The fourteen sweep kernels (``csrc/sweep_kernels.cu`` and
    ``csrc/xornet_kernel.cu``) against their plain versions at the sweep's
    shape, lanes [8, 2097152], and at a ragged one: ``sweep_xornet`` for
@@ -75,6 +89,7 @@ line and, last, the device line.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import io
 import json
@@ -88,6 +103,8 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.matrices import cauchy, liberation, reed_sol
+from ceph_tpu_torch.native import gf_native
+from ceph_tpu_torch.osd import ecutil, storage_bench
 from ceph_tpu_torch.matrices.bitmatrix import (matrix_to_bitmatrix,
                                                survivor_decode_bitmatrix)
 from ceph_tpu_torch.ops import cuda_gf, sweep_gf
@@ -112,6 +129,22 @@ PROFILES = (
     ("cauchy_good packetsize=2048",
      {"technique": "cauchy_good", "packetsize": "2048"}, 4, "gf2_packet"),
 )
+
+#: the storage path's configurations: (label, profile, objects, the kernel
+#: the profile runs).  4 MiB is RBD's default object (rbd_default_order 22)
+#: and RGW's stripe (rgw_obj_stripe_size)
+STORAGE_PROFILES = (
+    ("reed_sol_van w=8", {"technique": "reed_sol_van"}, 64, "gf2_matrix_w8"),
+    ("reed_sol_van w=16", {"technique": "reed_sol_van", "w": "16"}, 16,
+     "gf2_matrix_w16"),
+    ("cauchy_good packetsize=2048",
+     {"technique": "cauchy_good", "packetsize": "2048"}, 16, "gf2_packet"),
+)
+OBJECT = 4 << 20
+WRITERS = 8
+STORAGE_ERASURES = 2
+STORAGE_ITERS = 2
+CRC_PREFIX = 64 << 10
 
 KERNEL_SOURCE = "ceph_tpu_torch/csrc/gf_kernels.cu"
 REPLACES = {
@@ -895,6 +928,96 @@ def phase_main_path(reg, rs, card: str) -> dict:
     return per_profile
 
 
+def _storage_check(ec, ref, n_objects: int, seed: int) -> str:
+    """One coalesced write and degraded read pass: every stored shard
+    against the numpy ``jerasure`` plugin's encode of the same payload (in
+    ecutil's stripe layout), the read against the payload, and the C
+    crc32c against its plain version over a parity shard's first 64 KiB.
+    Returns the crc line."""
+    h = storage_bench.StoragePathHarness(ec, erasures=STORAGE_ERASURES)
+    payloads = storage_bench.make_payloads(n_objects, OBJECT, seed)
+    loop = asyncio.new_event_loop()
+    try:
+        store = loop.run_until_complete(
+            h.write_pass(payloads, coalesce=True, writers=WRITERS))
+        got = loop.run_until_complete(
+            h.read_pass(store, n_objects, [len(p) for p in payloads],
+                        coalesce=True, readers=WRITERS))
+    finally:
+        loop.close()
+    for i, p in enumerate(payloads):
+        buf = np.zeros(h.sinfo.logical_to_next_stripe_offset(len(p)),
+                       np.uint8)
+        buf[:len(p)] = np.frombuffer(p, np.uint8)
+        want = ecutil.encode(h.sinfo, ref, buf, range(h.km))
+        for s in range(h.km):
+            assert store[f"obj{i}@{s}"] == want[s].tobytes(), \
+                f"storage path: obj{i} shard {s} differs from the numpy " \
+                f"jerasure plugin"
+        assert got[i] == p, f"storage path: degraded read of obj{i}"
+    shard = np.frombuffer(store[f"obj0@{h.k}"], np.uint8)[:CRC_PREFIX]
+    crc, plain = gf_native.crc32c(shard), gf_native.crc32c_plain(shard)
+    assert crc == plain, f"crc32c: C build {crc:#x} != plain {plain:#x}"
+    return (f"crc32c ({'sse4.2' if gf_native.sse42() else 'table'} build) "
+            f"== plain over {CRC_PREFIX} B of obj0@{h.k}: {crc:#010x}")
+
+
+def phase_storage_path(reg, seed: int, card: str) -> dict:
+    """The OSD storage path on the card (docstring, phase 3b); launches
+    are zeroed at its start and read at its end."""
+    cuda_gf.reset_launches()
+    results = {}
+    for label, extra, n_objects, name in STORAGE_PROFILES:
+        ec = reg.factory("cuda", _profile(extra))
+        ref = reg.factory("jerasure", _profile(extra))
+        t0 = time.perf_counter()
+        r = storage_bench.run_storage_path_bench(
+            ec, n_objects=n_objects, obj_bytes=OBJECT, writers=WRITERS,
+            iters=STORAGE_ITERS, seed=seed, erasures=STORAGE_ERASURES)
+        bench_s = time.perf_counter() - t0
+        assert r["bit_exact"], f"storage path {label}: not bit-exact"
+        assert r["steady_library_builds"] == {"per_op": 0, "coalesced": 0}
+        crc_line = _storage_check(ec, ref, n_objects, seed)
+        head = (f"[storage] {label}: {n_objects} x {OBJECT} B objects, "
+                f"{WRITERS} writers, {r['erasures']} erasures")
+        modes = {}
+        for mode in ("per_op", "coalesced"):
+            m = r[mode]
+            res = m["residency"]
+            modes[mode] = {
+                "write_GiBs": m["write_GiBs"], "read_GiBs": m["read_GiBs"],
+                "stages_s": m["stages_s"],
+                "h2d_per_granule": {lane: res[lane]["h2d_per_granule"]
+                                    for lane in ("write", "read")},
+                "granules": {lane: res[lane]["granules"]
+                             for lane in ("write", "read")}}
+            print(f"{head}, {mode}: write {m['write_GiBs']:.4f} GiB/s, "
+                  f"read {m['read_GiBs']:.4f} GiB/s (best of "
+                  f"{STORAGE_ITERS}); card {card}", flush=True)
+            print(f"{head}, {mode}: stage seconds summed over ops "
+                  f"{json.dumps(m['stages_s'])}; card {card}", flush=True)
+            print(f"{head}, {mode}: h2d_per_granule "
+                  f"{json.dumps(modes[mode]['h2d_per_granule'])}, granules "
+                  f"{json.dumps(modes[mode]['granules'])}; card {card}",
+                  flush=True)
+        print(f"{head}: steady_library_builds "
+              f"{json.dumps(r['steady_library_builds'])}; every shard "
+              f"bit-exact vs numpy jerasure, degraded read == payload; "
+              f"{crc_line}; {bench_s:.1f} s; card {card}", flush=True)
+        results[label] = {"kernel": name, "objects": n_objects,
+                          "obj_bytes": OBJECT, "writers": WRITERS,
+                          "steady_library_builds":
+                              r["steady_library_builds"], **modes}
+    launched = dict(cuda_gf.launches)
+    for label, _extra, _n, name in STORAGE_PROFILES:
+        assert launched[name] > 0, \
+            f"storage path {label}: {name} was never launched"
+        results[label]["launches"] = launched[name]
+    print(f"[storage] codec kernel launches on the storage path {launched}; "
+          f"card {card}", flush=True)
+    return results
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -908,6 +1031,19 @@ def phase_ec_benchmark(card: str) -> None:
     gibs = int(kib) / 2**20 / float(seconds)
     print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]!r} "
           f"({gibs:.3f} GiB/s decode; card {card})", flush=True)
+    argv = ["-p", "cuda", "-w", "storage-path", "--objects", "64", "-s",
+            str(OBJECT), "--writers", str(WRITERS), "--profile",
+            "-P", f"k={K}", "-P", f"m={M}"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ec_benchmark.main(argv)
+    out = buf.getvalue().strip().splitlines()
+    assert rc == 0, f"ec_benchmark exited {rc}: {out}"
+    prof = json.loads(out[-1])
+    assert prof["bit_exact"] is True and \
+        prof["steady_library_builds"] == {"per_op": 0, "coalesced": 0}, prof
+    print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]}; card {card}",
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -953,6 +1089,7 @@ def main(argv=None) -> int:
     del flush
     per_profile = phase_main_path(reg, np.random.RandomState(args.seed), card)
     launched = dict(cuda_gf.launches)
+    storage = phase_storage_path(reg, args.seed, card)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
     launched.update(phase_probes(card))
@@ -961,6 +1098,7 @@ def main(argv=None) -> int:
         row["launches"] = launched[name]
         assert row["launches"] > 0, f"{name} never launched on its path"
     print(json.dumps({"main_path": per_profile}))
+    print(json.dumps({"storage_path": storage}))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

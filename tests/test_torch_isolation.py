@@ -2,9 +2,9 @@
 imports JAX, the JAX package or the JAX package's tools and experiments.
 Checked twice: statically (an AST scan of every import) and at run time (a
 fresh interpreter in which ``jax``, ``ceph_tpu``, ``tools`` and
-``experiments`` cannot be imported imports every port module and encodes
-and decodes one stripe, and runs the kernel sweep and its two probe tools
-on the CPU)."""
+``experiments`` cannot be imported imports every port module, encodes
+and decodes one stripe, runs one small coalesced storage-path pass, and
+runs the kernel sweep and its two probe tools on the CPU)."""
 
 import ast
 import os
@@ -95,6 +95,17 @@ want = ref.encode(set(range(6)), payload)
 assert all(np.array_equal(enc[c], want[c]) for c in want)
 dec = ec.decode(set(range(6)), {c: enc[c] for c in (0, 2, 3, 5)})
 assert all(np.array_equal(dec[c], want[c]) for c in want)
+import asyncio
+from ceph_tpu_torch.osd import storage_bench
+h = storage_bench.StoragePathHarness(ec)
+payloads = storage_bench.make_payloads(6, 3000, seed=1)
+loop = asyncio.new_event_loop()
+store = loop.run_until_complete(h.write_pass(payloads, coalesce=True,
+                                             writers=3))
+got = loop.run_until_complete(h.read_pass(store, 6, [3000] * 6,
+                                          coalesce=True, readers=3))
+loop.close()
+assert got == payloads and len(store) == 6 * 6
 from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_probe, kernel_r4_split
 for tool in (ec_kernel_sweep, kernel_r4_split, kernel_r4_probe):
     assert tool.main(["--device", "cpu", "--iters", "1"]) == 0
