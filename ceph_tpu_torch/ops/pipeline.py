@@ -144,13 +144,21 @@ class DeviceStream:
         out[:, col0:col0 + ncols] = rows.view(self._row_dtype())
 
     def unpack(self, out_host: np.ndarray, col0: int, bs: int) -> np.ndarray:
-        """Extract one stripe's [rows_out, bs] u8 result block."""
+        """Extract one stripe's [rows_out, bs] u8 result block.
+
+        For matrix codes this is a view of the granule's host output, not
+        a copy: each of its rows is contiguous, so a consumer's
+        ``tobytes`` of one chunk copies only that chunk's bytes.  The
+        view keeps the granule's host buffer alive (``start_d2h``
+        allocates a fresh one per granule, and nothing reuses it while a
+        view holds it); the object store copies what it commits.  Packet
+        codes reorder their packet rows into a new array."""
         ncols = self.cols_of(bs)
-        block = np.ascontiguousarray(out_host[:, col0:col0 + ncols])
+        view = out_host[:, col0:col0 + ncols].view(np.uint8)
         if self.kind == "matrix":
-            return block.view(np.uint8).reshape(self.rows_out, bs)
-        rows = block.view(np.uint8).reshape(self.rows_out * self.w,
-                                            bs // self.w)
+            return view
+        rows = np.ascontiguousarray(view).reshape(self.rows_out * self.w,
+                                                  bs // self.w)
         return torch_gf._from_packet_rows(rows, self.w, self.packetsize)
 
     def seg_align_bytes(self) -> int:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """ceph_erasure_code_benchmark-compatible CLI for the port's plugins.
 
-Port of the ``encode``, ``decode`` and ``storage-path`` workloads of
-``tools/ec_benchmark.py`` (reference:
+Port of the ``encode``, ``decode``, ``storage-path`` and ``recovery-path``
+workloads of ``tools/ec_benchmark.py`` (reference:
 src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137 setup,
 :150-188 encode, :253-327 decode): encode and decode print
 ``<elapsed_seconds>\\t<KiB>`` where KiB = iterations * size / 1024 (times
@@ -13,6 +13,11 @@ the batch size with ``--batch``), so throughput = KiB / seconds.
 with ``--profile`` the transfer-ledger cut of it, the JSON keys of the
 reference's with ``steady_library_builds`` in place of
 ``steady_jit_retraces`` (see ``osd/storage_bench.py``).
+``recovery-path`` runs ``osd/recovery_bench.py`` (two wiped OSDs of an
+8-OSD cluster rebuilt per object and batched under a client load,
+``--objects`` objects of ``--size`` bytes) and prints its result as one
+JSON line.  Its profile is fixed (k=4 m=2, the ``cuda`` plugin), so it
+needs no ``-P k``/``-P m``; ``-P`` entries overlay it (``-P device=cpu``).
 
 Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark -p cuda -w encode \\
@@ -21,6 +26,8 @@ Examples:
         -s 8388608 -i 3 -b 8 --erased 1 --erased 6 -P k=8 -P m=4
     python -m ceph_tpu_torch.tools.ec_benchmark -w storage-path \\
         --objects 64 -s 4194304 --profile -P k=8 -P m=4
+    python -m ceph_tpu_torch.tools.ec_benchmark -w recovery-path \\
+        --objects 32 -s 4194304
 
 The default plugin is ``cuda``, which runs on the card and raises where
 there is none; ``-P device=cpu`` runs it on the CPU, and ``-p jerasure``
@@ -50,7 +57,8 @@ def parse_args(argv):
                    help="erasure code plugin name (default: cuda, on the "
                         "card)")
     p.add_argument("-w", "--workload", default="encode",
-                   choices=["encode", "decode", "storage-path"])
+                   choices=["encode", "decode", "storage-path",
+                            "recovery-path"])
     p.add_argument("-e", "--erasures", type=int, default=1,
                    help="number of erasures when decoding")
     p.add_argument("--erased", type=int, action="append", default=[],
@@ -67,7 +75,8 @@ def parse_args(argv):
     p.add_argument("--writers", type=int, default=8,
                    help="concurrent writers for --workload storage-path")
     p.add_argument("--objects", type=int, default=64,
-                   help="objects per storage-path pass")
+                   help="objects per storage-path pass, or rebuilt by "
+                        "recovery-path")
     p.add_argument("--profile", action="store_true",
                    help="storage-path only: print the per-stage transfer "
                         "ledger (h2d/d2h ops+bytes, library builds, "
@@ -132,6 +141,9 @@ def main(argv=None) -> int:
             continue
         key, val = param.split("=")
         profile[key] = val
+
+    if args.workload == "recovery-path":
+        return _recovery_path(args, profile)
 
     k = int(profile.get("k", "0"))
     m = int(profile.get("m", "0"))
@@ -271,6 +283,31 @@ def _storage_path(args, ec) -> int:
         f"GiB/s ({result['write_speedup']}x per-op), read "
         f"{result['coalesced']['read_GiBs']:.4f} GiB/s "
         f"({result['read_speedup']}x)", file=sys.stderr,
+    )
+    return 0
+
+
+def _recovery_path(args, overlay) -> int:
+    """Background data plane: rebuild two wiped OSDs' shards through the
+    batched recovery coalescer and the per-object windowed path, with a
+    concurrent client load on the mClock queues; bit-exactness,
+    cross-mode shard bytes and the client-p99 bound are gated before
+    anything is printed."""
+    from ceph_tpu_torch.osd.recovery_bench import (PROFILE,
+                                                   run_recovery_path_bench)
+
+    result = run_recovery_path_bench(
+        n_objects=args.objects, obj_bytes=args.size,
+        profile=dict(PROFILE, **overlay))
+    print(json.dumps(result))
+    print(
+        f"recovery-path {args.objects}x{args.size}B: batched "
+        f"time-to-clean {result['batched']['time_to_clean_s']:.3f}s "
+        f"({result['rebuild_speedup']}x per-object), client p99 "
+        f"{result['batched']['client_p99_ms']}ms during rebuild, "
+        f"{result['batched']['counters']['recovery_ops_batched']} "
+        f"objects through the batched lane",
+        file=sys.stderr,
     )
     return 0
 

@@ -22,8 +22,21 @@ both modes' passes alternate for ``ROUNDS`` rounds without a profiler
 as one dispatch per object, the read's ``decode_batch`` apart from its
 ``ecutil._reassemble``.
 
-    python -m ceph_tpu_torch.tools.trace_main_path [--storage-path]
-        [--trace DIR]
+With ``--cluster-path`` it traces the EC cluster instead
+(``osd/cluster.py`` with the ``cuda`` plugin, 16 OSDs, the same profile):
+after an untimed write of 64 objects of 4 MiB with 8 client tasks, one
+write pass of them runs under the profiler (the device's busy and idle
+shares) and again under ``cProfile``, whose time is split by layer
+(:data:`LAYERS`: the objecter, the primary's ECBackend / PG / coalescer,
+the codec, the shard op queue and QoS, the commit, the messenger, the
+event loop).  Then, twice on a fresh cluster of the same objects (so
+that no background tick of an earlier recovery runs), an OSD is killed,
+a quarter of the objects is overwritten, the OSD revives and auto
+recovery runs until the cluster is clean: the first recovery under the
+profiler, the second under ``cProfile``.
+
+    python -m ceph_tpu_torch.tools.trace_main_path [--storage-path |
+        --cluster-path] [--trace DIR]
 
 ``--trace`` also writes each call's Chrome trace into DIR.
 """
@@ -46,7 +59,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ceph_tpu_torch import profiling
-from ceph_tpu_torch.osd import ecutil, storage_bench
+from ceph_tpu_torch.osd import cluster_bench, ecutil, storage_bench
 from ceph_tpu_torch.plugins import registry
 
 STRIPE = 8 << 20
@@ -61,6 +74,26 @@ WRITERS = 8
 TOP = 14
 REPEATS = 5
 ROUNDS = 6
+#: the cluster path: OSDs, and every CLUSTER_OVERWRITE-th object written
+#: while an OSD is down
+CLUSTER_OSDS = 16
+CLUSTER_OVERWRITE = 4
+#: host layers of the cluster path, by the port's source file (the rest of
+#: the time is "other": numpy, torch and the standard library outside the
+#: event loop)
+LAYERS = {
+    "objecter": ("osd/objecter.py",),
+    "primary": ("osd/ecbackend.py", "osd/pg.py", "osd/coalescer.py",
+                "osd/ectransaction.py", "osd/extent_cache.py",
+                "osd/recovery.py", "osd/placement.py", "crush/"),
+    "codec": ("osd/ecutil.py", "plugins/", "ops/", "matrices/"),
+    "shard_op_queue": ("osd/shard.py", "osd/opqueue.py", "osd/qos.py",
+                       "utils/optracker.py", "osd/hitset.py"),
+    "commit": ("osd/memstore.py", "osd/types.py", "osd/pglog.py",
+               "native/"),
+    "messenger": ("osd/messenger.py", "msg/"),
+    "event_loop": ("asyncio/",),
+}
 
 
 #: the codec kernels' names in ``csrc/gf_kernels.cu``, as the profiler
@@ -91,14 +124,21 @@ def _busy_ms(intervals) -> float:
     return total / 1e3
 
 
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def traced(label: str, fn, trace_dir: str | None,
            nbytes: int = BATCH * STRIPE) -> dict:
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    _sync()
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        _sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kind: dict = {}
     intervals = []
@@ -301,6 +341,130 @@ def batch_split(ec, h, payloads, store) -> list:
                               ("reassemble", reassemble))]
 
 
+def _layer(path: str) -> str:
+    path = path.replace(os.sep, "/")
+    for layer, parts in LAYERS.items():
+        if any(f"/{part}" in path for part in parts):
+            return layer
+    return "other"
+
+
+def _file_layer(f: str) -> str | None:
+    if "ceph_tpu_torch" in f or "asyncio" in f:
+        return _layer(f)
+    return None
+
+
+def host_split(prof: cProfile.Profile, wall_s: float) -> dict:
+    """cProfile's own time (tottime) summed by host layer, and the
+    functions that took most of it.  The time of a function outside the
+    port and asyncio (builtins, numpy, torch) goes to its direct callers'
+    layers in proportion to the time each caller spent in it."""
+    st = pstats.Stats(prof)
+    layers: dict = {}
+    for (f, _line, _name), (_cc, _nc, tt, _ct, callers) in \
+            st.stats.items():
+        layer = _file_layer(f)
+        if layer is not None:
+            layers[layer] = layers.get(layer, 0.0) + tt
+            continue
+        share = sum(c[2] for c in callers.values())
+        for (cf, _cl, _cn), c in callers.items():
+            owner = _file_layer(cf) or "other"
+            part = tt * c[2] / share if share > 0 else tt / len(callers)
+            layers[owner] = layers.get(owner, 0.0) + part
+        if not callers:
+            layers["other"] = layers.get("other", 0.0) + tt
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:TOP]
+    return {"wall_s": wall_s, "layers_s": layers,
+            "layers_share": {k: v / wall_s for k, v in layers.items()},
+            "top_tottime": [
+                {"fn": f"{os.path.basename(f)}:{line}:{name}",
+                 "calls": nc, "tottime_s": tt, "cumtime_s": ct}
+                for (f, line, name), (_cc, nc, tt, ct, _callers) in rows]}
+
+
+def cluster_path(profile_kv: dict, n_objects: int, obj_bytes: int,
+                 seed: int, trace_dir: str | None, card: str) -> list:
+    """The cluster's write pass and recovery, each once under the
+    profiler and once under cProfile (module docstring).  Returns the
+    rows it prints."""
+    from ceph_tpu_torch.osd.cluster import ECCluster
+
+    payloads = cluster_bench.make_payloads(n_objects, obj_bytes, seed)
+    overwrites = cluster_bench.make_overwrites(payloads, CLUSTER_OVERWRITE,
+                                               seed + 1)
+    nbytes = n_objects * obj_bytes
+    loop = asyncio.new_event_loop()
+    rows = []
+
+    async def build():
+        return ECCluster(CLUSTER_OSDS, dict(profile_kv), plugin="cuda")
+
+    def write_pass(cluster, items):
+        async def go():
+            return await cluster_bench._client_ops(
+                items, lambda oid, data: cluster.write(oid, data), WRITERS)
+        return loop.run_until_complete(go())
+
+    def degraded(cluster):
+        """Write every object, kill an OSD, overwrite a quarter, revive:
+        returns the recovery to time (wait until clean)."""
+        write_pass(cluster, payloads.items())
+        victim = cluster.backend.acting_set(next(iter(payloads)))[0]
+        cluster.kill_osd(victim)
+        write_pass(cluster, overwrites.items())
+        cluster.revive_osd(victim)
+
+        def wait_clean():
+            async def go():
+                cluster.start_auto_recovery(interval=0.05)
+                while await cluster.degraded_report():
+                    await asyncio.sleep(0.05)
+            loop.run_until_complete(go())
+        return wait_clean
+
+    def emit(row):
+        row["card"] = card
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    def profiled(fn, call):
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        fn()
+        prof.disable()
+        emit(dict(host_split(prof, time.perf_counter() - t0), call=call))
+
+    clusters = []
+    try:
+        cluster = loop.run_until_complete(build())
+        clusters.append(cluster)
+        write_pass(cluster, payloads.items())  # warm: tables, buffers
+        row = traced("cluster_path_write", lambda: write_pass(
+            cluster, payloads.items()), trace_dir, nbytes)
+        emit(dict(row, objects=n_objects, obj_bytes=obj_bytes,
+                  osds=CLUSTER_OSDS, writers=WRITERS))
+        profiled(lambda: write_pass(cluster, payloads.items()),
+                 "cluster_path_write_cprofile")
+        for call in ("cluster_path_recovery",
+                     "cluster_path_recovery_cprofile"):
+            cluster = loop.run_until_complete(build())
+            clusters.append(cluster)
+            wait_clean = degraded(cluster)
+            if call.endswith("cprofile"):
+                profiled(wait_clean, call)
+            else:
+                emit(traced(call, wait_clean, trace_dir,
+                            nbytes // CLUSTER_OVERWRITE))
+    finally:
+        for cluster in clusters:
+            loop.run_until_complete(cluster.shutdown())
+        loop.close()
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--trace", default=None,
@@ -309,6 +473,9 @@ def main(argv=None) -> int:
     p.add_argument("--storage-path", action="store_true",
                    help="trace the storage path's coalesced write and "
                         "degraded read passes instead")
+    p.add_argument("--cluster-path", action="store_true",
+                   help="trace the EC cluster's write pass and recovery "
+                        "instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_main_path: CUDA is not available", file=sys.stderr)
@@ -317,6 +484,10 @@ def main(argv=None) -> int:
         "cuda", {"technique": "reed_sol_van", "k": "8", "m": "4"})
     if args.storage_path:
         storage_path(ec, args.seed, args.trace)
+        return 0
+    if args.cluster_path:
+        cluster_path({"technique": "reed_sol_van", "k": "8", "m": "4"},
+                     OBJECTS, OBJECT, args.seed, args.trace, _card())
         return 0
     rs = np.random.RandomState(args.seed)
     stripes = [np.frombuffer(rs.bytes(STRIPE), dtype=np.uint8)

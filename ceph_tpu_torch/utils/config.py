@@ -72,6 +72,165 @@ OPTIONS: Dict[str, Option] = {
              "inject a message drop roughly every N messages"),
         _opt("ms_inject_internal_delays", float, 0.0, LEVEL_DEV,
              "probability of injected message delay"),
+        _opt("osd_ec_op_coalesce", bool, True, LEVEL_ADVANCED,
+             "gather concurrent client-op EC codec work into batched "
+             "dispatches (the per-PG encode/decode coalescer; client "
+             "ops only, recovery/scrub stay per-call)"),
+        _opt("osd_tier_promote_from_encode", bool, True, LEVEL_ADVANCED,
+             "hand the cache tier the still-device-resident encode "
+             "output when a written object should be hot (writeback "
+             "promote-on-write composes the [k+m, shard] block ON "
+             "device from the granule input and parity output: zero "
+             "re-upload) instead of re-uploading the host copy.  "
+             "Granules carrying such objects are never donated",
+             see_also=("osd_ec_donate", "osd_tier_promote_temp")),
+        _opt("osd_recovery_max_chunk", int, 8 << 20, LEVEL_ADVANCED,
+             "max bytes per recovery window"),
+        _opt("osd_recovery_batched", bool, True, LEVEL_ADVANCED,
+             "route recovery pushes through the batched background data "
+             "plane (osd/recovery.py): per-PG recovery coalescer, fused "
+             "decode dispatches, corked multi-push messenger bursts.  "
+             "False restores the per-object windowed path (kept as the "
+             "recovery-path bench baseline)",
+             see_also=("osd_recovery_batch_bytes",
+                       "osd_recovery_max_active")),
+        _opt("osd_recovery_batch_bytes", int, 8 << 20, LEVEL_ADVANCED,
+             "byte budget per batched recovery dispatch: a batch's "
+             "gathered source chunks stay under this, and an object "
+             "whose shards exceed the per-object share falls back to "
+             "the windowed per-object path (bounded primary memory)",
+             see_also=("osd_recovery_batched",)),
+        _opt("osd_ec_fractional_repair", bool, True, LEVEL_ADVANCED,
+             "let fractional-repair codecs (regenerating codes, plugin "
+             "'regen') rebuild a single lost shard from beta-sized "
+             "helper symbols instead of k whole chunks.  False forces "
+             "the classic full-stripe gather (kept as the repair-path "
+             "bench baseline)",
+             see_also=("osd_recovery_batched",)),
+        _opt("osd_recovery_sleep", float, 0.0, LEVEL_ADVANCED,
+             "seconds of awaited pacing between background recovery/"
+             "scrub batches (the osd_recovery_sleep role); 0 still "
+             "yields the event loop once per batch so client ops "
+             "interleave",
+             see_also=("osd_recovery_batched",)),
+        _opt("osd_scrub_chunk_max", int, 512 << 10, LEVEL_ADVANCED,
+             "deep-scrub read-cursor chunk bytes per shard per round: "
+             "scrub walks objects in chunks of this size through the "
+             "batched read lane instead of one whole-shard read per "
+             "object (bounded memory, paced I/O)"),
+        _opt("osd_tier_promote_on_recovery", bool, True, LEVEL_ADVANCED,
+             "land a rebuilt hot (or previously-resident) object's full "
+             "shard block in the device tier as part of recovery itself "
+             "(promote-on-recovery): the batch already holds every "
+             "chunk, so the promote costs no extra shard reads.  The "
+             "insert is counted as tier_promote_from_recovery",
+             see_also=("osd_tier_promote_temp",
+                       "osd_tier_promote_from_encode")),
+        _opt("osd_qos_unified", bool, True, LEVEL_ADVANCED,
+             "fuse the dmClock op-queue discipline into the batched "
+             "data plane (osd/qos.py): coalesced client batches, "
+             "recovery cycles and scrub rounds claim admission slots "
+             "in per-class reservation/weight/limit tag order with "
+             "cost = stripe bytes, replacing the "
+             "BackgroundThrottle's client-pressure preemption gauge.  "
+             "False restores the gauge-based preemption (the A/B "
+             "baseline)",
+             see_also=("osd_qos_profile", "osd_qos_slots")),
+        _opt("osd_qos_profile", str,
+             "client:0:100:0,recovery:4:10:0,scrub:1:5:0",
+             LEVEL_ADVANCED,
+             "per-class dmClock triple, comma/space-separated "
+             "name:reservation:weight:limit entries -- reservation and "
+             "limit in MiB/s (0 = none), weight unitless.  Applied by "
+             "the unified admission layer (cost = batch stripe bytes) "
+             "and, scaled to 4KiB cost units, by the mclock op queue "
+             "for client sub-classes (a client op's qos_class field "
+             "names one)",
+             see_also=("osd_qos_unified",)),
+        _opt("osd_qos_slots", int, 4, LEVEL_ADVANCED,
+             "concurrent admission slots for batched dispatches per "
+             "OSD: the unified QoS layer's service capacity -- when "
+             "all are busy, freed slots go to queued classes in "
+             "dmClock tag order (the point where reservation floors "
+             "and weight shares are enforced)",
+             see_also=("osd_qos_unified",)),
+        _opt("osd_qos_op_slots", int, 64, LEVEL_ADVANCED,
+             "concurrent client-op execution slots per OSD under "
+             "unified QoS (the osd_op_tp width): freed slots are "
+             "granted to queued client ops in dmClock tag order by "
+             "qos_class instead of semaphore FIFO.  Matches the "
+             "legacy _cop_sem width by default",
+             see_also=("osd_qos_unified", "osd_qos_slots")),
+        _opt("osd_pg_log_dups_tracked", int, 3000, LEVEL_ADVANCED,
+             "reqid dup entries retained per OSD PG log for client-op "
+             "replay detection; kept past trim() like the reference's "
+             "pg_log_dup_t list (src/osd/osd_types.h), evicted oldest "
+             "first past this bound"),
+        _opt("client_probe_retries", int, 2, LEVEL_ADVANCED,
+             "consecutive failed probes of an unresponsive primary "
+             "before the Objecter demotes it and fails the op over "
+             "(the osd_heartbeat_grace role on the client side; one "
+             "missed connect under host load must not demote a live "
+             "primary)"),
+        _opt("client_probe_grace", float, 1.0, LEVEL_ADVANCED,
+             "seconds per Objecter reply-wait slice and per probe "
+             "attempt while an op is in flight",
+             see_also=("client_probe_retries",)),
+        _opt("client_backoff_base", float, 0.05, LEVEL_ADVANCED,
+             "initial delay before an Objecter resend after a primary "
+             "failover; doubles per attempt (with jitter) up to "
+             "client_backoff_max, always capped by the op deadline"),
+        _opt("client_backoff_max", float, 2.0, LEVEL_ADVANCED,
+             "ceiling on the Objecter's exponential resend backoff",
+             see_also=("client_backoff_base",)),
+        _opt("osd_recovery_max_active", int, 3, LEVEL_ADVANCED,
+             "max concurrent object recoveries per OSD"),
+        _opt("osd_tick_interval", float, 5.0, LEVEL_ADVANCED,
+             "seconds between OSD background ticks (peering/scrub)"),
+        _opt("osd_op_complaint_time", float, 5.0, LEVEL_ADVANCED,
+             "an op slower than this logs a slow-op warning with its "
+             "full decomposed timeline and is retained by "
+             "dump_historic_slow_ops (reference "
+             "osd_op_complaint_time, 30s; shrunk to the mini-cluster "
+             "time scale)"),
+        _opt("osd_op_history_size", int, 20, LEVEL_ADVANCED,
+             "completed TrackedOps retained per daemon for "
+             "dump_historic_ops (reference osd_op_history_size)"),
+        _opt("osd_op_history_slow_size", int, 20, LEVEL_ADVANCED,
+             "slowest completed TrackedOps retained per daemon "
+             "(reference osd_op_history_slow_op_size)"),
+        _opt("lockdep", bool, False, LEVEL_DEV,
+             "track lock acquisition order and raise on cycles "
+             "(reference src/common/lockdep.h; asyncio-lock analogue)"),
+        _opt("osd_client_op_commit_timeout", float, 30.0, LEVEL_ADVANCED,
+             "seconds a primary waits for sub-write commit acks before "
+             "failing the op (fault-injection tests shrink this to "
+             "manufacture torn writes)"),
+        _opt("osd_read_gather_timeout", float, 15.0, LEVEL_ADVANCED,
+             "seconds a primary waits for sub-read replies before "
+             "serving with whatever arrived (degraded decode or EIO)"),
+        _opt("osd_scrub_objects_per_tick", int, 4, LEVEL_ADVANCED,
+             "deep-scrub at most this many objects per background tick "
+             "(rate limit; 0 disables background scrub)"),
+        _opt("osd_tier_promote_temp", float, 0.25, LEVEL_ADVANCED,
+             "hit-set temperature at or above which the tier agent "
+             "promotes an object's shards into device memory (and "
+             "writeback-mode writes refresh the resident copy, "
+             "promote-on-write)"),
+        _opt("osd_op_batch_exec", bool, True, LEVEL_ADVANCED,
+             "execute decoded client-op bursts through the OSD shard's "
+             "array-batched fast path (osd/shard.py): one optracker "
+             "request, one dups-registry pass, per-class amortized QoS "
+             "admission and one corked reply burst per batch instead "
+             "of per-op dict walks.  Semantics (dup answers, typed "
+             "errors, apply-window kills, caps) are identical; false "
+             "runs the per-op path, the A/B baseline the wire-tax "
+             "bench compares against",
+             see_also=("osd_op_batch_max", "osd_wire_codec_native")),
+        _opt("osd_op_batch_max", int, 64, LEVEL_ADVANCED,
+             "max client ops gathered into one batched execution run "
+             "(bounds per-batch reply latency and memory)",
+             see_also=("osd_op_batch_exec",)),
     ]
 }
 

@@ -41,9 +41,30 @@ Phases (any failure raises and exits non-zero):
    of a shard.  It prints write and read GiB/s per mode, the stage times,
    ``h2d_per_granule`` and ``steady_library_builds``; each configuration's
    codec kernel must be launched during it (counts zeroed at the start).
+3c. The cluster path (``osd/cluster.py`` with the ``cuda`` plugin: objecter,
+   primary OSD, ``ECBackend`` and its coalescers, shard op queues and QoS,
+   the messenger, MemStore and recovery) on the card: ``ECCluster`` with 16
+   OSDs over a flat CRUSH map runs the storage cycle of
+   ``osd/cluster_bench.py`` -- write with 8 client tasks, kill the first OSD
+   of obj0's acting set, overwrite a quarter of the objects while
+   degraded, read everything (reads that lost a data shard decode),
+   revive, auto-recover until ``degraded_report()`` is empty (120 s
+   deadline), read everything again -- for reed_sol_van k=8 m=4 w=8 with
+   64 objects of 4 MiB, and w=16 and cauchy_good packetsize=2048 with 16
+   each.  Every read is checked against its payload; after recovery every
+   stored shard in every OSD's store is compared with the port's numpy
+   ``jerasure`` encode of the object's final payload and every shard's
+   ``HashInfo`` crc with the plain (byte-table) crc32c of its bytes.  The
+   codec kernel's launches are zeroed before and read after each of the
+   write, degraded-read and recovery steps and must rise in each.  It
+   prints the write and degraded-read GiB/s, time to clean and rebuilt
+   MiB/s, client op p50/p99 and the coalescers' encode and decode
+   dispatches and granules per step.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
-   erased), and one of ``-w storage-path --profile`` at the flagship
-   profile (64 objects of 4 MiB).
+   erased), one of ``-w storage-path --profile`` at the flagship profile
+   (64 objects of 4 MiB), and one of ``-w recovery-path`` with 32 objects
+   of 4 MiB (its gates: bit-exact rebuild, identical rebuilt stores in
+   both modes, the batched lane used, client p99 under 2000 ms).
 5. The fourteen sweep kernels (``csrc/sweep_kernels.cu`` and
    ``csrc/xornet_kernel.cu``) against their plain versions at the sweep's
    shape, lanes [8, 2097152], and at a ragged one: ``sweep_xornet`` for
@@ -104,15 +125,17 @@ import torch
 
 from ceph_tpu_torch.matrices import cauchy, liberation, reed_sol
 from ceph_tpu_torch.native import gf_native
-from ceph_tpu_torch.osd import ecutil, storage_bench
+from ceph_tpu_torch.osd import cluster_bench, ecutil, storage_bench
+from ceph_tpu_torch.osd.cluster import ECCluster
 from ceph_tpu_torch.matrices.bitmatrix import (matrix_to_bitmatrix,
                                                survivor_decode_bitmatrix)
 from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 from ceph_tpu_torch.ops.gf import gf
-from ceph_tpu_torch.ops.pipeline import DeviceStream
+from ceph_tpu_torch.ops.pipeline import DeviceStream, granules_dispatched
 from ceph_tpu_torch.plugins import registry as registry_mod
 from ceph_tpu_torch.tools import (ec_benchmark, ec_kernel_sweep,
                                   kernel_r4_probe, kernel_r4_split)
+from ceph_tpu_torch.utils.perf import PerfCounters
 
 #: H100 SXM published memory rate (NVIDIA data sheet) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -142,6 +165,15 @@ STORAGE_PROFILES = (
 )
 OBJECT = 4 << 20
 WRITERS = 8
+#: the cluster path: OSDs over a flat CRUSH map, the configurations (as
+#: the storage path's), every CLUSTER_OVERWRITE-th object overwritten
+#: while degraded, and the recovery deadline
+CLUSTER_OSDS = 16
+CLUSTER_PROFILES = STORAGE_PROFILES
+CLUSTER_OVERWRITE = 4
+CLUSTER_DEADLINE_S = 120.0
+#: the cycle's steps whose codec launches must rise
+CLUSTER_KERNEL_STEPS = ("write", "degraded_read", "recovery")
 STORAGE_ERASURES = 2
 STORAGE_ITERS = 2
 CRC_PREFIX = 64 << 10
@@ -1018,6 +1050,127 @@ def phase_storage_path(reg, seed: int, card: str) -> dict:
     return results
 
 
+def _crc32c_plain_rows(rows: np.ndarray) -> np.ndarray:
+    """The plain byte-table crc32c (``gf_native.crc32c_plain``'s loop) of
+    every row of ``rows`` at once: one numpy step per byte position."""
+    table = np.array(gf_native._TABLE, dtype=np.uint32)
+    crc = np.full(rows.shape[0], 0xFFFFFFFF, dtype=np.uint32)
+    for col in np.ascontiguousarray(rows.T):
+        crc = table[(crc ^ col) & 0xFF] ^ (crc >> 8)
+    return crc
+
+
+def _cluster_check(cluster, ref, final: dict) -> str:
+    """After recovery: every stored shard of every object against the
+    numpy ``jerasure`` encode of its final payload (ecutil's stripe
+    layout), and every shard's HashInfo crc against the plain crc32c."""
+    backend = cluster.osds[0].pools[cluster.pool]
+    sinfo, km = backend.sinfo, backend.km
+    shards, hashes = [], []
+    for oid, payload in final.items():
+        buf = np.zeros(sinfo.logical_to_next_stripe_offset(len(payload)),
+                       np.uint8)
+        buf[:len(payload)] = np.frombuffer(payload, np.uint8)
+        want = ecutil.encode(sinfo, ref, buf, range(km))
+        acting = cluster.backend.acting_set(oid)
+        for s in range(km):
+            store = cluster.osds[acting[s]].store
+            soid = f"{oid}@{s}"
+            got = store.read(soid)
+            assert got == want[s].tobytes(), \
+                f"cluster path: {soid} on osd.{acting[s]} differs from " \
+                f"the numpy jerasure plugin"
+            hinfo = ecutil.HashInfo.from_dict(
+                store.getattr(soid, ecutil.HINFO_KEY))
+            shards.append(np.frombuffer(got, np.uint8))
+            hashes.append(hinfo.get_chunk_hash(s))
+    plain = _crc32c_plain_rows(np.stack(shards))
+    bad = [i for i, (h, p) in enumerate(zip(hashes, plain)) if h != int(p)]
+    assert not bad, f"cluster path: {len(bad)} HashInfo crcs differ from " \
+        f"the plain crc32c"
+    return (f"{len(shards)} shards bit-exact vs numpy jerasure, their "
+            f"HashInfo crcs == plain crc32c")
+
+
+def _coalescer_counts() -> dict:
+    """Encode and decode dispatches of every primary's coalescers (the
+    ``ec_*_coalesce`` perf counters) and the pipeline's granules."""
+    dump = json.loads(PerfCounters.dump())
+    out = {key: sum(v.get(key, 0) for v in dump.values()
+                    if isinstance(v, dict))
+           for key in ("ec_encode_coalesce", "ec_decode_coalesce")}
+    out["granules"] = granules_dispatched()
+    return out
+
+
+def phase_cluster_path(seed: int, card: str) -> dict:
+    """The EC cluster's storage cycle on the card (docstring, phase 3c);
+    launches are zeroed before and read after each step."""
+    reg = registry_mod.instance()
+    results = {}
+    for label, extra, n_objects, name in CLUSTER_PROFILES:
+        ref = reg.factory("jerasure", _profile(extra))
+        payloads = cluster_bench.make_payloads(n_objects, OBJECT, seed)
+        overwrites = cluster_bench.make_overwrites(
+            payloads, CLUSTER_OVERWRITE, seed + 1)
+        launches, counts = {}, {}
+
+        def hook(_cluster, step, when):
+            if when == "start":
+                cuda_gf.reset_launches()
+                counts[step] = _coalescer_counts()
+            else:
+                torch.cuda.synchronize()
+                launches[step] = cuda_gf.launches[name]
+                before = counts[step]
+                counts[step] = {key: v - before[key]
+                                for key, v in _coalescer_counts().items()}
+
+        PerfCounters.reset_all()
+        t0 = time.perf_counter()
+        r = cluster_bench.run_storage_cycle(
+            lambda: ECCluster(CLUSTER_OSDS, _profile(extra), plugin="cuda"),
+            payloads, overwrites, writers=WRITERS,
+            deadline_s=CLUSTER_DEADLINE_S, hook=hook)
+        cycle_s = time.perf_counter() - t0
+        for step in CLUSTER_KERNEL_STEPS:
+            assert launches[step] > 0, \
+                f"cluster path {label}: {name} not launched in {step}"
+        t0 = time.perf_counter()
+        check = _cluster_check(r["cluster"], ref, r["final"])
+        check_s = time.perf_counter() - t0
+        head = (f"[cluster] {label}: {CLUSTER_OSDS} OSDs, {n_objects} x "
+                f"{OBJECT} B objects, {WRITERS} client tasks, "
+                f"{len(overwrites)} overwritten while osd.{r['victim']} "
+                f"was down")
+        op = r["op_ms"]
+        print(f"{head}: write {r['write_GiBs']:.4f} GiB/s, degraded write "
+              f"{r['degraded_write_GiBs']:.4f} GiB/s, degraded read "
+              f"{r['degraded_read_GiBs']:.4f} GiB/s, read "
+              f"{r['read_GiBs']:.4f} GiB/s; card {card}", flush=True)
+        print(f"{head}: time to clean {r['time_to_clean_s']:.3f} s, rebuilt "
+              f"{r['rebuilt_bytes']} B at {r['rebuild_MiBs']:.2f} MiB/s; "
+              f"card {card}", flush=True)
+        print(f"{head}: client op ms p50/p99 " + ", ".join(
+            f"{step} {op[step]['p50']:.1f}/{op[step]['p99']:.1f}"
+            for step in op) + f"; card {card}", flush=True)
+        print(f"{head}: {name} launches per step {json.dumps(launches)}; "
+              f"coalescer dispatches and pipeline granules per step "
+              f"{json.dumps(counts)}; card {card}", flush=True)
+        print(f"{head}: {check} ({check_s:.1f} s); cycle "
+              f"{cycle_s:.1f} s, steps {json.dumps(r['steps_s'])}; "
+              f"card {card}", flush=True)
+        results[label] = {
+            "kernel": name, "objects": n_objects, "obj_bytes": OBJECT,
+            "osds": CLUSTER_OSDS, "overwritten": len(overwrites),
+            "launches": launches, "coalescer": counts,
+            **{key: r[key] for key in (
+                "steps_s", "write_GiBs", "degraded_write_GiBs",
+                "degraded_read_GiBs", "read_GiBs", "time_to_clean_s",
+                "rebuilt_bytes", "rebuild_MiBs", "op_ms")}}
+    return results
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -1042,6 +1195,17 @@ def phase_ec_benchmark(card: str) -> None:
     prof = json.loads(out[-1])
     assert prof["bit_exact"] is True and \
         prof["steady_library_builds"] == {"per_op": 0, "coalesced": 0}, prof
+    print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]}; card {card}",
+          flush=True)
+    argv = ["-w", "recovery-path", "--objects", "32", "-s", str(OBJECT)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ec_benchmark.main(argv)
+    out = buf.getvalue().strip().splitlines()
+    assert rc == 0, f"ec_benchmark exited {rc}: {out}"
+    rec = json.loads(out[-1])
+    assert rec["bit_exact"] is True and \
+        rec["batched"]["counters"]["recovery_ops_batched"] > 0, rec
     print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]}; card {card}",
           flush=True)
 
@@ -1090,6 +1254,7 @@ def main(argv=None) -> int:
     per_profile = phase_main_path(reg, np.random.RandomState(args.seed), card)
     launched = dict(cuda_gf.launches)
     storage = phase_storage_path(reg, args.seed, card)
+    cluster = phase_cluster_path(args.seed, card)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
     launched.update(phase_probes(card))
@@ -1099,6 +1264,7 @@ def main(argv=None) -> int:
         assert row["launches"] > 0, f"{name} never launched on its path"
     print(json.dumps({"main_path": per_profile}))
     print(json.dumps({"storage_path": storage}))
+    print(json.dumps({"cluster_path": cluster}))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

@@ -529,7 +529,7 @@ def test_config_reads_every_option_the_port_declares():
     root = pathlib.Path(config.__file__).resolve().parents[1]
     read = set()
     for path in root.rglob("*.py"):
-        read |= set(re.findall(r'(?:get|set)_val\(\s*"(\w+)"',
+        read |= set(re.findall(r'(?:get|set|_cfg)_val\(\s*"(\w+)"',
                                path.read_text()))
     assert read == set(config.OPTIONS)
 

@@ -3,8 +3,9 @@ imports JAX, the JAX package or the JAX package's tools and experiments.
 Checked twice: statically (an AST scan of every import) and at run time (a
 fresh interpreter in which ``jax``, ``ceph_tpu``, ``tools`` and
 ``experiments`` cannot be imported imports every port module, encodes
-and decodes one stripe, runs one small coalesced storage-path pass, and
-runs the kernel sweep and its two probe tools on the CPU)."""
+and decodes one stripe, runs one small coalesced storage-path pass, one
+small EC cluster's write, kill, degraded read and recovery at k=2 m=1,
+and the kernel sweep and its two probe tools on the CPU)."""
 
 import ast
 import os
@@ -106,6 +107,15 @@ got = loop.run_until_complete(h.read_pass(store, 6, [3000] * 6,
                                           coalesce=True, readers=3))
 loop.close()
 assert got == payloads and len(store) == 6 * 6
+from ceph_tpu_torch.osd import cluster_bench
+from ceph_tpu_torch.osd.cluster import ECCluster
+small = cluster_bench.make_payloads(4, 5000, seed=2)
+over = cluster_bench.make_overwrites(small, 2, seed=3)
+r = cluster_bench.run_storage_cycle(
+    lambda: ECCluster(4, {"k": "2", "m": "1", "device": "cpu"}),
+    small, over, writers=2, deadline_s=30.0)
+assert r["final"] == dict(small, **over) and r["rebuilt_bytes"] > 0
+assert type(r["cluster"].ec).__module__ == "ceph_tpu_torch.plugins.cuda"
 from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_probe, kernel_r4_split
 for tool in (ec_kernel_sweep, kernel_r4_split, kernel_r4_probe):
     assert tool.main(["--device", "cpu", "--iters", "1"]) == 0

@@ -187,3 +187,60 @@ def test_segment_alignment_follows_the_lane_width():
     assert stream.cols_of(8 * 16 * 3) == 3 * 16 // 4
     w8, _ = _codecs("w8")
     assert w8.encode_stream().seg_align_bytes() == 4
+
+
+@pytest.mark.parametrize("name", ["w8", "w16", "w32"])
+def test_unpack_hands_matrix_codes_a_view_of_the_granule_output(name):
+    """A fused granule's stripes come back as views of its host output
+    (no strided copy), with each chunk row contiguous, and keep their
+    bytes after later granules land."""
+    ours, theirs = _codecs(name)
+    k = ours.k
+    stream = ours.encode_stream()
+    outputs = []
+    start_d2h = stream.start_d2h
+
+    def capture(out):
+        host, done = start_d2h(out)
+        outputs.append(host.numpy())
+        return host, done
+
+    stream.start_d2h = capture
+    rs = np.random.RandomState(13)
+    unit = _block_bytes(name, 1)
+    stripes = [rs.randint(0, 256, (k, unit * n), dtype=np.uint8)
+               for n in (2, 3, 1, 4, 2, 3)]
+    pipe = pipeline.EncodePipeline(stream, depth=1, max_granule=unit * 6)
+    got = pipe.encode_many(stripes)
+    assert len(outputs) > 1
+    for g, s in zip(got, stripes):
+        owners = [o for o in outputs if np.shares_memory(g, o)]
+        assert len(owners) == 1
+        assert all(row.flags.c_contiguous for row in g)
+        assert np.array_equal(g, theirs.encode(s))
+    # a whole-granule stripe and a slice of one give the same bytes as a
+    # contiguous copy
+    host = outputs[0]
+    cols = stream.cols_of(unit * 2)
+    view = stream.unpack(host, 0, unit * 2)
+    assert np.shares_memory(view, host)
+    assert np.array_equal(
+        view, np.ascontiguousarray(host[:, :cols]).view(np.uint8))
+
+
+def test_unpack_copies_packet_rows():
+    """Packet codes reorder packet rows into chunks: a new array."""
+    ours, theirs = _codecs("packet")
+    stream = ours.encode_stream()
+    unit = _block_bytes("packet", 1)
+    data = np.random.RandomState(5).randint(0, 256, (4, unit * 2),
+                                            dtype=np.uint8)
+    host = stream.compute(torch.from_numpy(np.zeros(
+        (stream.rows_in(), stream.cols_of(unit * 2)), np.int32)))
+    host = host.numpy()
+    block = stream.unpack(host, 0, unit * 2)
+    assert block.shape == (2, unit * 2)
+    assert not np.shares_memory(block, host)
+    pipe = pipeline.EncodePipeline(stream)
+    parity = pipe.result(pipe.submit(data))
+    assert np.array_equal(parity, theirs.encode(data))
