@@ -22,3 +22,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def codec_device(ec) -> torch.device:
+    """The device a codec runs on, where the storage layer keeps what it
+    holds for it (the cache tier): the ``cuda`` plugin's (the card, or the
+    CPU when its profile says ``device=cpu``); the CPU for a host codec
+    (``plugin="jerasure"``, which is how a caller asks for the CPU) or a
+    replicated pool (no codec)."""
+    dev = getattr(ec, "_device", None)
+    return dev if dev is not None else torch.device("cpu")

@@ -15,13 +15,31 @@ asynchronously-completed transfers.
   the number of XLA compilations, but a CUDA launch compiles nothing per
   shape, and PyTorch's caching allocators already round the staging and
   output buffers to reusable sizes, so padding would only add copy bytes
-  and kernel work.
+  and kernel work.  The ladder is ``osd_ec_shape_rungs``.
 * **Bounded in-flight depth**: a granule's upload is issued on a side copy
   stream from pinned host staging, its kernel on the current stream after
   the upload's event, and its result copied back into pinned host memory
   with an event to wait on.  Up to ``depth`` granules are in flight, and
-  the kernel of granule N is issued once the upload of granule N+1 is
-  queued, so copies ride under compute.
+  the kernel of granule N is issued once the uploads of the next
+  ``osd_ec_overlap_depth`` - 1 granules are queued, so copies ride under
+  compute.
+* **Content-addressed H2D cache**: re-encoding an unchanged buffer (what
+  the reference benchmark does every iteration) skips the re-upload the
+  way a CPU codec's unchanged buffer stays resident in its cache.  Keyed
+  by the granule's shape and a blake2b-128 of its packed bytes, never by
+  object identity; disable with ``CEPH_TPU_TORCH_NO_H2D_CACHE=1``.
+  Compute and parity D2H still happen every call -- only the *input
+  upload* of byte-identical content is elided.  Retained device bytes are
+  charged to the shared device ledger (``tier/device_tier.py``
+  ``DeviceByteAccount``) and the cache evicts LRU-first to its
+  ``osd_tier_h2d_cache_bytes`` sub-allocation of ``osd_tier_hbm_bytes``
+  -- the cache tier yields to this working set, so the two never jointly
+  exceed the budget.  Only granules whose content can repeat go through
+  it: the one-shot :class:`DeviceCodec` ``encode``/``decode`` calls and
+  ``keep_device`` granules.  A persistent write-lane or decode pipeline
+  (always-fresh granules) neither hashes nor retains its uploads, as the
+  reference's donated granules skip the cache (``osd_ec_donate``, on by
+  default there; the port donates nothing and declares no such option).
 
 On the CPU (``device="cpu"``) the same code runs synchronously, with each
 kernel's plain PyTorch version.
@@ -31,15 +49,15 @@ signature: every erased chunk (data or parity) is expressed as a GF-linear
 combination of the k selected survivors, composed on host, and the rows are
 cached per signature like the reference ISA plugin's decode-table LRU
 (ErasureCodeIsaTableCache.h:48).
-
-The reference's content-addressed H2D cache and its HBM ledger are not part
-of this port yet; every granule is uploaded.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
 import threading
+import weakref
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -54,11 +72,18 @@ from ceph_tpu_torch.matrices.bitmatrix import (
 )
 from ceph_tpu_torch.ops import bucketing, cuda_gf, torch_gf
 from ceph_tpu_torch.ops.gf import gf
+from ceph_tpu_torch.tier.device_tier import (DeviceByteAccount,
+                                             device_byte_account)
+from ceph_tpu_torch.utils.config import get_config
 
 _DEFAULT_DEPTH = 3
-#: staged uploads before the oldest one's kernel is issued (two slots:
-#: upload N+1 is queued before compute N)
-_OVERLAP = 2
+
+
+def _pipeline_tuning() -> int:
+    """Overlap slots from config (``osd_ec_overlap_depth``): staged
+    uploads before the oldest one's kernel is issued (two slots: upload
+    N+1 is queued before compute N)."""
+    return int(get_config().get_val("osd_ec_overlap_depth"))
 
 _stats_lock = threading.Lock()
 _granules_dispatched = 0
@@ -76,6 +101,59 @@ def _note_granule() -> None:
     global _granules_dispatched
     with _stats_lock:
         _granules_dispatched += 1
+
+
+def _h2d_cache_enabled() -> bool:
+    return not os.environ.get("CEPH_TPU_TORCH_NO_H2D_CACHE")
+
+
+def _release_h2d_entries(cache: "OrderedDict") -> None:
+    """Return a stream's cached upload bytes to the shared device ledger
+    and drop the device references.  Runs on explicit stream retirement
+    and as a GC finalizer backstop -- a collected stream must not leave
+    its bytes charged forever.  Takes the cache dict, not the stream, so
+    the finalizer holds no reference that would keep the stream alive."""
+    if not cache:
+        return
+    acct = device_byte_account()
+    for _d, nbytes, _ready in cache.values():
+        acct.release("h2d", nbytes)
+    cache.clear()
+
+
+#: content-keyed device uploads of codec matrices, charged to the "h2d"
+#: sub-allocation of the shared device ledger: the engine-level encode
+#: paths (``ops/torch_gf.py``) have no per-instance stream to hang the
+#: upload on, and callers loop them once per stripe.  Same bytes on the
+#: same device -> same device tensor, LRU-evicted (and ledger-settled)
+#: under budget pressure like the upload cache.
+_MATRIX_CACHE: "OrderedDict[Tuple, Tuple[torch.Tensor, int]]" = OrderedDict()
+_MATRIX_LOCK = threading.Lock()
+
+
+def accounted_device_matrix(arr: np.ndarray,
+                            device: torch.device) -> torch.Tensor:
+    """Device copy of ``arr`` on ``device``, cached by content and
+    accounted to the DeviceByteAccount ledger (budget:
+    osd_tier_h2d_cache_bytes, capped by osd_tier_hbm_bytes)."""
+    a = np.ascontiguousarray(arr)
+    key = (a.shape, str(a.dtype),
+           hashlib.blake2b(a, digest_size=16).digest(), str(device))
+    with _MATRIX_LOCK:
+        hit = _MATRIX_CACHE.get(key)
+        if hit is not None:
+            _MATRIX_CACHE.move_to_end(key)
+            return hit[0]
+    d = residency.device_put(a, device)
+    acct = device_byte_account()
+    budget = DeviceByteAccount.h2d_budget()
+    with _MATRIX_LOCK:
+        _MATRIX_CACHE[key] = (d, d.nbytes)
+        acct.charge("h2d", d.nbytes)
+        while _MATRIX_CACHE and acct.used("h2d") > budget:
+            _k, (_old, nb) = _MATRIX_CACHE.popitem(last=False)
+            acct.release("h2d", nb)
+    return d
 
 
 class DeviceStream:
@@ -114,6 +192,14 @@ class DeviceStream:
         self._B = residency.device_put(arr, self.device)
         self._copy_stream = torch.cuda.Stream(self.device) \
             if self._cuda else None
+        self._lock = threading.Lock()
+        #: content key -> (device tensor, nbytes, ready event or None);
+        #: bytes charged to the shared ledger, released on eviction /
+        #: retirement / GC
+        self._h2d_cache: OrderedDict[Tuple, Tuple] = OrderedDict()
+        #: uploads the cache elided (a granule whose content was resident)
+        self.h2d_cache_hits = 0
+        weakref.finalize(self, _release_h2d_entries, self._h2d_cache)
 
     # -- host-side layout ---------------------------------------------------
 
@@ -179,17 +265,66 @@ class DeviceStream:
         return torch.empty((self.rows_in(), cols), dtype=dtype,
                            pin_memory=self._cuda)
 
-    def upload(self, buf: torch.Tensor):
-        """H2D slot: queue the granule's upload on the copy stream.
-        Returns ``(device tensor, ready event or None)``."""
-        residency.note_h2d(buf.nbytes)
-        if not self._cuda:
-            return buf, None
-        with torch.cuda.stream(self._copy_stream):
-            d = buf.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
-        return d, ready
+    def upload(self, buf: torch.Tensor, *, cacheable: bool = True):
+        """H2D slot: queue the granule's upload on the copy stream,
+        optionally through the content-addressed upload cache.  Returns
+        ``(device tensor, ready event or None)``; a hit returns the
+        resident tensor and issues no H2D.
+
+        ``cacheable=False`` is the fresh-granule mode of a persistent
+        pipeline: its content does not repeat, so retaining (or even
+        content-hashing) it is wasted work.
+
+        The probe->upload stretch is a declared device-resident region:
+        the H2D of ``buf`` is the sanctioned upload edge, but nothing in
+        here may pull a value BACK to host (that is
+        :meth:`EncodePipeline._land`'s one designed D2H)."""
+        key = None
+        if cacheable and _h2d_cache_enabled():
+            # collision-resistant content key: this cache sits on the
+            # durability path (ECBackend writes route through it), so a
+            # 32-bit checksum is not acceptable -- blake2b-128 is
+            key = (tuple(buf.shape),
+                   hashlib.blake2b(buf.numpy(), digest_size=16).digest())
+        # cephlint: device-resident-section encode-dispatch
+        with residency.resident_section("encode-dispatch"):
+            with self._lock:
+                hit = self._h2d_cache.get(key) if key is not None else None
+                if hit is not None:
+                    self._h2d_cache.move_to_end(key)
+                    self.h2d_cache_hits += 1
+            if hit is not None:
+                return hit[0], hit[2]
+            residency.note_h2d(buf.nbytes)
+            if not self._cuda:
+                d, ready = buf, None
+            else:
+                with torch.cuda.stream(self._copy_stream):
+                    d = buf.to(self.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(self._copy_stream)
+            if key is not None:
+                # retention is byte-budgeted against the shared device
+                # ledger: LRU entries fall out once the cache's
+                # sub-allocation (osd_tier_h2d_cache_bytes, itself
+                # capped by osd_tier_hbm_bytes) is exceeded across all
+                # streams of this process
+                acct = device_byte_account()
+                budget = DeviceByteAccount.h2d_budget()
+                with self._lock:
+                    self._h2d_cache[key] = (d, d.nbytes, ready)
+                    acct.charge("h2d", d.nbytes)
+                    while self._h2d_cache and acct.used("h2d") > budget:
+                        _k, (_old, nb, _r) = self._h2d_cache.popitem(
+                            last=False)
+                        acct.release("h2d", nb)
+            return d, ready
+        # cephlint: end-device-resident-section
+
+    def release_h2d(self) -> None:
+        """Retire this stream's upload cache (ledger-settling)."""
+        with self._lock:
+            _release_h2d_entries(self._h2d_cache)
 
     def compute(self, d: torch.Tensor, ready=None) -> torch.Tensor:
         """Kernel slot: apply the resident matrix to the uploaded granule
@@ -198,14 +333,19 @@ class DeviceStream:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(ready)
             d.record_stream(cur)
-        if self._mode == "w8":
-            return cuda_gf.matrix_encode_w8(self._B, d, self.k, self.rows_out)
-        if self._mode == "w16":
-            return cuda_gf.matrix_encode_w16(self._B, d, self.k,
-                                             self.rows_out)
-        if self._mode == "packet":
-            return cuda_gf.packet_encode(self._B, d, self.rows_out * self.w)
-        return torch_gf._encode_words(self._B, d, self.w)
+        # cephlint: device-resident-section encode-compute
+        with residency.resident_section("encode-compute"):
+            if self._mode == "w8":
+                return cuda_gf.matrix_encode_w8(self._B, d, self.k,
+                                                self.rows_out)
+            if self._mode == "w16":
+                return cuda_gf.matrix_encode_w16(self._B, d, self.k,
+                                                 self.rows_out)
+            if self._mode == "packet":
+                return cuda_gf.packet_encode(self._B, d,
+                                             self.rows_out * self.w)
+            return torch_gf._encode_words(self._B, d, self.w)
+        # cephlint: end-device-resident-section
 
     def start_d2h(self, out: torch.Tensor):
         """Queue the result's copy into pinned host memory.  Returns
@@ -254,17 +394,25 @@ class EncodePipeline:
     once.  Thread-safe; unclaimed results are held until result() or
     discard() -- callers that abandon a ticket must discard it.
 
-    The dispatch is a two-slot pipeline: a granule's upload is queued at
+    The dispatch is a two-slot pipeline (``osd_ec_overlap_depth`` slots,
+    read when the pipeline is built): a granule's upload is queued at
     dispatch time but its kernel is issued only when the NEXT granule's
-    upload is queued (or at flush/claim).
+    upload is queued (or at flush/claim).  With ``cacheable=False`` (the
+    persistent pipelines' default) fresh granules skip the upload cache;
+    ``keep_device`` granules always go through it.
     """
 
     def __init__(self, stream: DeviceStream, depth: int = _DEFAULT_DEPTH,
-                 max_granule: Optional[int] = None):
+                 max_granule: Optional[int] = None,
+                 overlap: Optional[int] = None,
+                 cacheable: bool = False):
         self.stream = stream
         self.depth = depth
+        self.cacheable = bool(cacheable)
         if max_granule is None:
-            max_granule = bucketing.DEFAULT_RUNGS[-1]
+            max_granule = bucketing.ladder()[-1]
+        self.overlap = max(1, int(_pipeline_tuning() if overlap is None
+                                  else overlap))
         align = stream.seg_align_bytes()
         self._max_seg_bytes = max(align, max_granule - max_granule % align)
         self._max_cols = stream.cols_of(self._max_seg_bytes)
@@ -329,19 +477,28 @@ class EncodePipeline:
         for t, data, b0, blen in self._pending:
             entries.append((t, col0, b0, blen))
             col0 += stream.cols_of(blen)
-        # whole 4-lane (16-byte) vectors, the kernels' fast instantiation
-        buf = stream.staging(col0 + (-col0) % 4)
-        host = buf.numpy()
-        host[:, col0:] = 0
-        for (t, c0, b0, blen), (_t, data, _b0, _bl) in zip(
-                entries, self._pending):
-            stream.pack_into(host, c0, data[:, b0:b0 + blen])
         keep = any(t in self._keep for t, _c0, _b0, _bl in entries)
-        d, ready = stream.upload(buf)
-        self._staged.append((d, ready, keep, entries))
-        self._pending.clear()
-        self._pending_cols = 0
-        while len(self._staged) >= _OVERLAP:
+        # this is the coalescer's flush->encode cut: from pack to staged
+        # upload the granule stays on its way INTO the device -- the one
+        # designed D2H is _land(), outside the declared region below
+        # cephlint: device-resident-section granule-flush-encode
+        with residency.resident_section("granule-flush-encode"):
+            # whole 4-lane (16-byte) vectors, the kernels' fast
+            # instantiation
+            buf = stream.staging(col0 + (-col0) % 4)
+            host = buf.numpy()
+            host[:, col0:] = 0
+            for (t, c0, b0, blen), (_t, data, _b0, _bl) in zip(
+                    entries, self._pending):
+                stream.pack_into(host, c0, data[:, b0:b0 + blen])
+            # fresh granules skip the content cache unless this pipeline
+            # serves one-shot calls whose content can repeat
+            d, ready = stream.upload(buf, cacheable=self.cacheable or keep)
+            self._staged.append((d, ready, keep, entries))
+            self._pending.clear()
+            self._pending_cols = 0
+        # cephlint: end-device-resident-section
+        while len(self._staged) >= self.overlap:
             self._issue_compute()
         while len(self._inflight) > self.depth:
             self._land(self._inflight.popleft())
@@ -554,14 +711,23 @@ class DeviceCodec:
         with self._lock:
             self._decode_streams[sig] = (sel, stream)
             while len(self._decode_streams) > self.DECODE_LRU:
-                self._decode_streams.popitem(last=False)
+                # retire the dropped signature's stream NOW: its cached
+                # uploads must return to the device ledger
+                # deterministically, not whenever GC runs the finalizer
+                _sig, (_sel, old) = self._decode_streams.popitem(last=False)
+                old.release_h2d()
         return sel, stream
 
     # -- one-shot conveniences (the sync plugin contract) -------------------
 
     def encode(self, data: np.ndarray) -> np.ndarray:
-        """[k, bs] u8 -> [m, bs] u8, single fused dispatch."""
-        pipe = EncodePipeline(self.encode_stream(), depth=0)
+        """[k, bs] u8 -> [m, bs] u8, single fused dispatch.
+
+        One-shot sync contract: the content-addressed upload cache elides
+        repeat-content H2D (tools and engine callers re-encode identical
+        buffers); the persistent write-lane pipeline does not hash its
+        always-fresh granules."""
+        pipe = EncodePipeline(self.encode_stream(), depth=0, cacheable=True)
         return pipe.result(pipe.submit(data))
 
     def decode(self, have: Dict[int, np.ndarray],
@@ -576,7 +742,7 @@ class DeviceCodec:
             raise ValueError("not enough chunks to decode")
         sel, stream = self.decode_stream(available, erased)
         survivors = np.stack([out[c] for c in sel])
-        pipe = EncodePipeline(stream, depth=0)
+        pipe = EncodePipeline(stream, depth=0, cacheable=True)
         rec = pipe.result(pipe.submit(survivors))
         for i, e in enumerate(erased):
             out[e] = rec[i]

@@ -22,10 +22,7 @@ w-bit words as the little-endian bytes that hold them.
 from __future__ import annotations
 
 import functools
-import hashlib
-import threading
 import types
-from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -111,28 +108,13 @@ def _encode_packet_bits(B: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 # uploaded coding matrices
 # ---------------------------------------------------------------------------
 
-_MATRIX_CACHE: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
-_MATRIX_LOCK = threading.Lock()
-_MATRIX_CACHE_ENTRIES = 256
-
-
 def _device_matrix(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Device copy of a call-invariant coding matrix, cached by content so
-    callers that loop the engine per stripe upload it once."""
-    a = np.ascontiguousarray(arr)
-    key = (a.shape, str(a.dtype), str(device),
-           hashlib.blake2b(a, digest_size=16).digest())
-    with _MATRIX_LOCK:
-        hit = _MATRIX_CACHE.get(key)
-        if hit is not None:
-            _MATRIX_CACHE.move_to_end(key)
-            return hit
-    d = residency.device_put(a, device)
-    with _MATRIX_LOCK:
-        _MATRIX_CACHE[key] = d
-        while len(_MATRIX_CACHE) > _MATRIX_CACHE_ENTRIES:
-            _MATRIX_CACHE.popitem(last=False)
-    return d
+    callers that loop the engine per stripe upload it once, and charged to
+    the shared device ledger (``pipeline.accounted_device_matrix``)."""
+    from ceph_tpu_torch.ops.pipeline import accounted_device_matrix
+
+    return accounted_device_matrix(arr, device)
 
 
 @functools.lru_cache(maxsize=256)

@@ -13,8 +13,10 @@ The port's entry points run on the card unless asked for the CPU: the
 default ``plugin`` is ``"cuda"`` (the JAX package's is ``"jerasure"``), and
 a caller asks for the CPU with ``plugin="jerasure"`` or the profile key
 ``device=cpu``.  Paths that need a module the port has not copied --
-replicated pools, the mon quorum, the device cache tier -- raise at once
-(``ceph_tpu_torch/utils/unported.py``).
+replicated pools, the mon quorum -- raise at once
+(``ceph_tpu_torch/utils/unported.py``).  Each OSD's device cache tier lives
+on the pool codec's device: the card, or the CPU where the caller asked for
+it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import asyncio
 from typing import Dict, List, Optional
 
+from ceph_tpu_torch.device import codec_device
 from ceph_tpu_torch.osd.ecbackend import ECBackend, OSDShard
 from ceph_tpu_torch.osd.messenger import FaultInjector, Messenger
 from ceph_tpu_torch.osd.objecter import Objecter
@@ -32,9 +35,7 @@ from ceph_tpu_torch.utils.unported import refuse
 #: one: the card (the JAX package defaults to "jerasure")
 DEFAULT_PLUGIN = "cuda"
 
-#: the JAX package's cache-tier modes (ceph_tpu/tier/__init__.py); the
-#: port has no tier, so only "none" is accepted
-CACHE_MODES = ("writeback", "readproxy", "none")
+
 
 
 class ECCluster:
@@ -62,15 +63,6 @@ class ECCluster:
         if pool_type == "replicated":
             refuse("pool_type='replicated'", "replicated")
         self.messenger = Messenger(fault)
-        # kept for elastic add_osd: new daemons clone the boot shape
-        self._op_queue = op_queue
-        self._objectstore = objectstore
-        self._data_path = data_path
-        self.osds: List[OSDShard] = [
-            OSDShard(i, self.messenger, op_queue=op_queue,
-                     objectstore=objectstore, data_path=data_path)
-            for i in range(n_osds)
-        ]
         self.pool_type = pool_type
         if pool_type == "replicated":
             # TYPE_REPLICATED pool: profile carries {"size": N}
@@ -82,6 +74,17 @@ class ECCluster:
             registry = registry_mod.instance()
             self.ec = registry.factory(plugin, profile)
             km = self.ec.get_chunk_count()
+        # kept for elastic add_osd: new daemons clone the boot shape
+        self._op_queue = op_queue
+        self._objectstore = objectstore
+        self._data_path = data_path
+        self._device = codec_device(self.ec)
+        self.osds: List[OSDShard] = [
+            OSDShard(i, self.messenger, op_queue=op_queue,
+                     objectstore=objectstore, data_path=data_path,
+                     device=self._device)
+            for i in range(n_osds)
+        ]
         placement = None
         if use_crush:
             from ceph_tpu_torch.osd.placement import CrushPlacement
@@ -147,12 +150,11 @@ class ECCluster:
     def set_tier_mode(self, mode: str, pool: Optional[str] = None) -> None:
         """Configure a pool's device cache-tier mode on every hosted
         engine -- the in-process analogue of the mon's
-        ``osd tier cache-mode`` (writeback | readproxy | none).  The port
-        has no device tier: any mode but "none" raises."""
+        ``osd tier cache-mode`` (writeback | readproxy | none)."""
+        from ceph_tpu_torch.tier import CACHE_MODES
+
         if mode not in CACHE_MODES:
             raise ValueError(f"bad cache mode {mode!r}")
-        if mode != "none":
-            refuse(f"set_tier_mode({mode!r})", "tier")
         pool = pool or self.pool
         for osd in self.osds:
             backend = osd.pools.get(pool)
@@ -371,6 +373,7 @@ class ECCluster:
             txn.remove(stored)
         osd.store.queue_transaction(txn)
         osd._applied_version.clear()
+        osd.tier.clear()
         osd._store_nonempty = False
         osd._scrub_bases = None
         for other in self.osds:
@@ -419,6 +422,7 @@ class ECCluster:
         shard = OSDShard(
             new_id, self.messenger, op_queue=self._op_queue,
             objectstore=self._objectstore, data_path=self._data_path,
+            device=self._device,
         )
         # engines first, membership second: peering must never route to
         # an id whose daemon has no engine for the pool yet
@@ -536,6 +540,9 @@ class ECCluster:
     async def shutdown(self) -> None:
         await self.messenger.shutdown()
         for osd in self.osds:
+            # settle the shared device ledger: a dead daemon's resident
+            # tier bytes must not stay charged against live ones
+            osd.tier.clear()
             umount = getattr(osd.store, "umount", None)
             if umount is not None:
                 umount()

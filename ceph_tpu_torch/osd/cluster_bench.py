@@ -14,6 +14,10 @@ of calls runs the port's cluster and the JAX package's side by side; a
 ``hook(cluster, step, when)`` callback runs at the ``"start"`` and
 ``"end"`` of each step of :data:`STEPS` (the card run zeroes and reads
 the kernel launch counts there, the tests snapshot the stores).
+
+:func:`run_tier_cycle` is the device cache tier's cycle (steps
+:data:`TIER_STEPS`): the same objects through a cluster whose pool is in
+a cache mode, with the tier's hits, misses, puts and evictions per step.
 """
 
 from __future__ import annotations
@@ -26,6 +30,13 @@ import numpy as np
 
 #: the cycle's steps, in order
 STEPS = ("write", "degraded_write", "degraded_read", "recovery", "read")
+#: the tier cycle's steps, in order
+TIER_STEPS = ("write", "read", "tick", "rewrite", "read_hot",
+              "degraded_read", "recovery", "read_after")
+#: the tier's per-OSD perf counters a tier cycle sums per step
+TIER_COUNTERS = ("tier_promote_from_encode", "tier_promote_ops",
+                 "tier_evict_ops", "tier_evict_bytes", "tier_invalidate",
+                 "tier_hit_read", "tier_agent_failed")
 
 
 def make_payloads(n_objects: int, obj_bytes: int, seed: int = 0
@@ -155,6 +166,129 @@ async def run_cycle(cluster, payloads: Dict[str, bytes],
         "op_ms": {name: {"p50": _pct(v, 0.50) * 1e3,
                          "p99": _pct(v, 0.99) * 1e3, "ops": len(v)}
                   for name, v in lat.items()},
+        "final": current,
+    }
+
+
+def tier_state(cluster) -> Dict[str, int]:
+    """The cluster's tiers summed over its OSDs: hits, misses, resident
+    bytes and entries, and the :data:`TIER_COUNTERS`."""
+    out = {"hits": 0, "misses": 0, "resident_bytes": 0, "entries": 0,
+           **{key: 0 for key in TIER_COUNTERS}}
+    for osd in cluster.osds:
+        status = osd.tier.status()
+        out["hits"] += status["hit"]
+        out["misses"] += status["miss"]
+        out["resident_bytes"] += status["resident_bytes"]
+        out["entries"] += status["entries"]
+        perf = osd.perf.snapshot()
+        for key in TIER_COUNTERS:
+            out[key] += perf.get(key, 0)
+    return out
+
+
+async def run_tier_cycle(cluster, mode: str, payloads: Dict[str, bytes],
+                         rewrites: Dict[str, bytes], *, writers: int = 8,
+                         tick: float = 0.05, deadline_s: float = 120.0,
+                         hook: Optional[Callable[[object, str, str], None]]
+                         = None) -> Dict:
+    """The device tier's cycle on a cluster built in the running loop,
+    with the pool in cache mode ``mode``: write every object (cold:
+    nothing is resident yet), read every object (the reads heat the hit
+    sets), run one agent tick on every OSD (it promotes the hot objects and
+    evicts under the budget), rewrite the objects of ``rewrites``
+    (writeback: the write hands the tier the encode's device block,
+    promote-from-encode; readproxy: the write invalidates the resident
+    copy), read every object, read every object again with the first OSD
+    of the first object's acting set killed (a tier hit needs no decode),
+    revive it, recover until clean and read every object again.  Every
+    read is checked against its payload.  Returns the seconds and the
+    change of :func:`tier_state` of each step of :data:`TIER_STEPS`, the
+    resident bytes after each step, and the rewritten objects still
+    resident after the rewrite."""
+    hook = hook or (lambda cluster, step, when: None)
+    cluster.set_tier_mode(mode)
+    current = dict(payloads)
+    steps_s: Dict[str, float] = {}
+    deltas: Dict[str, Dict[str, int]] = {}
+    resident: Dict[str, int] = {}
+
+    async def write(oid, data):
+        await cluster.write(oid, data)
+
+    async def read(oid, want):
+        got = await cluster.read(oid)
+        if got != want:
+            raise AssertionError(f"tier cycle: read of {oid} differs from "
+                                 "its payload")
+
+    async def tick_all():
+        for osd in cluster.osds:
+            await osd.tier_tick()
+
+    async def step(name, coro_fn):
+        before = tier_state(cluster)
+        hook(cluster, name, "start")
+        t0 = time.perf_counter()
+        await coro_fn()
+        steps_s[name] = time.perf_counter() - t0
+        hook(cluster, name, "end")
+        after = tier_state(cluster)
+        deltas[name] = {key: after[key] - before[key] for key in after
+                        if key not in ("resident_bytes", "entries")}
+        resident[name] = after["resident_bytes"]
+
+    first = next(iter(payloads))
+    victim = cluster.backend.acting_set(first)[0]
+    await step("write", lambda: _client_ops(payloads.items(), write,
+                                            writers))
+    await step("read", lambda: _client_ops(current.items(), read, writers))
+    await step("tick", tick_all)
+    current.update(rewrites)
+    await step("rewrite", lambda: _client_ops(rewrites.items(), write,
+                                              writers))
+    still = sorted(oid for oid in rewrites
+                   if any(osd.tier.contains(cluster.pool, oid)
+                          for osd in cluster.osds))
+    await step("read_hot", lambda: _client_ops(current.items(), read,
+                                                writers))
+    cluster.kill_osd(victim)
+    await step("degraded_read", lambda: _client_ops(current.items(), read,
+                                                    writers))
+
+    async def recover():
+        cluster.revive_osd(victim)
+        cluster.start_auto_recovery(interval=tick)
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + deadline_s
+        while await cluster.degraded_report():
+            if loop.time() > deadline:
+                raise AssertionError(
+                    f"tier cycle: not clean within {deadline_s} s")
+            await asyncio.sleep(tick)
+
+    await step("recovery", recover)
+    await step("read_after", lambda: _client_ops(current.items(), read,
+                                                 writers))
+    gib = 2 ** 30
+    read_bytes = sum(len(d) for d in current.values())
+    return {
+        "mode": mode,
+        "objects": len(payloads),
+        "rewritten": len(rewrites),
+        "victim": victim,
+        "steps_s": steps_s,
+        "tier": deltas,
+        "resident_bytes": resident,
+        "rewritten_still_resident": still,
+        "write_GiBs": sum(len(d) for d in payloads.values()) / gib /
+        steps_s["write"],
+        "rewrite_GiBs": sum(len(d) for d in rewrites.values()) / gib /
+        steps_s["rewrite"],
+        "read_GiBs": read_bytes / gib / steps_s["read"],
+        "read_hot_GiBs": read_bytes / gib / steps_s["read_hot"],
+        "degraded_read_GiBs": read_bytes / gib / steps_s["degraded_read"],
+        "read_after_GiBs": read_bytes / gib / steps_s["read_after"],
         "final": current,
     }
 

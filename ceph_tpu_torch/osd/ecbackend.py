@@ -61,7 +61,6 @@ from ceph_tpu_torch.osd.shard import OSDShard  # noqa: F401  (compat re-export)
 from ceph_tpu_torch.osd.types import ECSubWrite, LogEntry, Transaction
 from ceph_tpu_torch.utils import trace
 from ceph_tpu_torch.utils.perf import PerfCounters, stage_histogram
-from ceph_tpu_torch.utils.unported import refuse
 
 
 class ECBackend(PG):
@@ -194,7 +193,7 @@ class ECBackend(PG):
         nbytes = sum(c.nbytes for c in chunks.values())
         return await self._dec_coalescer.submit(chunks, nbytes)
 
-    # -- device cache tier (none in the port) ------------------------------
+    # -- device cache tier (ceph_tpu_torch/tier/) --------------------------
 
     def _tier_read(self, oid: str, offset: Optional[int] = None,
                    length: Optional[int] = None) -> Optional[bytes]:
@@ -209,9 +208,58 @@ class ECBackend(PG):
         tier = self._tier
         if tier is None or self.tier_mode not in ("writeback", "readproxy"):
             return None
-        # the port has no device tier (ROADMAP.md queue 1 item 3): the
-        # shard hands its engines tier None, so this is never reached
-        refuse("the tier-hit read", "tier")
+        ent = tier.lookup(self.pool_name, oid)
+        if ent is None:
+            return None
+        known = self._versions.get(oid)
+        if known is not None and ent.version[0] < known:
+            # this primary already assigned/learned a newer version:
+            # the resident block predates it
+            tier.invalidate(self.pool_name, oid)
+            self.perf.inc("tier_stale_drop")
+            return None
+        from ceph_tpu_torch.analysis.residency import (device_get,
+                                                       resident_section)
+
+        start = 0
+        if offset is not None:
+            if offset >= ent.logical_size:
+                return b""
+            length = min(length, ent.logical_size - offset)
+            start, span = self.sinfo.offset_len_to_stripe_bounds(
+                offset, length)
+            chunk_off = self.sinfo.aligned_logical_offset_to_chunk_offset(
+                start)
+            chunk_len = (span // self.sinfo.stripe_width) * \
+                self.sinfo.chunk_size
+        pos = ecutil.data_positions(self.ec)
+        # row (and, for extents, chunk-column) selection happens ON
+        # DEVICE; the declared region pins the hit path's contract --
+        # exactly one D2H (the seam below), of only the bytes a read
+        # needs
+        # cephlint: device-resident-section tier-hit-read
+        with resident_section("tier-hit-read"):
+            if pos == list(range(self.k)):
+                # the common layout: data rows lead -- D2H only those
+                dev_rows = ent.block[:self.k]
+                remap = None
+            else:
+                dev_rows = ent.block  # remapped chunks: whole block
+                remap = pos
+            if offset is not None:
+                hi = min(chunk_off + chunk_len, dev_rows.shape[1])
+                dev_rows = dev_rows[:, chunk_off:hi]
+        # cephlint: end-device-resident-section
+        host = device_get(dev_rows)  # the hit path's ONE designed D2H
+        rows = host if remap is None else np.stack([host[p] for p in remap])
+        from ceph_tpu_torch.tier.device_tier import reassemble_data_rows
+
+        data = reassemble_data_rows(rows, self.sinfo.chunk_size)
+        self.perf.inc("tier_hit_read")
+        if offset is None:
+            return data[:ent.logical_size]
+        lo = offset - start
+        return data[lo:lo + length]
 
     def _tier_hist(self, which: str):
         """Lazy tier read-latency observers (hit vs miss), shared per
@@ -268,24 +316,15 @@ class ECBackend(PG):
         if self.tier_mode == "writeback" and logical and (
             resident or self._tier_hot(oid)
         ):
-            # resident blocks are keyed by the mesh slice owning the
-            # object's PG (None off-plane): the tier's per-slice
-            # accounting is how "which device holds what" stays a
-            # ledger fact once the plane shards ownership
-            plane = self._mesh_plane()
-            mesh_slice = plane.owner_slot(self._pg_of(oid)) \
-                if plane is not None else None
             if dev_block is not None:
                 tier.put(self.pool_name, oid, dev_block, version, logical,
-                         dirty=True, resident_origin=True,
-                         mesh_slice=mesh_slice)
+                         dirty=True, resident_origin=True)
                 return True
             block = np.stack([
                 np.asarray(encoded[s], dtype=np.uint8)
                 for s in range(self.km)
             ])
-            tier.put(self.pool_name, oid, block, version, logical,
-                     dirty=True, mesh_slice=mesh_slice)
+            tier.put(self.pool_name, oid, block, version, logical, dirty=True)
             return True
         if resident:
             tier.invalidate(self.pool_name, oid)

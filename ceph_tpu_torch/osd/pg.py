@@ -286,9 +286,9 @@ class PG:
         #: per-object SnapSet cache learned via _stat:
         #: {"seq", "clones", "exists", "size"}
         self._snapsets: Dict[str, dict] = {}
-        # -- device cache tier hookup (none in the port) -------------------
-        #: the hosting OSD's DeviceTierStore in the JAX package; the
-        #: port's OSDShard has none, so it stays None
+        # -- device cache tier hookup (ceph_tpu_torch/tier/) ---------------
+        #: the hosting OSD's DeviceTierStore (OSDShard.host_pool wires
+        #: it; a standalone engine keeps the tier off)
         self._tier = None
         #: per-pool cache mode: "writeback" | "readproxy" | "none"
         #: (flows from the mon's `osd tier cache-mode` via the osdmap,

@@ -83,7 +83,7 @@ class OSDShard:
 
     def __init__(self, osd_id: int, messenger: Messenger,
                  op_queue: str = "wpq", objectstore: str = "memstore",
-                 data_path: str = ""):
+                 data_path: str = "", device="cuda"):
         from ceph_tpu_torch.osd.opqueue import MClockQueue, WeightedPriorityQueue
         from ceph_tpu_torch.osd.pglog import PGLog
         from ceph_tpu_torch.utils.optracker import OpTracker
@@ -153,14 +153,20 @@ class OSDShard:
         from ceph_tpu_torch.osd.hitset import HitSetTracker
 
         self.hitsets = HitSetTracker()
-        # device-resident cache tier (ceph_tpu/tier/ in the JAX package:
-        # hot objects' encoded shards stay in device memory and an agent
-        # promotes / flushes / evicts by hit-set temperature).  The port
-        # has no tier yet (ROADMAP.md queue 1 item 3): None here, and
-        # every hook below skips it; ECCluster.set_tier_mode refuses any
-        # mode but "none".
-        self.tier = None
-        self.tier_agent = None
+        # device-resident cache tier (ceph_tpu_torch/tier/): hot objects'
+        # encoded shards stay in device memory (on ``device``: the card
+        # unless the caller asked for the CPU), byte-budgeted against
+        # the process-wide device ledger; the agent (tier_tick) promotes
+        # / flushes / evicts by hit-set temperature.  temp_fn late-binds
+        # through self so a swapped tracker is picked up.
+        from ceph_tpu_torch.tier.device_tier import DeviceTierStore
+
+        self.tier = DeviceTierStore(
+            perf=self.perf,
+            temp_fn=lambda pool, oid: self.hitsets.temperature(oid),
+            device=device,
+        )
+        self.tier_agent = None  # built lazily on the first active tick
         self.op_queue_type = op_queue
         if op_queue == "mclock":
             # the base classes keep their legacy 4KiB-unit rates; the
@@ -513,15 +519,25 @@ class OSDShard:
         dirty entries, promote hot objects this OSD leads in one batched
         device transfer, evict back under osd_tier_hbm_bytes.  No-op
         until some hosted pool's cache mode is writeback/readproxy.
-        Returns objects promoted (the tick's action count).  The port has
-        no tier (ECCluster.set_tier_mode refuses every other mode), so a
-        hosted pool in another mode than "none" raises."""
+        Returns objects promoted (the tick's action count)."""
         if not any(
             getattr(b, "tier_mode", "none") != "none"
             for b in self.pools.values()
         ):
             return 0
-        refuse("OSDShard.tier_tick", "tier")
+        if self.tier_agent is None:
+            from ceph_tpu_torch.tier.agent import TierAgent
+
+            self.tier_agent = TierAgent(self)
+        try:
+            stats = await self.tier_agent.tick()
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 -- a failed agent round must
+            # not kill the tick loop; the next tick retries
+            self.perf.inc("tier_agent_failed")
+            return 0
+        return int(stats.get("promoted", 0))
 
     def mgr_report_stats(self) -> dict:
         """The MgrReport payload for this daemon (mgr/report.py schema).
@@ -750,8 +766,7 @@ class OSDShard:
             # a rolled-back shard invalidates any resident copy of its
             # base object (the device block was built pre-rollback)
             base = target_soid.rpartition("@")[0] or target_soid
-            if self.tier is not None:
-                self.tier.invalidate_oid(base)
+            self.tier.invalidate_oid(base)
             if ok:
                 try:
                     self.store.stat(target_soid)
@@ -1636,8 +1651,7 @@ class OSDShard:
         # promotions of the rebuilt object must not be dropped (the
         # rebuilt-object-goes-cold bug: the unconditional invalidate
         # notified the agent's watchers even when the entry survived)
-        if self.tier is not None and not (
-                msg.op_class in ("recovery", "scrub")
+        if not (msg.op_class in ("recovery", "scrub")
                 and self.tier.recovery_refresh(msg.oid, new_vt)):
             self.tier.invalidate_oid(msg.oid, keep_version=new_vt)
         # log_operation before queue_transactions (reference order,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """ceph_erasure_code_benchmark-compatible CLI for the port's plugins.
 
-Port of the ``encode``, ``decode``, ``storage-path`` and ``recovery-path``
-workloads of ``tools/ec_benchmark.py`` (reference:
+Port of the ``encode``, ``decode``, ``storage-path``, ``recovery-path`` and
+``tier-path`` workloads of ``tools/ec_benchmark.py`` (reference:
 src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137 setup,
 :150-188 encode, :253-327 decode): encode and decode print
 ``<elapsed_seconds>\\t<KiB>`` where KiB = iterations * size / 1024 (times
@@ -18,6 +18,11 @@ reference's with ``steady_library_builds`` in place of
 ``--objects`` objects of ``--size`` bytes) and prints its result as one
 JSON line.  Its profile is fixed (k=4 m=2, the ``cuda`` plugin), so it
 needs no ``-P k``/``-P m``; ``-P`` entries overlay it (``-P device=cpu``).
+``tier-path`` runs ``tier/tier_bench.py`` (``--objects`` objects of
+``--size`` bytes resident in the device cache tier: hot reads from the
+resident block against cold reads that decode with ``--erasures`` data
+shards withheld, best of ``--iterations``, bit-exactness gated before
+timing) and prints its result as one JSON line.
 
 Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark -p cuda -w encode \\
@@ -28,6 +33,8 @@ Examples:
         --objects 64 -s 4194304 --profile -P k=8 -P m=4
     python -m ceph_tpu_torch.tools.ec_benchmark -w recovery-path \\
         --objects 32 -s 4194304
+    python -m ceph_tpu_torch.tools.ec_benchmark -w tier-path \\
+        --objects 64 -s 4194304 -i 2 -e 2 -P k=8 -P m=4
 
 The default plugin is ``cuda``, which runs on the card and raises where
 there is none; ``-P device=cpu`` runs it on the CPU, and ``-p jerasure``
@@ -58,7 +65,7 @@ def parse_args(argv):
                         "card)")
     p.add_argument("-w", "--workload", default="encode",
                    choices=["encode", "decode", "storage-path",
-                            "recovery-path"])
+                            "recovery-path", "tier-path"])
     p.add_argument("-e", "--erasures", type=int, default=1,
                    help="number of erasures when decoding")
     p.add_argument("--erased", type=int, action="append", default=[],
@@ -75,8 +82,8 @@ def parse_args(argv):
     p.add_argument("--writers", type=int, default=8,
                    help="concurrent writers for --workload storage-path")
     p.add_argument("--objects", type=int, default=64,
-                   help="objects per storage-path pass, or rebuilt by "
-                        "recovery-path")
+                   help="objects per storage-path pass, rebuilt by "
+                        "recovery-path, or resident for tier-path")
     p.add_argument("--profile", action="store_true",
                    help="storage-path only: print the per-stage transfer "
                         "ledger (h2d/d2h ops+bytes, library builds, "
@@ -169,6 +176,8 @@ def main(argv=None) -> int:
 
     if args.workload == "storage-path":
         return _storage_path(args, ec)
+    if args.workload == "tier-path":
+        return _tier_path(args, ec)
 
     if args.payload == "random":
         payload = np.random.RandomState(42).randint(
@@ -283,6 +292,29 @@ def _storage_path(args, ec) -> int:
         f"GiB/s ({result['write_speedup']}x per-op), read "
         f"{result['coalesced']['read_GiBs']:.4f} GiB/s "
         f"({result['read_speedup']}x)", file=sys.stderr,
+    )
+    return 0
+
+
+def _tier_path(args, ec) -> int:
+    """Device cache tier: hot tier-resident read (one D2H + transpose
+    from the shard-major device block) vs the cold miss path (frombuffer
+    ingest + degraded decode), bit-exactness gated before timing."""
+    from ceph_tpu_torch.tier.tier_bench import run_tier_path_bench
+
+    result = run_tier_path_bench(
+        ec, n_objects=args.objects, obj_bytes=args.size,
+        iters=max(1, args.iterations), erasures=args.erasures,
+    )
+    print(json.dumps(result))
+    print(
+        f"tier-path k={result['k']} m={result['m']} "
+        f"{args.objects}x{args.size}B: hot read "
+        f"{result['hot_read_GiBs']:.4f} GiB/s vs cold decode "
+        f"{result['cold_read_GiBs']:.4f} GiB/s "
+        f"({result['read_speedup']}x), "
+        f"{result['resident_bytes']} bytes resident",
+        file=sys.stderr,
     )
     return 0
 

@@ -14,7 +14,11 @@ With ``--storage-path`` it traces the storage path instead
 (``osd/storage_bench.py``, the same profile): one coalesced write pass of
 64 objects of 4 MiB with 8 writers, then one degraded read of them (2
 erasures), each after an untimed warm pass, printing the same breakdown
-and the pass's host stage times.  Then it splits the host time of both
+and the pass's host stage times.  Before them, one write pass of each mode
+is split for the coalesced write's loss: pinned host allocations (the
+caching host allocator's counters, and ``cudaHostAlloc`` calls and their
+time in a profiler trace), minor page faults, and the commit's crc and
+copy per object.  Then it splits the host time of both
 modes, per-op and coalesced: each write and read pass runs again under
 ``cProfile`` with the stage profiler on (the coalescer's dispatch time),
 both modes' passes alternate for ``ROUNDS`` rounds without a profiler
@@ -49,6 +53,7 @@ import cProfile
 import json
 import os
 import pstats
+import resource
 import statistics
 import subprocess
 import sys
@@ -60,6 +65,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ceph_tpu_torch import profiling
 from ceph_tpu_torch.osd import cluster_bench, ecutil, storage_bench
+from ceph_tpu_torch.osd.coalescer import BatchCoalescer
 from ceph_tpu_torch.plugins import registry
 
 STRIPE = 8 << 20
@@ -73,7 +79,7 @@ WRITERS = 8
 #: rounds of the per-op / coalesced comparison
 TOP = 14
 REPEATS = 5
-ROUNDS = 6
+ROUNDS = 12
 #: the cluster path: OSDs, and every CLUSTER_OVERWRITE-th object written
 #: while an OSD is down
 CLUSTER_OSDS = 16
@@ -186,6 +192,9 @@ def storage_path(ec, seed: int, trace_dir: str | None) -> None:
 
     try:
         store = write({})  # warm, and the store the read pass reads
+        for coalesce in (False, True):
+            print(json.dumps(dict(write_split(h, loop, payloads, coalesce),
+                                  card=card)), flush=True)
         for label, run in (("storage_path_write_coalesced", write),
                            ("storage_path_read_coalesced", read)):
             run({})  # warm
@@ -206,6 +215,111 @@ def storage_path(ec, seed: int, trace_dir: str | None) -> None:
             print(json.dumps(dict(row, card=card)), flush=True)
     finally:
         loop.close()
+
+
+def _host_alloc_stats() -> dict:
+    """The caching host allocator's numeric counters, flattened (empty
+    where this PyTorch has no ``torch.cuda.host_memory_stats``)."""
+    try:
+        stats = torch.cuda.host_memory_stats()
+    except (AttributeError, RuntimeError):
+        return {}
+    flat = {}
+    for key, val in stats.items():
+        if isinstance(val, dict):
+            flat.update({f"{key}.{k}": v for k, v in val.items()
+                         if isinstance(v, (int, float))})
+        elif isinstance(val, (int, float)):
+            flat[key] = val
+    return flat
+
+
+async def _split_write_pass(h, payloads, coalesce: bool, commit: list):
+    """``StoragePathHarness.write_pass`` with its commit split in two:
+    appends (crc seconds, copy seconds) per object to ``commit``."""
+    sinfo, k, km, ec = h.sinfo, h.k, h.km, h.ec
+    coal = BatchCoalescer(
+        lambda blocks: ecutil.encode_shard_major_many(ec, blocks, range(km))
+    ) if coalesce else None
+    store: dict = {}
+    queue = list(enumerate(payloads))
+
+    async def writer():
+        while queue:
+            idx, data = queue.pop()
+            buf = np.zeros(sinfo.logical_to_next_stripe_offset(len(data)),
+                           dtype=np.uint8)
+            buf[:len(data)] = np.frombuffer(data, dtype=np.uint8)
+            sm = ecutil.to_shard_major(sinfo, k, buf)
+            if coal is not None:
+                enc = await coal.submit(sm, sm.nbytes)
+            else:
+                enc = ecutil.encode_shard_major_many(ec, [sm], range(km))[0]
+            t0 = time.perf_counter()
+            ecutil.HashInfo(km).append(0, enc)
+            t1 = time.perf_counter()
+            for s in range(km):
+                store[f"obj{idx}@{s}"] = enc[s].tobytes()
+            commit.append((t1 - t0, time.perf_counter() - t1))
+
+    await asyncio.gather(*(writer() for _ in range(WRITERS)))
+    return store
+
+
+def write_split(h, loop, payloads, coalesce: bool) -> dict:
+    """One write pass of one mode, after an untimed warm one, split for
+    the coalesced write's loss: pinned host allocations (the caching host
+    allocator's counters, and ``cudaHostAlloc`` calls and their time in a
+    ``torch.profiler`` trace of a second pass), minor page faults, and the
+    commit's crc and copy per object."""
+    def run(commit):
+        return loop.run_until_complete(
+            _split_write_pass(h, payloads, coalesce, commit))
+
+    run([])  # warm
+    _sync()
+    host0, flt0 = _host_alloc_stats(), \
+        resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+    commit: list = []
+    t0 = time.perf_counter()
+    run(commit)
+    _sync()
+    wall_s = time.perf_counter() - t0
+    flt = resource.getrusage(resource.RUSAGE_SELF).ru_minflt - flt0
+    host1 = _host_alloc_stats()
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        run([])
+        _sync()
+    allocs: dict = {}
+    for ev in prof.events():
+        if any(api in ev.name for api in ("cudaHostAlloc", "cudaMallocHost",
+                                          "cudaHostRegister", "cudaFreeHost",
+                                          "cudaHostUnregister")):
+            n, us = allocs.get(ev.name, (0, 0.0))
+            allocs[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+    crc = [c for c, _ in commit]
+    copy = [c for _, c in commit]
+    return {"call": "storage_path_write_split_"
+                    f"{'coalesced' if coalesce else 'per_op'}",
+            "objects": OBJECTS, "obj_bytes": OBJECT, "writers": WRITERS,
+            "wall_s": wall_s, "GiBs": OBJECTS * OBJECT / 2**30 / wall_s,
+            "minor_faults": flt,
+            "minor_faults_per_object": flt / OBJECTS,
+            "host_allocator_delta": {key: host1[key] - host0.get(key, 0)
+                                     for key in host1
+                                     if host1[key] != host0.get(key, 0)},
+            "host_alloc_calls_traced": {
+                name: {"calls": n, "ms": us / 1e3}
+                for name, (n, us) in allocs.items()},
+            "commit_crc_ms_per_object": {
+                "median": statistics.median(crc) * 1e3,
+                "sum_s": sum(crc)},
+            "commit_copy_ms_per_object": {
+                "median": statistics.median(copy) * 1e3,
+                "sum_s": sum(copy)}}
 
 
 def profiled_pass(h, loop, payloads, store, kind: str,

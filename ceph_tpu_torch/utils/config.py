@@ -76,6 +76,18 @@ OPTIONS: Dict[str, Option] = {
              "gather concurrent client-op EC codec work into batched "
              "dispatches (the per-PG encode/decode coalescer; client "
              "ops only, recovery/scrub stay per-call)"),
+        _opt("osd_ec_shape_rungs", str, "", LEVEL_ADVANCED,
+             "granule rung ladder for the persistent encode pipeline: "
+             "comma/space-separated byte rungs (ascending).  The top "
+             "rung caps a granule's width and odd blocksizes pad up to "
+             "a rung (ops/bucketing.py).  Empty = the built-in "
+             "16KiB..16MiB power-of-two ladder"),
+        _opt("osd_ec_overlap_depth", int, 2, LEVEL_ADVANCED,
+             "encode pipeline H2D/compute overlap slots: granule N+1's "
+             "packed upload is issued while up to this many earlier "
+             "granules wait for their kernel (double-buffering at 2).  "
+             "1 restores upload-then-compute-in-lockstep; the in-flight "
+             "D2H depth is bounded separately"),
         _opt("osd_tier_promote_from_encode", bool, True, LEVEL_ADVANCED,
              "hand the cache tier the still-device-resident encode "
              "output when a written object should be hot (writeback "
@@ -83,7 +95,7 @@ OPTIONS: Dict[str, Option] = {
              "device from the granule input and parity output: zero "
              "re-upload) instead of re-uploading the host copy.  "
              "Granules carrying such objects are never donated",
-             see_also=("osd_ec_donate", "osd_tier_promote_temp")),
+             see_also=("osd_tier_promote_temp",)),
         _opt("osd_recovery_max_chunk", int, 8 << 20, LEVEL_ADVANCED,
              "max bytes per recovery window"),
         _opt("osd_recovery_batched", bool, True, LEVEL_ADVANCED,
@@ -217,6 +229,23 @@ OPTIONS: Dict[str, Option] = {
              "promotes an object's shards into device memory (and "
              "writeback-mode writes refresh the resident copy, "
              "promote-on-write)"),
+        _opt("osd_tier_hbm_bytes", int, 256 << 20, LEVEL_ADVANCED,
+             "device byte budget for the storage layer's resident "
+             "state: cache-tier shard blocks plus the pipeline's "
+             "content-addressed H2D upload cache.  The tier evicts "
+             "coldest-first to stay under it "
+             "(tier/device_tier.py DeviceByteAccount)"),
+        _opt("osd_tier_h2d_cache_bytes", int, 64 << 20, LEVEL_ADVANCED,
+             "sub-allocation of osd_tier_hbm_bytes reserved for the "
+             "pipeline's content-addressed H2D upload cache "
+             "(ops/pipeline.py; CEPH_TPU_TORCH_NO_H2D_CACHE=1 turns the "
+             "cache off).  The tier yields to this working set, never "
+             "the other way around",
+             see_also=("osd_tier_hbm_bytes",)),
+        _opt("osd_tier_promote_max_per_tick", int, 8, LEVEL_ADVANCED,
+             "max objects promoted per tier-agent tick; the whole set "
+             "rides one batched gather + device transfer",
+             see_also=("osd_tier_promote_temp",)),
         _opt("osd_op_batch_exec", bool, True, LEVEL_ADVANCED,
              "execute decoded client-op bursts through the OSD shard's "
              "array-batched fast path (osd/shard.py): one optracker "

@@ -12,8 +12,7 @@ from typing import NoReturn
 
 #: missing module -> (what it is, ROADMAP.md queue 1 item that ports it)
 MISSING = {
-    "tier": ("ceph_tpu/tier/ (the device cache tier)", 3),
-    "regen": ("ceph_tpu/plugins/regen.py (regenerating-code repair)", 6),
+    "regen": ("ceph_tpu/plugins/regen.py (regenerating-code repair)", 5),
     "mesh": ("ceph_tpu/parallel/mesh_plane.py (the mesh data plane)", 7),
     "replicated": ("ceph_tpu/osd/replicated.py (replicated pools)", 10),
     "objectstore": ("ceph_tpu/objectstore/ persistent engines", 11),

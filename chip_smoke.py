@@ -60,11 +60,42 @@ Phases (any failure raises and exits non-zero):
    prints the write and degraded-read GiB/s, time to clean and rebuilt
    MiB/s, client op p50/p99 and the coalescers' encode and decode
    dispatches and granules per step.
+3d. The device cache tier on the card, at the JAX package's tier defaults
+   (``osd_tier_hbm_bytes`` 256 MiB, ``osd_tier_h2d_cache_bytes`` 64 MiB)
+   and reed_sol_van k=8 m=4 w=8, where a 4 MiB object's resident block is
+   12 x 512 KiB = 6 MiB.  First the H2D upload cache: the same 8 x 8 MiB
+   batch through the one-shot ``encode`` twice, the second pass issuing
+   no H2D (the residency ledger's h2d ops rise 0, the stream's cache hits
+   rise), a third with ``CEPH_TPU_TORCH_NO_H2D_CACHE=1``, which uploads
+   again, and two through ``encode_batch``, whose persistent write lane
+   uploads its fresh granules every time and caches none; then the cost
+   of the cache's blake2b: phase 3b's write pass of 64 objects, per-op
+   and coalesced, with the cache on and off in turns.
+   Then ``cluster_bench.run_tier_cycle`` on ``ECCluster(16, ...,
+   plugin="cuda")`` with 8 client tasks: in writeback mode with 64 objects
+   of 4 MiB (384 MiB of blocks over the 256 MiB budget, so eviction runs;
+   the rewrite of every object is promote-from-encode) and in readproxy
+   mode with 16 (the rewrite invalidates every resident copy).  In both
+   the agent's tick must promote and never fail.  Every
+   read is checked against its payload, and after each cycle every stored
+   shard against the numpy ``jerasure`` plugin and every ``HashInfo`` crc
+   against the plain crc32c; the tier's resident bytes stay within
+   ``osd_tier_hbm_bytes`` at the end of every step, and the ledger's
+   ``tier`` + ``h2d`` bytes equal the change of the caching allocator's
+   requested bytes (``memory_stats``) over the cycle, up to the small
+   device tables the codec makes (``memory_allocated`` is printed beside,
+   with the allocator's rounding).  Last, ``run_tier_path_bench`` at 64 x
+   4 MiB with 2 erasures on a private ledger (384 MiB resident): hot and
+   cold read GiB/s.  The codec kernels' launches on the tier path are
+   zeroed just before each cycle and read just after it (per step too);
+   ``tier_bench``'s are counted apart.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased), one of ``-w storage-path --profile`` at the flagship profile
-   (64 objects of 4 MiB), and one of ``-w recovery-path`` with 32 objects
+   (64 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
    of 4 MiB (its gates: bit-exact rebuild, identical rebuilt stores in
-   both modes, the batched lane used, client p99 under 2000 ms).
+   both modes, the batched lane used, client p99 under 2000 ms), and one
+   of ``-w tier-path`` with 8 objects of 4 MiB (its gates: every object
+   promoted, hot and cold reads bit-exact).
 5. The fourteen sweep kernels (``csrc/sweep_kernels.cu`` and
    ``csrc/xornet_kernel.cu``) against their plain versions at the sweep's
    shape, lanes [8, 2097152], and at a ragged one: ``sweep_xornet`` for
@@ -112,8 +143,11 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import gc
+import hashlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -123,6 +157,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ceph_tpu_torch.analysis import residency
 from ceph_tpu_torch.matrices import cauchy, liberation, reed_sol
 from ceph_tpu_torch.native import gf_native
 from ceph_tpu_torch.osd import cluster_bench, ecutil, storage_bench
@@ -133,6 +168,9 @@ from ceph_tpu_torch.ops import cuda_gf, sweep_gf
 from ceph_tpu_torch.ops.gf import gf
 from ceph_tpu_torch.ops.pipeline import DeviceStream, granules_dispatched
 from ceph_tpu_torch.plugins import registry as registry_mod
+from ceph_tpu_torch.tier.device_tier import (DeviceByteAccount,
+                                             device_byte_account)
+from ceph_tpu_torch.tier.tier_bench import run_tier_path_bench
 from ceph_tpu_torch.tools import (ec_benchmark, ec_kernel_sweep,
                                   kernel_r4_probe, kernel_r4_split)
 from ceph_tpu_torch.utils.perf import PerfCounters
@@ -177,6 +215,16 @@ CLUSTER_KERNEL_STEPS = ("write", "degraded_read", "recovery")
 STORAGE_ERASURES = 2
 STORAGE_ITERS = 2
 CRC_PREFIX = 64 << 10
+#: the tier path (phase 3d): objects of the writeback and readproxy
+#: cycles, the tier bench's objects, and turns of the hash-cost passes
+TIER_OBJECTS = 64
+TIER_READPROXY_OBJECTS = 16
+TIER_BENCH_OBJECTS = 64
+HASH_TURNS = 2
+#: device bytes the codec itself keeps during a cycle, outside the ledger:
+#: the nibble tables of the encode and decode streams (1 KiB each at k=8
+#: m=4 w=8) -- the slack of the ledger-against-allocator check
+CODEC_TABLE_SLACK = 1 << 20
 
 KERNEL_SOURCE = "ceph_tpu_torch/csrc/gf_kernels.cu"
 REPLACES = {
@@ -1171,6 +1219,313 @@ def phase_cluster_path(seed: int, card: str) -> dict:
     return results
 
 
+def _device_bytes() -> dict:
+    """The caching allocator's live bytes: ``allocated`` (block sizes,
+    ``memory_allocated``) and ``requested`` (the sizes asked for).  A
+    freed block that another stream used (``record_stream``) leaves
+    ``requested`` only once its event is processed; ``empty_cache``
+    processes them all first."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stats = torch.cuda.memory_stats()
+    return {"allocated": stats["allocated_bytes.all.current"],
+            "requested": stats["requested_bytes.all.current"]}
+
+
+def _ledger() -> dict:
+    acct = device_byte_account()
+    return {"tier": acct.used("tier"), "h2d": acct.used("h2d")}
+
+
+def _held_bytes(cluster) -> dict:
+    """What the cluster's tiers and its codec's upload caches hold: their
+    tensors' bytes, the bytes of the distinct storages under them, and
+    how many lie off the card."""
+    codec = cluster.ec._dc()
+    streams = [codec.encode_stream()] + [
+        stream for _sel, stream in codec._decode_streams.values()]
+    held = {"tier": [e.block for o in cluster.osds
+                     for e in o.tier._entries.values()],
+            "h2d": [e[0] for stream in streams
+                    for e in stream._h2d_cache.values()]}
+    out = {}
+    for owner, tensors in held.items():
+        storages = {t.untyped_storage().data_ptr():
+                    t.untyped_storage().nbytes() for t in tensors}
+        out[owner] = {"tensors": len(tensors),
+                      "bytes": sum(t.nbytes for t in tensors),
+                      "storage_bytes": sum(storages.values()),
+                      "off_card": sum(not t.is_cuda for t in tensors)}
+    return out
+
+
+def _tier_h2d_cache(reg, rs, card) -> dict:
+    """The same 8 x 8 MiB batch twice through the one-shot ``encode`` (the
+    sync contract, whose uploads go through the cache): the second pass's
+    data uploads are cache hits; with the escape hatch set, a third pass
+    uploads again.  Then the batch twice through ``encode_batch``, whose
+    persistent write lane neither hashes nor keeps its fresh granules: it
+    uploads every time and the cache's entries stay as they were."""
+    ec = reg.factory("cuda", _profile({"technique": "reed_sol_van"}))
+    ref = reg.factory("jerasure", _profile({"technique": "reed_sol_van"}))
+    want = set(range(K + M))
+    stripes = _stripes(rs, 8)
+    first = [ec.encode(want, s) for s in stripes]
+    _same(first[0], ref.encode(want, stripes[0]),
+          "h2d cache: encode stripe 0")
+    stream = ec._dc().encode_stream()
+    one_shot = lambda: [ec.encode(want, s) for s in stripes]  # noqa: E731
+    calls = []
+    for label, env, fn in (("repeat", None, one_shot),
+                           ("escape_hatch", "1", one_shot),
+                           ("encode_batch", None,
+                            lambda: ec.encode_batch(stripes)),
+                           ("encode_batch_again", None,
+                            lambda: ec.encode_batch(stripes))):
+        if env is not None:
+            os.environ["CEPH_TPU_TORCH_NO_H2D_CACHE"] = env
+        try:
+            before, hits = residency.counters().snapshot(), \
+                stream.h2d_cache_hits
+            entries = len(stream._h2d_cache)
+            t0 = time.perf_counter()
+            again = fn()
+            wall = time.perf_counter() - t0
+            delta = residency.ResidencyCounters.delta(
+                before, residency.counters().snapshot())
+        finally:
+            os.environ.pop("CEPH_TPU_TORCH_NO_H2D_CACHE", None)
+        for i, (a, b) in enumerate(zip(again, first)):
+            _same(a, b, f"h2d cache {label}: stripe {i}")
+        calls.append({"call": label, "h2d_ops": delta["h2d_ops"],
+                      "h2d_bytes": delta["h2d_bytes"],
+                      "cache_hits": stream.h2d_cache_hits - hits,
+                      "entries_added": len(stream._h2d_cache) - entries,
+                      "wall_ms": wall * 1e3})
+    repeat, hatch, batch, batch2 = calls
+    assert repeat["h2d_ops"] == 0 and \
+        repeat["cache_hits"] >= len(stripes), \
+        f"h2d cache: the repeated batch was uploaded again: {repeat}"
+    assert hatch["h2d_ops"] >= len(stripes) and hatch["cache_hits"] == 0, \
+        f"h2d cache: the escape hatch did not upload: {hatch}"
+    for call in (batch, batch2):
+        assert call["h2d_ops"] >= 1 and call["cache_hits"] == 0 and \
+            call["entries_added"] == 0, \
+            f"h2d cache: encode_batch's fresh granules were cached: {call}"
+    ledger = _ledger()
+    stream.release_h2d()
+    print(f"[tier] h2d cache: 8 x {STRIPE} B stripes through the one-shot "
+          f"encode twice, then with CEPH_TPU_TORCH_NO_H2D_CACHE=1, then "
+          f"through encode_batch twice: {json.dumps(calls)}; ledger with "
+          f"the batch cached {json.dumps(ledger)}; card {card}", flush=True)
+    return {"calls": calls, "ledger": ledger}
+
+
+def _tier_hash_cost(reg, seed, card) -> dict:
+    """Phase 3b's write pass (64 x 4 MiB, w=8, 8 writers) per-op and
+    coalesced, with the upload cache on and with the escape hatch set, in
+    turns; and blake2b-128's own rate over one 32 MiB granule."""
+    ec = reg.factory("cuda", _profile({"technique": "reed_sol_van"}))
+    h = storage_bench.StoragePathHarness(ec, erasures=STORAGE_ERASURES)
+    payloads = storage_bench.make_payloads(STORAGE_PROFILES[0][2], OBJECT,
+                                           seed)
+    nbytes = sum(len(p) for p in payloads)
+    loop = asyncio.new_event_loop()
+    out = {}
+    try:
+        for coalesce in (False, True):
+            mode = "coalesced" if coalesce else "per_op"
+            loop.run_until_complete(h.write_pass(
+                payloads, coalesce=coalesce, writers=WRITERS))  # warm
+            rates = {"cache": [], "no_cache": []}
+            for turn in range(HASH_TURNS):
+                order = ("cache", "no_cache") if turn % 2 == 0 else \
+                    ("no_cache", "cache")
+                for label in order:
+                    if label == "no_cache":
+                        os.environ["CEPH_TPU_TORCH_NO_H2D_CACHE"] = "1"
+                    try:
+                        t0 = time.perf_counter()
+                        loop.run_until_complete(h.write_pass(
+                            payloads, coalesce=coalesce, writers=WRITERS))
+                        rates[label].append(
+                            nbytes / 2**30 / (time.perf_counter() - t0))
+                    finally:
+                        os.environ.pop("CEPH_TPU_TORCH_NO_H2D_CACHE", None)
+            out[mode] = rates
+    finally:
+        loop.close()
+    granule = np.random.RandomState(seed).bytes(32 << 20)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hashlib.blake2b(granule, digest_size=16).digest()
+        times.append(time.perf_counter() - t0)
+    out["blake2b_GiBs"] = (32 << 20) / 2**30 / min(times)
+    out["blake2b_s_per_pass"] = nbytes / 2**30 / out["blake2b_GiBs"]
+    print(f"[tier] the upload cache's hash: write GiB/s of {len(payloads)} "
+          f"x {OBJECT} B objects with the cache on / off in turns "
+          f"{json.dumps({m: out[m] for m in ('per_op', 'coalesced')})}; "
+          f"blake2b-128 {out['blake2b_GiBs']:.3f} GiB/s on one core, "
+          f"{out['blake2b_s_per_pass']:.3f} s of hashing a pass; "
+          f"card {card}", flush=True)
+    return out
+
+
+def _tier_cluster(mode: str, n_objects: int, seed: int, card: str) -> dict:
+    """One ``run_tier_cycle`` on a 16-OSD cluster (docstring, phase 3d)."""
+    gc.collect()  # the last cycle's codec releases its upload cache
+    profile = _profile({"technique": "reed_sol_van"})
+    ref = registry_mod.instance().factory("jerasure", dict(profile))
+    payloads = cluster_bench.make_payloads(n_objects, OBJECT, seed)
+    rewrites = cluster_bench.make_payloads(n_objects, OBJECT, seed + 1)
+    budget = DeviceByteAccount.budget()
+    launches, ledgers, at_start = {}, {}, {}
+
+    def hook(cluster, step, when):
+        # the counts run on through the cycle: each step's launches are
+        # the change over it
+        torch.cuda.synchronize()
+        if when == "start":
+            at_start[step] = dict(cuda_gf.launches)
+            return
+        launches[step] = {name: n - at_start[step][name]
+                          for name, n in cuda_gf.launches.items()}
+        resident = sum(o.tier.resident_bytes for o in cluster.osds)
+        assert resident <= budget, \
+            f"tier {mode}: {resident} B resident after {step}, budget " \
+            f"{budget}"
+        ledgers[step] = _ledger()
+
+    async def main():
+        cluster = ECCluster(CLUSTER_OSDS, dict(profile), plugin="cuda")
+        mem0, led0 = _device_bytes(), _ledger()
+        try:
+            cuda_gf.reset_launches()
+            r = await cluster_bench.run_tier_cycle(
+                cluster, mode, payloads, rewrites, writers=WRITERS,
+                deadline_s=CLUSTER_DEADLINE_S, hook=hook)
+            torch.cuda.synchronize()
+            cycle_launches = dict(cuda_gf.launches)
+            mem1, led1 = _device_bytes(), _ledger()
+            held = _held_bytes(cluster)
+        finally:
+            await cluster.shutdown()
+        return cluster, r, mem0, mem1, led0, led1, held, cycle_launches
+
+    loop = asyncio.new_event_loop()
+    try:
+        cluster, r, mem0, mem1, led0, led1, held, cycle_launches = \
+            loop.run_until_complete(main())
+    finally:
+        loop.close()
+    t0 = time.perf_counter()
+    check = _cluster_check(cluster, ref, r["final"])
+    check_s = time.perf_counter() - t0
+    led = sum(led1.values()) - sum(led0.values())
+    req = mem1["requested"] - mem0["requested"]
+    alloc = mem1["allocated"] - mem0["allocated"]
+    memory = {"ledger_delta": led, "requested_delta": req,
+              "allocated_delta": alloc, "allocated_before": mem0["allocated"],
+              "allocated_after": mem1["allocated"],
+              "ledger_before": led0, "ledger_after": led1, "held": held}
+    print(f"[tier] {mode}: device memory over the cycle "
+          f"{json.dumps(memory)}; card {card}", flush=True)
+    # the allocator's rounding: the block sizes it handed out beyond the
+    # sizes asked for, over the cycle
+    rounding = abs(alloc - req)
+    assert abs(alloc - led) <= rounding + CODEC_TABLE_SLACK and \
+        abs(req - led) <= CODEC_TABLE_SLACK, \
+        f"tier {mode}: the ledger moved {led} B, memory_allocated " \
+        f"{alloc} B, requested {req} B"
+    assert all(h["off_card"] == 0 for h in held.values()), held
+    # the agent's failures are swallowed into a counter: none may occur,
+    # and its tick must have promoted in either mode
+    assert all(d["tier_agent_failed"] == 0 for d in r["tier"].values()), \
+        f"tier {mode}: the agent failed {r['tier']}"
+    assert r["tier"]["tick"]["tier_promote_ops"] > 0, \
+        f"tier {mode}: the agent's tick promoted nothing {r['tier']['tick']}"
+    if mode == "readproxy":
+        assert not r["rewritten_still_resident"], \
+            f"tier readproxy: rewrites left resident copies " \
+            f"{r['rewritten_still_resident']}"
+        assert r["tier"]["read_hot"]["hits"] == 0
+    else:
+        assert r["tier"]["rewrite"]["tier_promote_from_encode"] > 0
+        assert r["tier"]["read_hot"]["hits"] > 0
+        assert r["tier"]["degraded_read"]["hits"] > 0
+    for step in ("write", "rewrite"):
+        assert launches[step]["gf2_matrix_w8"] > 0, \
+            f"tier {mode}: gf2_matrix_w8 not launched in {step}"
+    head = (f"[tier] {mode}: {CLUSTER_OSDS} OSDs, {n_objects} x {OBJECT} B "
+            f"objects, {WRITERS} client tasks, osd.{r['victim']} killed for "
+            f"the degraded read")
+    rates = {key: r[key] for key in (
+        "write_GiBs", "rewrite_GiBs", "read_GiBs", "read_hot_GiBs",
+        "degraded_read_GiBs", "read_after_GiBs")}
+    print(f"{head}: GiB/s {json.dumps(rates)}; card {card}", flush=True)
+    print(f"{head}: tier per step {json.dumps(r['tier'])}; resident bytes "
+          f"per step {json.dumps(r['resident_bytes'])} (budget {budget}); "
+          f"card {card}", flush=True)
+    print(f"{head}: ledger per step {json.dumps(ledgers)}; codec kernel "
+          f"launches per step {json.dumps(launches)}, over the cycle "
+          f"{json.dumps(cycle_launches)}; card {card}", flush=True)
+    print(f"{head}: {check} ({check_s:.1f} s); steps "
+          f"{json.dumps(r['steps_s'])}; card {card}", flush=True)
+    return {"objects": n_objects, "obj_bytes": OBJECT, **rates,
+            "steps_s": r["steps_s"], "tier": r["tier"],
+            "resident_bytes": r["resident_bytes"], "budget": budget,
+            "ledger": ledgers, "memory": memory, "launches": launches,
+            "cycle_launches": cycle_launches}
+
+
+def phase_tier_path(reg, seed: int, card: str) -> dict:
+    """The device cache tier on the card (docstring, phase 3d).  The
+    tier path's launches are those of its two cluster cycles, each zeroed
+    just before the cycle and read just after; ``tier_bench``'s are
+    counted apart."""
+    gc.collect()  # earlier phases' codecs release their upload caches
+    assert _ledger() == {"tier": 0, "h2d": 0}, \
+        f"tier path: the ledger holds {_ledger()} before the phase"
+    t0 = time.perf_counter()
+    out = {"h2d_cache": _tier_h2d_cache(reg, np.random.RandomState(seed),
+                                        card),
+           "hash_cost": _tier_hash_cost(reg, seed, card),
+           "writeback": _tier_cluster("writeback", TIER_OBJECTS, seed, card),
+           "readproxy": _tier_cluster("readproxy", TIER_READPROXY_OBJECTS,
+                                      seed + 2, card)}
+    out["launches"] = {
+        name: sum(out[mode]["cycle_launches"][name]
+                  for mode in ("writeback", "readproxy"))
+        for name in out["writeback"]["cycle_launches"]}
+    assert out["launches"]["gf2_matrix_w8"] > 0
+    ec = reg.factory("cuda", _profile({"technique": "reed_sol_van"}))
+    t1 = time.perf_counter()
+    cuda_gf.reset_launches()
+    bench = run_tier_path_bench(ec, n_objects=TIER_BENCH_OBJECTS,
+                                obj_bytes=OBJECT, iters=2,
+                                erasures=STORAGE_ERASURES, seed=seed)
+    torch.cuda.synchronize()
+    out["tier_bench_launches"] = dict(cuda_gf.launches)
+    assert bench["bit_exact"] and \
+        bench["resident_bytes"] == TIER_BENCH_OBJECTS * (K + M) * OBJECT // K
+    print(f"[tier] run_tier_path_bench {TIER_BENCH_OBJECTS} x {OBJECT} B, "
+          f"{bench['erasures']} erasures, private ledger: hot read "
+          f"{bench['hot_read_GiBs']:.4f} GiB/s, cold (decode) read "
+          f"{bench['cold_read_GiBs']:.4f} GiB/s, read_speedup "
+          f"{bench['read_speedup']} ({time.perf_counter() - t1:.1f} s); "
+          f"codec kernel launches "
+          f"{json.dumps(out['tier_bench_launches'])}; card {card}",
+          flush=True)
+    out["tier_bench"] = bench
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[tier] codec kernel launches on the tier path (its writeback "
+          f"and readproxy cycles, each zeroed before it) "
+          f"{json.dumps(out['launches'])}; phase {out['seconds']:.1f} s; "
+          f"card {card}", flush=True)
+    return out
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -1206,6 +1561,22 @@ def phase_ec_benchmark(card: str) -> None:
     rec = json.loads(out[-1])
     assert rec["bit_exact"] is True and \
         rec["batched"]["counters"]["recovery_ops_batched"] > 0, rec
+    print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]}; card {card}",
+          flush=True)
+    argv = ["-w", "tier-path", "--objects", "8", "-s", str(OBJECT),
+            "-i", "2", "-e", "2", "-P", f"k={K}", "-P", f"m={M}"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ec_benchmark.main(argv)
+    out = buf.getvalue().strip().splitlines()
+    assert rc == 0, f"ec_benchmark exited {rc}: {out}"
+    tier = json.loads(out[-1])
+    assert tier["bit_exact"] is True and tier["resident_bytes"] == \
+        8 * (K + M) * OBJECT // K, tier
+    assert set(tier) == {"n_objects", "obj_bytes", "k", "m", "erasures",
+                         "bit_exact", "resident_bytes", "tier_hits",
+                         "hot_read_GiBs", "cold_read_GiBs",
+                         "read_speedup"}, tier
     print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]}; card {card}",
           flush=True)
 
@@ -1255,6 +1626,7 @@ def main(argv=None) -> int:
     launched = dict(cuda_gf.launches)
     storage = phase_storage_path(reg, args.seed, card)
     cluster = phase_cluster_path(args.seed, card)
+    tier = phase_tier_path(reg, args.seed, card)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
     launched.update(phase_probes(card))
@@ -1265,6 +1637,7 @@ def main(argv=None) -> int:
     print(json.dumps({"main_path": per_profile}))
     print(json.dumps({"storage_path": storage}))
     print(json.dumps({"cluster_path": cluster}))
+    print(json.dumps({"tier_path": tier}))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

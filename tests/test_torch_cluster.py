@@ -11,9 +11,10 @@ attr holds a time, a nonce or a client id (``_version`` is the version
 counter and the primary's name, the same in both), so nothing is compared
 by type only.  The snapshot paths of ``pg.py`` are not driven here.
 
-The paths the port refuses (device tier, mon, auth, cls, mgr, replicated
-pools, regenerating repair, mesh plane, persistent object stores) raise,
-naming the missing module and its ROADMAP.md queue item.
+The paths the port refuses (mon, auth, cls, mgr, replicated pools,
+regenerating repair, mesh plane, persistent object stores) raise, naming
+the missing module and its ROADMAP.md queue item.  The device tier is
+compared in tests/test_torch_tier.py.
 """
 
 import asyncio
@@ -412,19 +413,21 @@ def _refuses(key, fn):
 
 
 def test_set_tier_mode_refuses_every_mode_but_none():
+    """Since the port has the device tier, set_tier_mode takes the JAX
+    package's three cache modes and refuses only any other name; every
+    OSD keeps its tier on the codec's device, and a tick runs the
+    agent."""
     async def main():
         c = _port_cluster()
-        for mode in ("writeback", "readproxy"):
-            _refuses("tier", lambda: c.set_tier_mode(mode))
         with pytest.raises(ValueError):
             c.set_tier_mode("sideways")
-        c.set_tier_mode("none")
-        assert all(o.tier is None for o in c.osds)
-        assert all(o.pools[c.pool].tier_mode == "none" for o in c.osds)
-        # a pool forced into another mode meets the refusal at its tick
-        c.osds[0].pools[c.pool].tier_mode = "writeback"
-        with pytest.raises(unported.NotPortedError):
-            await c.osds[0].tier_tick()
+        for mode in ("writeback", "readproxy", "none"):
+            c.set_tier_mode(mode)
+            assert all(o.pools[c.pool].tier_mode == mode for o in c.osds)
+        assert all(o.tier.device.type == "cpu" for o in c.osds)
+        c.set_tier_mode("writeback")
+        assert await c.osds[0].tier_tick() == 0  # nothing hot yet
+        assert "tier" not in unported.MISSING
         await c.shutdown()
 
     _run(main())

@@ -560,3 +560,90 @@ def test_the_packages_keep_separate_state():
     for name, mod in PORT.items():
         assert mod.__name__.startswith("ceph_tpu_torch."), name
         assert REF[name].__name__.startswith("ceph_tpu."), name
+
+
+# -- the residency verifier and the counters' delta ---------------------------
+
+
+def test_residency_counters_delta_matches_jax():
+    import torch
+
+    from ceph_tpu.analysis import residency as j_residency
+    from ceph_tpu_torch.analysis import residency
+
+    before = residency.counters().snapshot()
+    a = np.arange(1024, dtype=np.uint8)
+    host = residency.device_get(residency.device_put(a, torch.device("cpu")))
+    residency.device_get(a)  # a host array is free
+    delta = residency.ResidencyCounters.delta(
+        before, residency.counters().snapshot())
+    assert bytes(host) == bytes(a)
+    assert (delta["h2d_ops"], delta["h2d_bytes"]) == (1, 1024)
+    assert (delta["d2h_ops"], delta["d2h_bytes"]) == (1, 1024)
+    snaps = ({"h2d_ops": 3, "d2h_bytes": 10}, {"h2d_ops": 5, "d2h_bytes": 4,
+                                               "library_builds": 2})
+    assert residency.ResidencyCounters.delta(*snaps) == \
+        j_residency.ResidencyCounters.delta(*snaps) == \
+        {"h2d_ops": 2, "d2h_bytes": -6, "library_builds": 2}
+
+
+def test_residency_verifier_modes_and_nested_sections():
+    import torch
+
+    from ceph_tpu.analysis import residency as j_residency
+    from ceph_tpu_torch.analysis import residency
+
+    t = torch.arange(64, dtype=torch.uint8)
+    # record mode: the D2H inside the section is recorded, attributed to
+    # the innermost open section, and control flow goes on
+    v = residency.ResidencyVerifier("record")
+    with v.section("outer"):
+        with v.section("inner"):
+            host = residency.device_get(t)
+        residency.note_d2h(8, "pinned copy")
+    assert bytes(host) == bytes(t.numpy())
+    assert [(x.section, x.what, x.nbytes) for x in v.violations] == \
+        [("inner", "device_get", 64), ("outer", "pinned copy", 8)]
+    assert "device_get, 64 bytes" in repr(v.violations[0])
+    assert v.status()["sections_entered"] == {"outer": 1, "inner": 1}
+    # outside every section a D2H is legal
+    residency.device_get(t)
+    assert len(v.violations) == 2
+    # raise mode: the offending call raises, the violation is kept
+    r = residency.ResidencyVerifier("raise")
+    with pytest.raises(residency.ResidencySectionError, match="deliberate"):
+        with r.section("deliberate"):
+            residency.device_get(t)
+    assert len(r.violations) == 1
+    # an H2D inside a section is the sanctioned upload edge
+    with r.section("upload"):
+        residency.device_put(np.zeros(4, np.uint8), torch.device("cpu"))
+    assert len(r.violations) == 1
+    with pytest.raises(ValueError):
+        residency.ResidencyVerifier("sideways")
+    # the same script through the JAX package's verifier records the same
+    jv = j_residency.ResidencyVerifier("record")
+    with jv.section("outer"):
+        with jv.section("inner"):
+            j_residency.note_d2h(64, "device_get")
+    assert [(x.section, x.nbytes) for x in jv.violations] == \
+        [(x.section, x.nbytes) for x in v.violations[:1]]
+
+
+def test_resident_section_is_off_without_a_verifier(monkeypatch):
+    import torch
+
+    from ceph_tpu_torch.analysis import residency
+
+    monkeypatch.setattr(residency, "_GLOBAL", None)
+    with residency.resident_section("tier-hit-read"):
+        residency.device_get(torch.zeros(4, dtype=torch.uint8))
+    assert residency.violations() == []
+    assert residency.status()["mode"] == "off"
+    v = residency.install("record")
+    assert residency.install("raise") is v  # idempotent per process
+    assert residency.global_verifier() is v
+    with residency.resident_section("tier-hit-read"):
+        residency.device_get(torch.zeros(4, dtype=torch.uint8))
+    assert [x.section for x in residency.violations()] == ["tier-hit-read"]
+    assert residency.status()["mode"] == "record"

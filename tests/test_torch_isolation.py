@@ -4,8 +4,9 @@ Checked twice: statically (an AST scan of every import) and at run time (a
 fresh interpreter in which ``jax``, ``ceph_tpu``, ``tools`` and
 ``experiments`` cannot be imported imports every port module, encodes
 and decodes one stripe, runs one small coalesced storage-path pass, one
-small EC cluster's write, kill, degraded read and recovery at k=2 m=1,
-and the kernel sweep and its two probe tools on the CPU)."""
+small EC cluster's write, kill, degraded read and recovery at k=2 m=1, the
+device tier's bench and a writeback cluster's tier hit, and the kernel
+sweep and its two probe tools on the CPU)."""
 
 import ast
 import os
@@ -30,6 +31,9 @@ def _forbidden(module: str) -> bool:
 def test_port_files_import_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 15
+    # the device cache tier is part of the scan
+    assert {"__init__.py", "device_tier.py", "agent.py", "tier_bench.py"} \
+        <= {p.name for p in files if p.parent == PORT / "tier"}
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -116,6 +120,25 @@ r = cluster_bench.run_storage_cycle(
     small, over, writers=2, deadline_s=30.0)
 assert r["final"] == dict(small, **over) and r["rebuilt_bytes"] > 0
 assert type(r["cluster"].ec).__module__ == "ceph_tpu_torch.plugins.cuda"
+from ceph_tpu_torch.tier import tier_bench
+t = tier_bench.run_tier_path_bench(ec, n_objects=2, obj_bytes=4096,
+                                   iters=1, erasures=1)
+assert t["bit_exact"] and t["tier_hits"] >= 2
+async def tiered():
+    c = ECCluster(4, {"k": "2", "m": "1", "device": "cpu"})
+    c.set_tier_mode("writeback")
+    await c.write("o", b"t" * 3000)
+    for _ in range(2):
+        await c.read("o")
+    for osd in c.osds:
+        await osd.tier_tick()
+    hits = sum(o.tier.hits for o in c.osds)
+    assert await c.read("o") == b"t" * 3000
+    assert sum(o.tier.hits for o in c.osds) == hits + 1
+    await c.shutdown()
+loop = asyncio.new_event_loop()
+loop.run_until_complete(tiered())
+loop.close()
 from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_probe, kernel_r4_split
 for tool in (ec_kernel_sweep, kernel_r4_split, kernel_r4_probe):
     assert tool.main(["--device", "cpu", "--iters", "1"]) == 0

@@ -244,3 +244,105 @@ def test_unpack_copies_packet_rows():
     pipe = pipeline.EncodePipeline(stream)
     parity = pipe.result(pipe.submit(data))
     assert np.array_equal(parity, theirs.encode(data))
+
+
+# -- config-driven rungs and overlap depth ------------------------------------
+
+
+@pytest.fixture
+def rungs_config():
+    """Set ``osd_ec_shape_rungs`` in both packages' configs, restored
+    after the test."""
+    from ceph_tpu.utils import config as j_config
+    from ceph_tpu_torch.utils import config
+
+    cfgs = (config.get_config(), j_config.get_config())
+    saved = [c.get_val("osd_ec_shape_rungs") for c in cfgs]
+
+    def set_both(raw):
+        for c in cfgs:
+            c.set_val("osd_ec_shape_rungs", raw)
+
+    yield set_both
+    for c, raw in zip(cfgs, saved):
+        c.set_val("osd_ec_shape_rungs", raw)
+
+
+@pytest.mark.parametrize("raw", ["", "4096, 65536 1048576", "64 16 64,32",
+                                 "abc,16384", "0 -4096"])
+def test_bucketing_ladder_matches_jax(rungs_config, raw):
+    """The default ladder, two configured ones and two malformed strings
+    (a non-integer token, no positive rung), which fall back to the
+    default ladder exactly as the JAX package's do."""
+    from ceph_tpu.ops import bucketing as j_bucketing
+    from ceph_tpu_torch.ops import bucketing
+
+    rungs_config(raw)
+    assert bucketing.ladder() == j_bucketing.ladder()
+    if raw in ("", "abc,16384", "0 -4096"):
+        assert bucketing.ladder() == bucketing.DEFAULT_RUNGS
+    rs = np.random.RandomState(len(raw))
+    sizes = [1, 15, 16, 17, 4096, 4097, 65536, 1 << 20, (1 << 24) + 1,
+             *rs.randint(1, 40 << 20, 40).tolist()]
+    for n in sizes:
+        assert bucketing.rung_for(n) == j_bucketing.rung_for(n)
+        for align in (1, 4, 16, 24, 4096):
+            assert bucketing.bucket_bytes(n, align) == \
+                j_bucketing.bucket_bytes(n, align)
+        for per_col in (1, 4, 32):
+            def cols_of(b, per_col=per_col):
+                return b // per_col
+            assert bucketing.bucket_cols(n, cols_of) == \
+                j_bucketing.bucket_cols(n, cols_of)
+    explicit = (16, 4096)
+    assert bucketing.bucket_bytes(5000, 8, rungs=explicit) == \
+        j_bucketing.bucket_bytes(5000, 8, rungs=explicit)
+
+
+def test_configured_top_rung_caps_the_granule(rungs_config):
+    """A configured ladder's top rung caps the port's granules, as it caps
+    the JAX package's: stripes wider than it split into column segments
+    and the parity is the same."""
+    rungs_config("256 1024")
+    ours, theirs = _codecs("w8")
+    rs = np.random.RandomState(9)
+    stripes = [rs.randint(0, 256, (4, 4 * n), dtype=np.uint8)
+               for n in (1, 300, 64, 700)]
+    pipe = pipeline.EncodePipeline(ours.encode_stream(), depth=1)
+    assert pipe._max_seg_bytes == 1024
+    got = pipe.encode_many(stripes)
+    want = j_pipeline.EncodePipeline(theirs.encode_stream(),
+                                     depth=1).encode_many(stripes)
+    for g, w_ in zip(got, want):
+        assert np.array_equal(g, w_)
+
+
+@pytest.mark.parametrize("name", ["w8", "packet"])
+def test_overlap_depth_gives_identical_parity(name):
+    """``osd_ec_overlap_depth`` 1, 2 and 4 (from the config, read when a
+    pipeline is built, and as an argument) give the same parity, equal to
+    the JAX package's."""
+    from ceph_tpu_torch.utils import config
+
+    ours, theirs = _codecs(name)
+    unit = _block_bytes(name, 1)
+    rs = np.random.RandomState(11)
+    stripes = [rs.randint(0, 256, (ours.k, unit * n), dtype=np.uint8)
+               for n in (3, 1, 8, 2, 5, 4, 1, 6)]
+    want = [theirs.encode(s) for s in stripes]
+    cfg = config.get_config()
+    saved = cfg.get_val("osd_ec_overlap_depth")
+    try:
+        for depth in (1, 2, 4):
+            cfg.set_val("osd_ec_overlap_depth", depth)
+            pipe = pipeline.EncodePipeline(ours.encode_stream(), depth=2,
+                                           max_granule=unit * 4)
+            assert pipe.overlap == depth
+            explicit = pipeline.EncodePipeline(
+                ours.encode_stream(), depth=2, max_granule=unit * 4,
+                overlap=depth)
+            for p in (pipe, explicit):
+                for g, w_ in zip(p.encode_many(stripes), want):
+                    assert np.array_equal(g, w_)
+    finally:
+        cfg.set_val("osd_ec_overlap_depth", saved)

@@ -21,6 +21,7 @@ import json
 import pytest
 
 import tools.ec_benchmark as j_ec_benchmark
+from ceph_tpu.analysis import residency as j_residency
 from ceph_tpu.osd import storage_bench as j_storage_bench
 from ceph_tpu.plugins import registry as j_registry
 from ceph_tpu_torch.analysis import residency
@@ -189,7 +190,16 @@ def test_ec_benchmark_storage_path_profile_prints_reference_keys():
     argv = ["-w", "storage-path", "--objects", "6", "-s", "8192",
             "--writers", "3", "--profile", "-P", "k=4", "-P", "m=2"]
     ours = _json_of(ec_benchmark.main, argv + ["-P", "device=cpu"])
-    theirs = _json_of(j_ec_benchmark.main, argv + ["-p", "tpu"])
+    # the JAX package's process ledger lists a mesh axis once any earlier
+    # test in the process dispatched over its mesh plane, which this run
+    # does not use: run it on a ledger free of other tests' axes
+    ledger = j_residency.counters()
+    axes = dict(ledger.mesh_axes)
+    ledger.mesh_axes.clear()
+    try:
+        theirs = _json_of(j_ec_benchmark.main, argv + ["-p", "tpu"])
+    finally:
+        ledger.mesh_axes.update(axes)
     # the one renamed gate: steady_jit_retraces -> steady_library_builds,
     # and jit_retraces -> library_builds in each ledger
     assert _keys(ours) == {k.replace("jit_retraces", "library_builds")
@@ -247,3 +257,39 @@ def test_trace_tool_splits_both_modes(monkeypatch):
             == 2
     assert set(alt["coalesced_over_per_op_median"]) == {"write_GiBs",
                                                         "read_GiBs"}
+
+
+@pytest.mark.parametrize("coalesce", [False, True],
+                         ids=["per_op", "coalesced"])
+def test_trace_tool_write_split(monkeypatch, coalesce):
+    """The coalesced write's split (pinned allocations, minor page faults,
+    the commit's crc and copy per object) at a tiny size on the CPU: the
+    pass commits what ``write_pass`` commits, and every object's commit
+    is timed in two parts."""
+    from ceph_tpu_torch.tools import trace_main_path as tool
+
+    monkeypatch.setattr(tool, "OBJECTS", 6)
+    monkeypatch.setattr(tool, "OBJECT", 5000)
+    monkeypatch.setattr(tool, "WRITERS", 3)
+    ec = registry.instance().factory(
+        "cuda", {"k": "4", "m": "2", "technique": "reed_sol_van",
+                 "device": "cpu"})
+    h = storage_bench.StoragePathHarness(ec, erasures=2)
+    payloads = storage_bench.make_payloads(6, 5000, seed=5)
+    commit: list = []
+    store = _run(tool._split_write_pass(h, payloads, coalesce, commit))
+    assert store == _run(h.write_pass(payloads, coalesce=coalesce,
+                                      writers=3))
+    assert len(commit) == 6 and all(c >= 0 and p >= 0 for c, p in commit)
+    loop = asyncio.new_event_loop()
+    try:
+        row = tool.write_split(h, loop, payloads, coalesce)
+    finally:
+        loop.close()
+    assert row["call"] == ("storage_path_write_split_"
+                           f"{'coalesced' if coalesce else 'per_op'}")
+    assert row["minor_faults"] >= 0 and row["wall_s"] > 0
+    # no card: no pinned allocation is traced
+    assert row["host_alloc_calls_traced"] == {}
+    for part in ("commit_crc_ms_per_object", "commit_copy_ms_per_object"):
+        assert row[part]["sum_s"] > 0
