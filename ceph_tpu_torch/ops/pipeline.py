@@ -40,6 +40,9 @@ asynchronously-completed transfers.
   (always-fresh granules) neither hashes nor retains its uploads, as the
   reference's donated granules skip the cache (``osd_ec_donate``, on by
   default there; the port donates nothing and declares no such option).
+  Nor do the one-shot calls made inside :func:`uncached_uploads` (the
+  deep scrub's re-encode and the per-object recovery decode): each
+  object's bytes pass through them once, so hashing them buys no hit.
 
 On the CPU (``device="cpu"``) the same code runs synchronously, with each
 kernel's plain PyTorch version.
@@ -53,6 +56,8 @@ cached per signature like the reference ISA plugin's decode-table LRU
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import hashlib
 import math
 import os
@@ -105,6 +110,26 @@ def _note_granule() -> None:
 
 def _h2d_cache_enabled() -> bool:
     return not os.environ.get("CEPH_TPU_TORCH_NO_H2D_CACHE")
+
+
+#: set inside :func:`uncached_uploads`: one-shot calls upload unhashed
+_UNCACHED = contextvars.ContextVar("ceph_tpu_torch_uncached_uploads",
+                                   default=False)
+
+
+@contextlib.contextmanager
+def uncached_uploads():
+    """One-shot :class:`DeviceCodec` ``encode``/``decode`` calls made in
+    this block (in this thread or task) upload their granules unhashed and
+    keep none, as a persistent pipeline's fresh granules: for callers
+    whose content passes through once (the deep scrub's re-encode, the
+    per-object recovery decode).  Every other one-shot call keeps the
+    content-addressed upload cache."""
+    token = _UNCACHED.set(True)
+    try:
+        yield
+    finally:
+        _UNCACHED.reset(token)
 
 
 def _release_h2d_entries(cache: "OrderedDict") -> None:
@@ -726,8 +751,9 @@ class DeviceCodec:
         One-shot sync contract: the content-addressed upload cache elides
         repeat-content H2D (tools and engine callers re-encode identical
         buffers); the persistent write-lane pipeline does not hash its
-        always-fresh granules."""
-        pipe = EncodePipeline(self.encode_stream(), depth=0, cacheable=True)
+        always-fresh granules, nor a call inside :func:`uncached_uploads`."""
+        pipe = EncodePipeline(self.encode_stream(), depth=0,
+                              cacheable=not _UNCACHED.get())
         return pipe.result(pipe.submit(data))
 
     def decode(self, have: Dict[int, np.ndarray],
@@ -742,7 +768,7 @@ class DeviceCodec:
             raise ValueError("not enough chunks to decode")
         sel, stream = self.decode_stream(available, erased)
         survivors = np.stack([out[c] for c in sel])
-        pipe = EncodePipeline(stream, depth=0, cacheable=True)
+        pipe = EncodePipeline(stream, depth=0, cacheable=not _UNCACHED.get())
         rec = pipe.result(pipe.submit(survivors))
         for i, e in enumerate(erased):
             out[e] = rec[i]

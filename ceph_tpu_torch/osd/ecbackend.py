@@ -40,6 +40,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ceph_tpu_torch.ops.pipeline import uncached_uploads
 from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.osd.messenger import Messenger
 from ceph_tpu_torch.osd.pg import (  # noqa: F401  (compat re-exports)
@@ -648,11 +649,14 @@ class ECBackend(PG):
                       report: dict) -> None:
         """Re-encode the data shards and compare the stored coding shards
         (the EC deep-scrub consistency check, reference ECBackend crc +
-        parity verification)."""
+        parity verification).  Each object's bytes pass through once,
+        so the re-encode uploads them unhashed (``uncached_uploads``)."""
         dpos = ecutil.data_positions(self.ec)
         if all(p in chunks for p in dpos):
             data = np.stack([chunks[p] for p in dpos])
-            fresh = self.ec.encode(set(range(self.km)), data.reshape(-1))
+            with uncached_uploads():
+                fresh = self.ec.encode(set(range(self.km)),
+                                       data.reshape(-1))
             for s in range(self.km):
                 if s in dpos:
                     continue
@@ -667,8 +671,10 @@ class ECBackend(PG):
 
     def _rebuild_shard(self, chunks: Dict[int, np.ndarray],
                        shard: int) -> bytes:
-        """Reconstruct one shard's bytes from k source chunks."""
-        rec = ecutil.decode_shards(self.ec, chunks, [shard])
+        """Reconstruct one shard's bytes from k source chunks (the
+        per-object recovery; its sources upload unhashed)."""
+        with uncached_uploads():
+            rec = ecutil.decode_shards(self.ec, chunks, [shard])
         return rec[shard].tobytes()
 
     def _shard_bytes_total(self, logical_size: int) -> int:

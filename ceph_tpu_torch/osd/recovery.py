@@ -55,12 +55,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ceph_tpu_torch.ops.pipeline import uncached_uploads
 from ceph_tpu_torch.osd import ecutil
 from ceph_tpu_torch.osd.pg import (SIZE_KEY, SNAPSET_KEY, VERSION_KEY,
                              WHITEOUT_KEY, shard_oid, vt)
 from ceph_tpu_torch.osd.types import ECSubRead, ECSubWrite, Transaction
 from ceph_tpu_torch.utils import trace
-from ceph_tpu_torch.utils.unported import refuse
 
 #: queued client ops above which background batches back off (the
 #: saturation signal; _cop_sem bounds execution at 64, so half a
@@ -402,12 +402,14 @@ class RecoveryCoalescer:
                 and not self._want_promote(oid, 1)
             )
             if fractional:
-                # the JAX package gathers phi_f-weighted helper symbols
-                # here (plans[oid]["regen"]); the port has no
-                # regenerating codec, so a codec that advertises
-                # fractional repair is refused, never served by the full
-                # gather instead
-                refuse("the regenerating-repair lane", "regen")
+                lost = want[0]
+                coeffs = backend.ec.repair_coeffs(lost)
+                plans[oid]["regen"] = {"lost": lost, "helpers": src,
+                                       "coeffs": coeffs}
+                for s in src:
+                    key = (f"osd.{acting[s]}", s)
+                    reads.setdefault(key, {})[oid] = [(0, sub_bytes)]
+                    regen_maps.setdefault(key, {})[oid] = coeffs
             else:
                 for s in src:
                     key = (f"osd.{acting[s]}", s)
@@ -531,7 +533,8 @@ class RecoveryCoalescer:
                 ready.append(oid)
         if maps:
             trace.event("decode_submit")
-            decoded = ecutil.decode_shards_many(backend.ec, maps, wants)
+            with uncached_uploads():
+                decoded = ecutil.decode_shards_many(backend.ec, maps, wants)
             trace.event("decode_done")
         else:
             decoded = []

@@ -1711,10 +1711,52 @@ class OSDShard:
         symbol instead of raw extents -- d helpers of chunk/alpha bytes
         replace k whole-chunk reads at the primary.  All oids of the
         message sharing a coefficient signature fuse into ONE batched
-        GF(2^8) matmul dispatch.  The port has no regenerating codec yet
-        (no port plugin advertises ``fractional_repair``, so recovery
-        never asks): a request for helper symbols raises."""
-        refuse("the regenerating-repair lane", "regen")
+        GF(2^8) matmul dispatch, on the device of the pool codec that
+        advertises fractional repair."""
+        import numpy as np
+
+        from ceph_tpu_torch.device import codec_device
+        from ceph_tpu_torch.plugins import regen as regen_mod
+
+        ec = next((b.ec for b in self.pools.values()
+                   if getattr(b.ec, "fractional_repair", False)), None)
+        device = codec_device(ec)
+        groups: Dict[tuple, list] = {}
+        for oid, coeffs in regen.items():
+            soid = shard_oid(oid, msg.from_shard)
+            try:
+                data = self.store.read(soid)
+                # same integrity gate as the extent path: a full-shard
+                # helper computed from silently-corrupt bytes would
+                # poison the regenerated shard undetectably
+                hinfo_d = self.store.getattr(soid, ecutil.HINFO_KEY)
+            except FileNotFoundError:
+                reply.errors[oid] = -2  # ENOENT
+                continue
+            if hinfo_d is not None:
+                hinfo = ecutil.HashInfo.from_dict(hinfo_d)
+                if (hinfo.has_chunk_hash()
+                        and len(data) == hinfo.get_total_chunk_size()
+                        and crc32c(data) != hinfo.get_chunk_hash(
+                            msg.from_shard)):
+                    self.perf.inc("read_crc_error")
+                    reply.errors[oid] = -5  # EIO
+                    continue
+            key = (tuple(int(c) for c in coeffs), len(data))
+            groups.setdefault(key, []).append(
+                (oid, np.frombuffer(data, dtype=np.uint8)))
+        for (coeffs, _nbytes), members in groups.items():
+            try:
+                helpers = regen_mod.compute_helpers(
+                    coeffs, [arr for _, arr in members],
+                    slot_name=self.name, device=device)
+            except ValueError:
+                for oid, _ in members:
+                    reply.errors[oid] = -22  # EINVAL: shard/coeff shape
+                continue
+            for (oid, _), h in zip(members, helpers):
+                reply.buffers_read[oid] = [(0, h.tobytes())]
+            self.perf.inc("regen_helpers_served", len(members))
 
     async def handle_sub_read(self, src: str, msg: ECSubRead) -> None:
         """reference ECBackend::handle_sub_read (:987): serve extents and

@@ -10,11 +10,14 @@ Mirrors the reference's dlopen-based singleton registry semantics
   dlopen("<dir>/libec_<name>.so")), checks the plugin's version string
   against ours (mismatch -> -EXDEV), then calls its entry point which must
   register itself (missing entry point -> -ENOENT, registers nothing ->
-  -EBADF, init failure propagates).
+  -EBADF, init failure propagates);
+* ``preload()`` loads a configured list at startup
+  (ErasureCodePlugin.cc:186).
 
 Built-in plugins ship as modules in this package; out-of-tree plugins are
 python files ``ec_<name>.py`` in ``directory``.  Loading native
-``libec_<name>.so`` plugins is not part of the port yet.
+``libec_<name>.so`` plugins is not part of the port yet (ROADMAP.md queue
+1 item 6).
 """
 
 from __future__ import annotations
@@ -40,8 +43,17 @@ VERSION_POINT = "__erasure_code_version__"
 #: built-in plugin name -> module path
 _BUILTIN = {
     "jerasure": "ceph_tpu_torch.plugins.jerasure",
+    "isa": "ceph_tpu_torch.plugins.isa",
+    "shec": "ceph_tpu_torch.plugins.shec",
+    "lrc": "ceph_tpu_torch.plugins.lrc",
     "cuda": "ceph_tpu_torch.plugins.cuda",
+    "regen": "ceph_tpu_torch.plugins.regen",
+    "example": "ceph_tpu_torch.plugins.example",
 }
+
+#: osd_erasure_code_plugins analogue: the card's plugin in the JAX
+#: package's "tpu" slot
+DEFAULT_PLUGINS = "jerasure lrc isa cuda"
 
 class ErasureCodePlugin:
     """Base class every plugin registers an instance of."""
@@ -161,6 +173,13 @@ class ErasureCodePluginRegistry:
                 f"profile {profile} != get_profile() {ec.get_profile()}",
             )
         return ec
+
+    def preload(self, plugins: str = DEFAULT_PLUGINS,
+                directory: str = "") -> None:
+        """Load a space/comma-separated plugin list at daemon start."""
+        for name in plugins.replace(",", " ").split():
+            if not self.get(name):
+                self.load(name, directory)
 
 
 def instance() -> ErasureCodePluginRegistry:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """ceph_erasure_code_benchmark-compatible CLI for the port's plugins.
 
-Port of the ``encode``, ``decode``, ``storage-path``, ``recovery-path`` and
-``tier-path`` workloads of ``tools/ec_benchmark.py`` (reference:
-src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137 setup,
+Port of the ``encode``, ``decode``, ``storage-path``, ``recovery-path``,
+``repair-path`` and ``tier-path`` workloads of ``tools/ec_benchmark.py``
+(reference: src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137 setup,
 :150-188 encode, :253-327 decode): encode and decode print
 ``<elapsed_seconds>\\t<KiB>`` where KiB = iterations * size / 1024 (times
 the batch size with ``--batch``), so throughput = KiB / seconds.
@@ -18,6 +18,11 @@ reference's with ``steady_library_builds`` in place of
 ``--objects`` objects of ``--size`` bytes) and prints its result as one
 JSON line.  Its profile is fixed (k=4 m=2, the ``cuda`` plugin), so it
 needs no ``-P k``/``-P m``; ``-P`` entries overlay it (``-P device=cpu``).
+``repair-path`` runs ``osd/repair_bench.py`` (a wiped OSD of an 8-OSD
+product-matrix MSR pool, plugin ``regen`` k=4 m=3, rebuilt through the
+beta-fractional repair lane and the classic full-stripe gather,
+``--objects`` objects of ``--size`` bytes, or 8 x 6 KiB with ``--smoke``);
+its profile is fixed the same way, and it prints one JSON line.
 ``tier-path`` runs ``tier/tier_bench.py`` (``--objects`` objects of
 ``--size`` bytes resident in the device cache tier: hot reads from the
 resident block against cold reads that decode with ``--erasures`` data
@@ -32,6 +37,8 @@ Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark -w storage-path \\
         --objects 64 -s 4194304 --profile -P k=8 -P m=4
     python -m ceph_tpu_torch.tools.ec_benchmark -w recovery-path \\
+        --objects 32 -s 4194304
+    python -m ceph_tpu_torch.tools.ec_benchmark -w repair-path \\
         --objects 32 -s 4194304
     python -m ceph_tpu_torch.tools.ec_benchmark -w tier-path \\
         --objects 64 -s 4194304 -i 2 -e 2 -P k=8 -P m=4
@@ -65,7 +72,7 @@ def parse_args(argv):
                         "card)")
     p.add_argument("-w", "--workload", default="encode",
                    choices=["encode", "decode", "storage-path",
-                            "recovery-path", "tier-path"])
+                            "recovery-path", "repair-path", "tier-path"])
     p.add_argument("-e", "--erasures", type=int, default=1,
                    help="number of erasures when decoding")
     p.add_argument("--erased", type=int, action="append", default=[],
@@ -90,6 +97,9 @@ def parse_args(argv):
                         "granules, h2d-per-granule) as one JSON object "
                         "instead of the full result.  Exits nonzero on any "
                         "steady-state library build (the harness gate)")
+    p.add_argument("--smoke", action="store_true",
+                   help="repair-path only: the tiny CI shape (8 OSDs, "
+                        "8 objects of 6 KiB)")
     p.add_argument("--payload", default="X", choices=["X", "random"],
                    help="payload contents: 'X' matches the reference tool "
                         "(ceph_erasure_code_benchmark.cc:173); 'random' "
@@ -151,6 +161,8 @@ def main(argv=None) -> int:
 
     if args.workload == "recovery-path":
         return _recovery_path(args, profile)
+    if args.workload == "repair-path":
+        return _repair_path(args, profile)
 
     k = int(profile.get("k", "0"))
     m = int(profile.get("m", "0"))
@@ -339,6 +351,38 @@ def _recovery_path(args, overlay) -> int:
         f"{result['batched']['client_p99_ms']}ms during rebuild, "
         f"{result['batched']['counters']['recovery_ops_batched']} "
         f"objects through the batched lane",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _repair_path(args, overlay) -> int:
+    """Regenerating repair: rebuild a wiped OSD of a product-matrix MSR
+    pool (plugin regen, k=4 m=3, d=2k-2=6) through the beta-fractional
+    repair lane vs the classic full-stripe gather on the SAME pool.
+    Chaos sequence (wipe -> degraded peak -> monotone drain -> clean),
+    bit-exactness, cross-mode shard bytes, measured gather-bytes ratio
+    <= 0.75 and time-to-clean no worse are all gated before anything is
+    printed."""
+    from ceph_tpu_torch.osd.repair_bench import (PROFILE,
+                                                 run_repair_path_bench)
+
+    profile = dict(PROFILE, **overlay)
+    if args.smoke:
+        result = run_repair_path_bench(
+            n_osds=8, n_objects=8, obj_bytes=6 << 10, profile=profile)
+    else:
+        result = run_repair_path_bench(
+            n_objects=args.objects, obj_bytes=args.size, profile=profile)
+    print(json.dumps(result))
+    print(
+        f"repair-path {result['n_objects']}x{result['obj_bytes']}B:"
+        f" gather ratio {result['repair_bytes_ratio']} "
+        f"(gate 0.75), time-to-clean ratio "
+        f"{result['time_to_clean_ratio']}, "
+        f"{result['bytes_saved']} repair bytes saved, "
+        f"{result['fractional']['counters']['regen_helpers_served']}"
+        " helper symbols served",
         file=sys.stderr,
     )
     return 0

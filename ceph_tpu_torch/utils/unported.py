@@ -12,7 +12,8 @@ from typing import NoReturn
 
 #: missing module -> (what it is, ROADMAP.md queue 1 item that ports it)
 MISSING = {
-    "regen": ("ceph_tpu/plugins/regen.py (regenerating-code repair)", 5),
+    "native": ("ceph_tpu/ops/native_engine.py and ceph_tpu/native/ "
+               "(the native engine and plugin loading)", 6),
     "mesh": ("ceph_tpu/parallel/mesh_plane.py (the mesh data plane)", 7),
     "replicated": ("ceph_tpu/osd/replicated.py (replicated pools)", 10),
     "objectstore": ("ceph_tpu/objectstore/ persistent engines", 11),

@@ -89,13 +89,41 @@ Phases (any failure raises and exits non-zero):
    cold read GiB/s.  The codec kernels' launches on the tier path are
    zeroed just before each cycle and read just after it (per step too);
    ``tier_bench``'s are counted apart.
+3e. The rest of the plugin layer on the card, each plugin against the
+   same plugin on the CPU in the port (``backend=cpu``, the host engine;
+   ``device=cpu`` for regen; lrc's layers on ``jerasure``): isa
+   reed_sol_van and cauchy at k=7 m=3 (``backend=cuda``), shec k=4 m=3
+   c=2 at w=8 and w=16 (``backend=cuda``), lrc k=4 m=2 l=3 with its
+   generated layers on the ``cuda`` plugin, and regen k=4 m=3 (d=6).
+   Each encodes 8 seeded 4 MiB stripes (half the bytes >= 0x80; every
+   chunk size a whole number of 4-byte lanes, so the products take the
+   kernel) and decodes them with two chunks erased (one, in a local
+   group, for lrc), through the sync ``encode``/``decode`` (regen through
+   ``encode_batch``/``decode_batch``, its device lanes); every chunk is
+   compared bit for bit, and
+   ``gf2_matrix_w8``'s launches (``gf2_matrix_w16``'s for shec w=16)
+   must rise during the plugin's step.  For regen also, for every single
+   lost node, the d survivors' helper symbols (``compute_helpers`` on
+   the card) and ``regenerate_batch`` against the host LUT engine and
+   the lost chunk, with the kernel's launches rising; and helpers of a
+   width off the 4-byte lane grid (beta = 4099), which take the host
+   path on the card (no launch) and give the same bytes.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased), one of ``-w storage-path --profile`` at the flagship profile
    (64 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
    of 4 MiB (its gates: bit-exact rebuild, identical rebuilt stores in
-   both modes, the batched lane used, client p99 under 2000 ms), and one
-   of ``-w tier-path`` with 8 objects of 4 MiB (its gates: every object
-   promoted, hot and cold reads bit-exact).
+   both modes, the batched lane used, client p99 under 2000 ms), one of
+   ``-w repair-path`` with 32 objects of 4 MiB on 8 OSDs, at an
+   ``osd_recovery_batch_bytes`` of 256 MiB (at the default 8 MiB a 4 MiB
+   object's chunks exceed its share of a batch and take the windowed
+   per-object path, which has no regen lane) (its gates:
+   the chaos drain, bit-exact reads in both modes, identical rebuilt
+   victim stores, the regen lane used by the fractional mode only,
+   gather ratio <= 0.75 and time-to-clean ratio <= 1.25; it prints per
+   mode the gather bytes, time to clean and helper symbols served, and
+   ``gf2_matrix_w8`` must be launched in the fractional mode's rebuild),
+   and one of ``-w tier-path`` with 8 objects of 4 MiB (its gates: every
+   object promoted, hot and cold reads bit-exact).
 5. The fourteen sweep kernels (``csrc/sweep_kernels.cu`` and
    ``csrc/xornet_kernel.cu``) against their plain versions at the sweep's
    shape, lanes [8, 2097152], and at a ragged one: ``sweep_xornet`` for
@@ -173,6 +201,7 @@ from ceph_tpu_torch.tier.device_tier import (DeviceByteAccount,
 from ceph_tpu_torch.tier.tier_bench import run_tier_path_bench
 from ceph_tpu_torch.tools import (ec_benchmark, ec_kernel_sweep,
                                   kernel_r4_probe, kernel_r4_split)
+from ceph_tpu_torch.utils.config import get_config
 from ceph_tpu_torch.utils.perf import PerfCounters
 
 #: H100 SXM published memory rate (NVIDIA data sheet) at the 700 W limit
@@ -225,6 +254,36 @@ HASH_TURNS = 2
 #: the nibble tables of the encode and decode streams (1 KiB each at k=8
 #: m=4 w=8) -- the slack of the ledger-against-allocator check
 CODEC_TABLE_SLACK = 1 << 20
+
+#: the plugin family (phase 3e): (label, plugin, profile on the card,
+#: profile of its CPU twin, the kernel it runs, chunks erased in decode)
+FAMILY_STRIPES = 8
+FAMILY_STRIPE = 4 << 20
+_LRC_KML = {"k": "4", "m": "2", "l": "3"}
+FAMILY = (
+    ("isa reed_sol_van k=7 m=3", "isa",
+     {"technique": "reed_sol_van", "backend": "cuda"},
+     {"technique": "reed_sol_van"}, "gf2_matrix_w8", (1, 8)),
+    ("isa cauchy k=7 m=3", "isa", {"technique": "cauchy", "backend": "cuda"},
+     {"technique": "cauchy"}, "gf2_matrix_w8", (1, 8)),
+    ("shec k=4 m=3 c=2 w=8", "shec", {"backend": "cuda"}, {},
+     "gf2_matrix_w8", (1, 5)),
+    ("shec k=4 m=3 c=2 w=16", "shec", {"w": "16", "backend": "cuda"},
+     {"w": "16"}, "gf2_matrix_w16", (1, 5)),
+    ("lrc k=4 m=2 l=3, cuda layers", "lrc", None, dict(_LRC_KML),
+     "gf2_matrix_w8", (1,)),
+    ("regen k=4 m=3 d=6", "regen", {"k": "4", "m": "3"},
+     {"k": "4", "m": "3", "device": "cpu"}, "gf2_matrix_w8", (1, 5)),
+)
+#: a regen helper width off the 4-byte lane grid: the host path on the card
+OFF_LANE_BETA = 4099
+#: the repair path (phase 4): objects of RBD's default size on 8 OSDs,
+#: with a recovery batch budget that gives each object of a full batch
+#: (32) its k whole 1 MiB chunks: at the default 8 MiB a 4 MiB object's
+#: chunk exceeds its share of the batch, so both modes recover it through
+#: the windowed per-object path, where no regen lane exists
+REPAIR_OBJECTS = 32
+REPAIR_BATCH_BYTES = 256 << 20
 
 KERNEL_SOURCE = "ceph_tpu_torch/csrc/gf_kernels.cu"
 REPLACES = {
@@ -1526,6 +1585,149 @@ def phase_tier_path(reg, seed: int, card: str) -> dict:
     return out
 
 
+def _lrc_cuda_profile(reg) -> dict:
+    """lrc k=4 m=2 l=3's generated mapping and layers, each layer on the
+    ``cuda`` plugin (the card)."""
+    gen = reg.factory("lrc", dict(_LRC_KML, plugin="jerasure"))
+    layers = [[layer.chunks_map, "plugin=cuda"] for layer in gen.layers]
+    return {"mapping": gen.get_profile()["mapping"],
+            "layers": json.dumps(layers)}
+
+
+def _family_stripes(seed: int):
+    """Seeded stripes, half of their bytes >= 0x80."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(FAMILY_STRIPES):
+        s = np.frombuffer(rs.bytes(FAMILY_STRIPE), dtype=np.uint8).copy()
+        s[::2] |= 0x80
+        out.append(s)
+    return out
+
+
+def _same_chunks(got: dict, want: dict, what: str) -> None:
+    assert set(got) == set(want), f"{what}: chunk ids {sorted(got)}"
+    for c in want:
+        assert np.array_equal(np.asarray(got[c]), np.asarray(want[c])), \
+            f"{what}: chunk {c} differs from the CPU twin"
+
+
+def _regen_repair(ec, twin, chunks, card) -> dict:
+    """Every single lost node of regen: the d survivors' helper symbols
+    on the card and ``regenerate_batch`` over the stripes, against the
+    CPU twin (the host LUT engine) and the lost chunk; then helpers of a
+    width off the lane grid, which take the host path on the card."""
+    from ceph_tpu_torch.plugins import regen
+
+    n = ec.get_chunk_count()
+    before = cuda_gf.launches["gf2_matrix_w8"]
+    t0 = time.perf_counter()
+    for lost in range(n):
+        helpers = [s for s in range(n) if s != lost][:ec.d]
+        coeffs = ec.repair_coeffs(lost)
+        symbols, want = {}, {}
+        for h in helpers:
+            shards = [c[h] for c in chunks]
+            symbols[h] = regen.compute_helpers(coeffs, shards, device="cuda")
+            want[h] = regen.compute_helpers(coeffs, shards, device="cpu")
+            for i, (a, b) in enumerate(zip(symbols[h], want[h])):
+                assert np.array_equal(a, b), \
+                    f"regen helpers: lost {lost} helper {h} stripe {i}"
+        stacks = [np.stack([symbols[h][i] for h in helpers])
+                  for i in range(len(chunks))]
+        got = ec.regenerate_batch(lost, helpers, stacks)
+        ref = twin.regenerate_batch(lost, helpers, stacks)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            assert np.array_equal(a, b) and \
+                np.array_equal(a, chunks[i][lost]), \
+                f"regen regenerate_batch: lost {lost} stripe {i}"
+    torch.cuda.synchronize()
+    repair_s = time.perf_counter() - t0
+    rose = cuda_gf.launches["gf2_matrix_w8"] - before
+    assert rose > 0, "regen repair: gf2_matrix_w8 was never launched"
+    # off the lane grid: host path on the card, the same bytes
+    rs = np.random.RandomState(OFF_LANE_BETA)
+    shard_len = ec.alpha * OFF_LANE_BETA
+    shards = [rs.randint(0, 256, shard_len, dtype=np.uint8)
+              for _ in range(ec.d)]
+    coeffs = ec.repair_coeffs(0)
+    before_off = cuda_gf.launches["gf2_matrix_w8"]
+    off = regen.compute_helpers(coeffs, shards, device="cuda")
+    stack = np.stack(off)
+    regen_off = ec.regenerate_batch(0, list(range(1, ec.d + 1)), [stack])
+    torch.cuda.synchronize()
+    assert cuda_gf.launches["gf2_matrix_w8"] == before_off, \
+        "regen off-lane widths launched the kernel"
+    want_off = regen.compute_helpers(coeffs, shards, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(off, want_off))
+    assert np.array_equal(regen_off[0], twin.regenerate_batch(
+        0, list(range(1, ec.d + 1)), [stack])[0])
+    print(f"[family] regen k=4 m=3 d=6: helper symbols and regenerate_batch "
+          f"for each of {n} lost nodes over {len(chunks)} stripes "
+          f"bit-exact vs the host LUT engine and the lost chunk "
+          f"({repair_s:.2f} s, gf2_matrix_w8 launches {rose}); beta = "
+          f"{OFF_LANE_BETA} (off the lane grid) through the host path, no "
+          f"launch, bit-exact; card {card}", flush=True)
+    return {"repair_s": repair_s, "repair_launches": rose}
+
+
+def phase_plugin_family(reg, seed: int, card: str) -> dict:
+    """The rest of the plugin layer on the card (docstring, phase 3e)."""
+    results = {}
+    stripes = _family_stripes(seed)
+    gib = FAMILY_STRIPES * FAMILY_STRIPE / 2**30
+    t_phase = time.perf_counter()
+    for label, name, card_prof, cpu_prof, kern, erased in FAMILY:
+        prof = _lrc_cuda_profile(reg) if card_prof is None else card_prof
+        ec = reg.factory(name, dict(prof))
+        twin = reg.factory(name, dict(cpu_prof))
+        km = ec.get_chunk_count()
+        want = set(range(km))
+        cs = ec.get_chunk_size(FAMILY_STRIPE)
+        assert cs % cuda_gf.LANE_BYTES == 0, f"{label}: chunk {cs} B"
+        before = dict(cuda_gf.launches)
+        t0 = time.perf_counter()
+        # regen's device lanes are its batched API (its sync decode runs
+        # the host engine, as the JAX package's does)
+        batched = hasattr(ec, "decode_batch")
+        enc = ec.encode_batch(stripes) if batched else \
+            [ec.encode(want, s) for s in stripes]
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        ref = [twin.encode(want, s) for s in stripes]
+        for i, (a, b) in enumerate(zip(enc, ref)):
+            _same_chunks(a, b, f"{label} encode stripe {i}")
+        maps = [{c: a for c, a in e.items() if c not in erased}
+                for e in ref]
+        t0 = time.perf_counter()
+        dec = ec.decode_batch(maps) if batched else \
+            [ec.decode(want, dict(mp)) for mp in maps]
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        for i, (a, mp) in enumerate(zip(dec, maps)):
+            _same_chunks(a, twin.decode(want, dict(mp)),
+                         f"{label} decode stripe {i}")
+            _same_chunks({c: a[c] for c in erased},
+                         {c: ref[i][c] for c in erased},
+                         f"{label} decode stripe {i} vs encode")
+        rose = cuda_gf.launches[kern] - before[kern]
+        assert rose > 0, f"{label}: {kern} was never launched"
+        row = {"plugin": name, "kernel": kern, "chunk_bytes": cs,
+               "erased": list(erased), "launches": rose,
+               "encode_GiBs": gib / enc_s, "decode_GiBs": gib / dec_s}
+        print(f"[family] {label}: {FAMILY_STRIPES} x {FAMILY_STRIPE} B "
+              f"stripes, {cs} B chunks, encode {row['encode_GiBs']:.3f} "
+              f"GiB/s, decode {row['decode_GiBs']:.3f} GiB/s (erased "
+              f"{list(erased)}), every chunk bit-exact vs the CPU twin; "
+              f"{kern} launches {rose}; card {card}", flush=True)
+        if name == "regen":
+            row.update(_regen_repair(ec, twin, ref, card))
+        results[label] = row
+    print(f"[family] phase {time.perf_counter() - t_phase:.1f} s; card "
+          f"{card}", flush=True)
+    return results
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -1561,6 +1763,37 @@ def phase_ec_benchmark(card: str) -> None:
     rec = json.loads(out[-1])
     assert rec["bit_exact"] is True and \
         rec["batched"]["counters"]["recovery_ops_batched"] > 0, rec
+    print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]}; card {card}",
+          flush=True)
+    argv = ["-w", "repair-path", "--objects", str(REPAIR_OBJECTS), "-s",
+            str(OBJECT)]
+    cfg = get_config()
+    prior = cfg.get_val("osd_recovery_batch_bytes")
+    cfg.apply_changes({"osd_recovery_batch_bytes": REPAIR_BATCH_BYTES})
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = ec_benchmark.main(argv)
+    finally:
+        cfg.apply_changes({"osd_recovery_batch_bytes": prior})
+    out = buf.getvalue().strip().splitlines()
+    assert rc == 0, f"ec_benchmark exited {rc}: {out}"
+    rep = json.loads(out[-1])
+    assert rep["bit_exact"] is True and rep["repair_bytes_ratio"] <= 0.75 \
+        and rep["time_to_clean_ratio"] <= 1.25, rep
+    assert rep["fractional"]["rebuild_launches"]["gf2_matrix_w8"] > 0, \
+        f"repair-path: gf2_matrix_w8 not launched in the fractional " \
+        f"rebuild {rep['fractional']['rebuild_launches']}"
+    for mode in ("classic", "fractional"):
+        r = rep[mode]
+        print(f"[repair] {mode}: gather {r['gather_bytes']} B (ratio "
+              f"{rep['repair_bytes_ratio']} fractional / classic), time to "
+              f"clean {r['time_to_clean_s']} s (ratio "
+              f"{rep['time_to_clean_ratio']}), helper symbols served "
+              f"{r['counters']['regen_helpers_served']}, rebuilt "
+              f"{r['rebuilt_bytes']} B, drain {r['drain']}, rebuild "
+              f"launches {json.dumps(r['rebuild_launches'])}; card {card}",
+              flush=True)
     print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]}; card {card}",
           flush=True)
     argv = ["-w", "tier-path", "--objects", "8", "-s", str(OBJECT),
@@ -1627,6 +1860,7 @@ def main(argv=None) -> int:
     storage = phase_storage_path(reg, args.seed, card)
     cluster = phase_cluster_path(args.seed, card)
     tier = phase_tier_path(reg, args.seed, card)
+    family = phase_plugin_family(reg, args.seed, card)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
     launched.update(phase_probes(card))
@@ -1638,6 +1872,7 @@ def main(argv=None) -> int:
     print(json.dumps({"storage_path": storage}))
     print(json.dumps({"cluster_path": cluster}))
     print(json.dumps({"tier_path": tier}))
+    print(json.dumps({"plugin_family": family}))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

@@ -11,9 +11,10 @@ attr holds a time, a nonce or a client id (``_version`` is the version
 counter and the primary's name, the same in both), so nothing is compared
 by type only.  The snapshot paths of ``pg.py`` are not driven here.
 
-The paths the port refuses (mon, auth, cls, mgr, replicated pools,
-regenerating repair, mesh plane, persistent object stores) raise, naming
-the missing module and its ROADMAP.md queue item.  The device tier is
+The paths the port refuses (mon, auth, cls, mgr, replicated pools, mesh
+plane, persistent object stores) raise, naming the missing module and its
+ROADMAP.md queue item; the regenerating-repair lane, which the port now
+has, runs and matches the JAX package's.  The device tier is
 compared in tests/test_torch_tier.py.
 """
 
@@ -34,6 +35,7 @@ from ceph_tpu_torch.msg.fault import FaultInjector
 from ceph_tpu_torch.osd import cluster, cluster_bench, ecbackend, placement
 from ceph_tpu_torch.osd import types as t_types
 from ceph_tpu_torch.osd.shard import OSDShard
+from ceph_tpu_torch.plugins import registry as registry_mod
 from ceph_tpu_torch.utils import config, unported
 from ceph_tpu_torch.utils.perf import PerfCounters
 
@@ -487,43 +489,89 @@ def test_exec_refuses_on_client_and_primary():
     _run(main())
 
 
-def test_regen_lane_refuses():
-    async def main():
-        c = _port_cluster()
-        await c.write("o", b"y" * 4000)
-        acting = c.backend.acting_set("o")
-        osd = c.osds[acting[0]]
-        msg = t_types.ECSubRead(from_shard=0, tid=1, to_read={"o": [(0, 8)]},
-                                attrs_to_read=[], regen={"o": [1]})
-        reply = t_types.ECSubReadReply(from_shard=0, tid=1)
-        _refuses("regen", lambda: osd._serve_regen_helpers(
-            msg, msg.regen, reply))
-        await c.shutdown()
+REGEN = {"k": "4", "m": "3", "plugin": "regen"}
 
-    _run(main())
+
+#: a regen pool of each package (the port's on ``device=cpu``), built
+#: inside the running loop
+REGEN_MAKERS = (lambda: cluster.ECCluster(8, dict(REGEN, device="cpu")),
+                lambda: j_cluster.ECCluster(8, dict(REGEN)))
+
+
+def test_regen_lane_refuses():
+    """Since the port has the regenerating codec, the shard's helper lane
+    no longer refuses: it serves each requested oid's helper symbol (its
+    stored shard dotted with phi_f), the same bytes as the JAX package's
+    shard, and an unknown oid gets ENOENT in both."""
+    def serve(make, types_mod):
+        async def main():
+            c = make()
+            payload = np.random.RandomState(4).randint(
+                0, 256, 40000, dtype=np.uint8).tobytes()
+            await c.write("o", payload)
+            acting = c.backend.acting_set("o")
+            osd = c.osds[acting[2]]
+            coeffs = c.ec.repair_coeffs(0)
+            msg = types_mod.ECSubRead(
+                from_shard=2, tid=1, to_read={"o": [(0, 8)]},
+                attrs_to_read=[], regen={"o": coeffs, "nope": coeffs})
+            reply = types_mod.ECSubReadReply(from_shard=2, tid=1)
+            osd._serve_regen_helpers(msg, msg.regen, reply)
+            served = osd.perf.snapshot().get("regen_helpers_served", 0)
+            await c.shutdown()
+            return dict(reply.buffers_read), dict(reply.errors), served
+
+        return _run(main())
+
+    make_mine, make_theirs = REGEN_MAKERS
+    got, want = serve(make_mine, t_types), serve(make_theirs, j_types)
+    assert got == want
+    buffers, errors, served = got
+    assert errors == {"nope": -2} and served == 1
+    chunk = registry_mod.instance().factory(
+        "regen", {"k": "4", "m": "3", "device": "cpu"}).get_chunk_size(40000)
+    assert len(buffers["o"][0][1]) * 3 == chunk
 
 
 def test_regen_lane_refuses_in_recovery_planning():
-    """A codec that advertises fractional repair is refused by the
-    batched recovery planner, never served by the full gather."""
-    async def main():
-        c = _port_cluster()
-        await c.write("o", b"z" * 40000)
-        acting = c.backend.acting_set("o")
-        # a codec that says it repairs from sub-chunks, with a plan
-        # below a whole shard per helper
-        c.ec.fractional_repair = True
-        c.ec.get_sub_chunk_count = lambda: 4
-        c.ec.minimum_to_decode = lambda want, up: {s: [(0, 1)]
-                                                   for s in up[:2]}
-        from ceph_tpu_torch.osd.recovery import RecoveryCoalescer
+    """Since the port has the regenerating codec, the batched recovery
+    planner no longer refuses a codec that advertises fractional repair:
+    a lost shard is rebuilt from d helper symbols, with the JAX package's
+    stores, gathered bytes and bytes saved."""
+    def rebuild(make, coalescer_cls):
+        async def main():
+            c = make()
+            payload = np.random.RandomState(5).randint(
+                0, 256, 40000, dtype=np.uint8).tobytes()
+            await c.write("o", payload)
+            acting = c.backend.acting_set("o")
+            c.kill_osd(acting[1])
+            c.wipe_osd(acting[1])
+            c.revive_osd(acting[1])
+            rc = coalescer_cls(c.primary_backend("o"))
+            fell_back = await rc._recover_batch(
+                {"o": [(1, acting[1], False)]})
+            backend = c.primary_backend("o")
+            out = (sorted(fell_back), cluster_bench.store_snapshot(c),
+                   {key: backend.perf.snapshot().get(key, 0)
+                    for key in ("recovery_gather_bytes",
+                                "recovery_bytes_saved", "recovery_bytes")},
+                   await c.read("o") == payload)
+            await c.shutdown()
+            return out
 
-        rc = RecoveryCoalescer(c.primary_backend("o"))
-        with pytest.raises(unported.NotPortedError):
-            await rc._recover_batch({"o": [(1, acting[1], False)]})
-        await c.shutdown()
+        return _run(main())
 
-    _run(main())
+    from ceph_tpu.osd.recovery import RecoveryCoalescer as JCoalescer
+    from ceph_tpu_torch.osd.recovery import RecoveryCoalescer
+
+    make_mine, make_theirs = REGEN_MAKERS
+    got = rebuild(make_mine, RecoveryCoalescer)
+    want = rebuild(make_theirs, JCoalescer)
+    assert got == want
+    fell_back, _stores, counters, read_back = got
+    assert fell_back == [] and read_back
+    assert counters["recovery_bytes_saved"] > 0
 
 
 def test_mesh_plane_is_off_and_its_option_undeclared():

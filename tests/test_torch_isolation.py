@@ -5,8 +5,10 @@ fresh interpreter in which ``jax``, ``ceph_tpu``, ``tools`` and
 ``experiments`` cannot be imported imports every port module, encodes
 and decodes one stripe, runs one small coalesced storage-path pass, one
 small EC cluster's write, kill, degraded read and recovery at k=2 m=1, the
-device tier's bench and a writeback cluster's tier hit, and the kernel
-sweep and its two probe tools on the CPU)."""
+device tier's bench and a writeback cluster's tier hit, the registry's
+``preload()`` and one stripe through each of the regen, isa, shec, lrc and
+example plugins, the repair-path bench's fractional rebuild of 4 objects,
+and the kernel sweep and its two probe tools on the CPU)."""
 
 import ast
 import os
@@ -34,6 +36,12 @@ def test_port_files_import_no_jax_and_no_reference_package():
     # the device cache tier is part of the scan
     assert {"__init__.py", "device_tier.py", "agent.py", "tier_bench.py"} \
         <= {p.name for p in files if p.parent == PORT / "tier"}
+    # so are the plugin layer, its matrices and the repair bench
+    assert {"regen.py", "isa.py", "shec.py", "lrc.py", "example.py"} \
+        <= {p.name for p in files if p.parent == PORT / "plugins"}
+    assert {"product_matrix.py", "isa.py"} \
+        <= {p.name for p in files if p.parent == PORT / "matrices"}
+    assert PORT / "osd" / "repair_bench.py" in files
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -139,6 +147,29 @@ async def tiered():
 loop = asyncio.new_event_loop()
 loop.run_until_complete(tiered())
 loop.close()
+reg.preload()
+assert {"jerasure", "lrc", "isa", "cuda"} <= set(reg._plugins)
+for name, prof in (("regen", {"k": "4", "m": "3", "device": "cpu"}),
+                   ("isa", {"k": "4", "m": "2", "backend": "cuda",
+                            "device": "cpu"}),
+                   ("shec", {"backend": "cuda", "device": "cpu"}),
+                   ("lrc", {"k": "4", "m": "2", "l": "3"}),
+                   ("example", {})):
+    pec = reg.factory(name, prof)
+    km = pec.get_chunk_count()
+    raw = np.random.RandomState(3).randint(0, 256, 5000, dtype=np.uint8)
+    chunks = pec.encode(set(range(km)), raw)
+    back = pec.decode({0}, {c: a for c, a in chunks.items() if c != 0})
+    assert np.array_equal(back[0], chunks[0]), name
+    assert type(pec).__module__ == "ceph_tpu_torch.plugins." + name
+from ceph_tpu_torch.osd import repair_bench
+loop = asyncio.new_event_loop()
+rp = loop.run_until_complete(repair_bench._run_mode(
+    True, n_osds=8, n_objects=4, obj_bytes=6 << 10,
+    payloads=[bytes([i]) * (6 << 10) for i in range(4)], victim=0,
+    profile=dict(repair_bench.PROFILE, device="cpu")))
+loop.close()
+assert rp["counters"]["recovery_bytes_saved"] > 0 and rp["drain"][-1] == 0
 from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_probe, kernel_r4_split
 for tool in (ec_kernel_sweep, kernel_r4_split, kernel_r4_probe):
     assert tool.main(["--device", "cpu", "--iters", "1"]) == 0
