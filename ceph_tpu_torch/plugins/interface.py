@@ -34,6 +34,17 @@ class ErasureCodeError(Exception):
         super().__init__(f"{msg} (errno {self.errno})")
 
 
+def backend_tpu_error(plugin: str) -> ErasureCodeError:
+    """The refusal of ``backend=tpu``: in the JAX package that key runs the
+    TPU engine; the port's device backend is ``backend=cuda``, and running
+    ``tpu`` on the host instead would move the work off the device unseen."""
+    return ErasureCodeError(
+        _errno.EINVAL,
+        f"{plugin}: backend=tpu names the TPU engine, which ceph_tpu_torch "
+        f"does not have; use backend=cuda for the card (backend=cpu or "
+        f"backend=native for the host)")
+
+
 class ErasureCodeInterface:
     """Abstract codec contract (ErasureCodeInterface.h:170).
 

@@ -5,8 +5,8 @@ by default; profile key ``backend=cuda`` routes the GF(2^8) products
 through the PyTorch engine (``ops/torch_gf.py``, the ``gf2_matrix_w8``
 kernel) on the profile's ``device`` (default ``cuda``; ``cpu`` runs the
 kernel's plain PyTorch version), as the ``jerasure`` plugin does.
-``backend=native`` needs the JAX package's native engine, which the port
-does not have: it is refused.
+``backend=native`` runs the host's AVX2 kernels
+(``ops/native_engine.py``); ``backend=tpu`` is refused with EINVAL.
 
 Mirrors the reference isa plugin (reference: src/erasure-code/isa/
 ErasureCodeIsa.{h,cc}, ErasureCodePluginIsa.cc):
@@ -42,8 +42,8 @@ from ceph_tpu_torch.plugins.interface import (
     ErasureCode,
     ErasureCodeError,
     ErasureCodeProfile,
+    backend_tpu_error,
 )
-from ceph_tpu_torch.utils.unported import refuse
 
 EC_ISA_ADDRESS_ALIGNMENT = 32
 
@@ -117,8 +117,8 @@ class ErasureCodeIsaDefault(ErasureCode):
         self.k = self.to_int("k", profile, self.DEFAULT_K)
         self.m = self.to_int("m", profile, self.DEFAULT_M)
         self._backend = self.to_string("backend", profile, "cpu")
-        if self._backend == "native":
-            refuse("isa backend=native", "native")
+        if self._backend == "tpu":
+            raise backend_tpu_error("isa")
         if self._backend == "cuda":
             self._device = resolve_device(
                 self.to_string("device", profile, "cuda"))
@@ -151,6 +151,10 @@ class ErasureCodeIsaDefault(ErasureCode):
             from ceph_tpu_torch.ops import torch_gf
 
             return torch_gf.on_device(self._device)
+        if self._backend == "native":
+            from ceph_tpu_torch.ops import native_engine
+
+            return native_engine
         return cpu_engine
 
     def encode_chunks(

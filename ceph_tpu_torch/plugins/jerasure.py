@@ -11,7 +11,11 @@ ErasureCodePluginJerasure.cc:34-72 technique dispatch):
 Compute runs on the numpy CPU engine by default; profile key
 ``backend=cuda`` routes encode/decode through the PyTorch GF(2) engine
 (ceph_tpu_torch/ops/torch_gf.py) on the profile's ``device`` (default
-``cuda``; ``cpu`` runs the plain torch versions) -- same bytes either way.
+``cuda``; ``cpu`` runs the plain torch versions), and ``backend=native``
+through the host's AVX2 kernels (ceph_tpu_torch/ops/native_engine.py) --
+same bytes either way.  ``backend=tpu`` (the JAX package's accelerator) is
+refused with EINVAL; any other value runs the numpy engine, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ceph_tpu_torch.plugins.interface import (
     ErasureCode,
     ErasureCodeError,
     ErasureCodeProfile,
+    backend_tpu_error,
 )
 
 LARGEST_VECTOR_WORDSIZE = 16  # ErasureCodeJerasure.cc:30
@@ -95,6 +100,8 @@ class ErasureCodeJerasure(ErasureCode):
         self.m = self.to_int("m", profile, self.DEFAULT_M)
         self.w = self.to_int("w", profile, self.DEFAULT_W)
         self._backend = self.to_string("backend", profile, "cpu")
+        if self._backend == "tpu":
+            raise backend_tpu_error("jerasure")
         if self._backend == "cuda":
             self._device = resolve_device(
                 self.to_string("device", profile, "cuda"))
@@ -157,6 +164,10 @@ class ErasureCodeJerasure(ErasureCode):
             from ceph_tpu_torch.ops import torch_gf
 
             return torch_gf.on_device(self._device)
+        if self._backend == "native":
+            from ceph_tpu_torch.ops import native_engine
+
+            return native_engine
         return None  # numpy/CPU path
 
 

@@ -15,9 +15,9 @@ Mirrors the reference's dlopen-based singleton registry semantics
   (ErasureCodePlugin.cc:186).
 
 Built-in plugins ship as modules in this package; out-of-tree plugins are
-python files ``ec_<name>.py`` in ``directory``.  Loading native
-``libec_<name>.so`` plugins is not part of the port yet (ROADMAP.md queue
-1 item 6).
+python files ``ec_<name>.py`` in ``directory``.  Native ``libec_<name>.so``
+plugins load through the C++ twin of this registry,
+``ceph_tpu_torch/native/registry_native.py``.
 """
 
 from __future__ import annotations

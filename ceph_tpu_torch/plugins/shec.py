@@ -5,8 +5,9 @@ engine by default; profile key ``backend=cuda`` routes the GF(2^w)
 products of encode and of the coding-chunk re-encode through the PyTorch
 engine (``ops/torch_gf.py``: ``gf2_matrix_w8`` at w=8, ``gf2_matrix_w16``
 at w=16) on the profile's ``device`` (default ``cuda``; ``cpu`` runs the
-kernels' plain PyTorch versions).  ``backend=native`` is refused (the
-port has no native engine).
+kernels' plain PyTorch versions); ``backend=native`` runs the host's
+AVX2 kernels at w=8 (``ops/native_engine.py``), and ``backend=tpu`` is
+refused with EINVAL.
 
 Mirrors the reference shec plugin (reference: src/erasure-code/shec/
 ErasureCodeShec.{h,cc}, ErasureCodePluginShec.cc):
@@ -40,8 +41,8 @@ from ceph_tpu_torch.plugins.interface import (
     ErasureCode,
     ErasureCodeError,
     ErasureCodeProfile,
+    backend_tpu_error,
 )
-from ceph_tpu_torch.utils.unported import refuse
 
 
 def calc_recovery_efficiency1(k: int, m1: int, m2: int, c1: int, c2: int) -> float:
@@ -181,8 +182,8 @@ class ErasureCodeShec(ErasureCode):
                 pass
         profile["w"] = str(self.w)
         self._backend = self.to_string("backend", profile, "cpu")
-        if self._backend == "native":
-            refuse("shec backend=native", "native")
+        if self._backend == "tpu":
+            raise backend_tpu_error("shec")
         if self._backend == "cuda":
             self._device = resolve_device(
                 self.to_string("device", profile, "cuda"))
@@ -199,6 +200,10 @@ class ErasureCodeShec(ErasureCode):
             from ceph_tpu_torch.ops import torch_gf
 
             return torch_gf.on_device(self._device)
+        if self._backend == "native":
+            from ceph_tpu_torch.ops import native_engine
+
+            return native_engine
         return cpu_engine
 
     def encode_chunks(

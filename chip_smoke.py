@@ -108,6 +108,31 @@ Phases (any failure raises and exits non-zero):
    the lost chunk, with the kernel's launches rising; and helpers of a
    width off the 4-byte lane grid (beta = 4099), which take the host
    path on the card (no launch) and give the same bytes.
+3f. The native layer and the EC tools (``native/``, ``ops/native_engine.py``
+   and ``tools/{ec_non_regression,ec_bench_sweep,ec_info,crushtool}.py``).
+   (a) On the card machine's host: the native libraries build there
+   (``native/build.py``, host ``g++ -march=native``); the dlopen registry's
+   handshake -- ``xor_native`` loads and its codec encodes and decodes,
+   ``regen_native`` loads, the five broken fixtures and a missing file
+   return the reference's codes (-EXDEV twice, -ENOENT, -3, -EBADF,
+   -ENOENT) and ``hangs_native`` gives up at its 300 ms watchdog; then
+   jerasure reed_sol_van and cauchy_good packetsize=2048 at k=8 m=4, isa
+   reed_sol_van k=8 m=4 and shec k=4 m=3 c=2 at ``backend=native`` encode
+   8 seeded 4 MiB stripes and decode them with two chunks erased, every
+   chunk equal to ``backend=cpu``'s; it prints the host GiB/s of both
+   engines with the host CPU's model (``/proc/cpuinfo``).  (b) The port's
+   ``ec_non_regression --check`` over every directory of the committed
+   corpus (``tests/data/ec_corpus``, made by the JAX package's tool): each
+   exits 0, and each card profile (``backend=cuda``, ``plugin=cuda``,
+   ``regen``) launches ``gf2_matrix_w8``, ``gf2_matrix_w16`` or
+   ``gf2_packet`` (counts printed before and after).  (c) ``ec_bench_sweep
+   --plugins cuda,jerasure,isa --backend cuda`` at its defaults (1 MiB,
+   16 MiB total): one JSON line per cell with no ``error`` line (the
+   reference's sweep prints none at these sizes), each ``cuda`` row's
+   ``h2d_ops``, and the codec kernels' launches over the sweep.  (d)
+   ``ec_info --plugin_exists`` for every built-in plugin, and ``crushtool
+   --build 16 --rule erasure --num-rep 12 --show-utilization`` (run in a
+   child process beside (a) to (c); bad mappings 0).
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased), one of ``-w storage-path --profile`` at the flagship profile
    (64 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
@@ -187,7 +212,8 @@ import torch
 
 from ceph_tpu_torch.analysis import residency
 from ceph_tpu_torch.matrices import cauchy, liberation, reed_sol
-from ceph_tpu_torch.native import gf_native
+from ceph_tpu_torch.native import build as native_build
+from ceph_tpu_torch.native import gf_native, registry_native
 from ceph_tpu_torch.osd import cluster_bench, ecutil, storage_bench
 from ceph_tpu_torch.osd.cluster import ECCluster
 from ceph_tpu_torch.matrices.bitmatrix import (matrix_to_bitmatrix,
@@ -199,7 +225,8 @@ from ceph_tpu_torch.plugins import registry as registry_mod
 from ceph_tpu_torch.tier.device_tier import (DeviceByteAccount,
                                              device_byte_account)
 from ceph_tpu_torch.tier.tier_bench import run_tier_path_bench
-from ceph_tpu_torch.tools import (ec_benchmark, ec_kernel_sweep,
+from ceph_tpu_torch.tools import (ec_bench_sweep, ec_benchmark, ec_info,
+                                  ec_kernel_sweep, ec_non_regression,
                                   kernel_r4_probe, kernel_r4_split)
 from ceph_tpu_torch.utils.config import get_config
 from ceph_tpu_torch.utils.perf import PerfCounters
@@ -277,6 +304,31 @@ FAMILY = (
 )
 #: a regen helper width off the 4-byte lane grid: the host path on the card
 OFF_LANE_BETA = 4099
+#: the native engine (phase 3f): (label, plugin, profile, chunks erased),
+#: each run at backend=native against backend=cpu over phase 3e's stripes
+NATIVE = (
+    ("jerasure reed_sol_van k=8 m=4", "jerasure",
+     {"technique": "reed_sol_van", "k": "8", "m": "4"}, (1, 6)),
+    ("jerasure cauchy_good k=8 m=4 packetsize=2048", "jerasure",
+     {"technique": "cauchy_good", "k": "8", "m": "4",
+      "packetsize": "2048"}, (1, 6)),
+    ("isa reed_sol_van k=8 m=4", "isa",
+     {"technique": "reed_sol_van", "k": "8", "m": "4"}, (1, 6)),
+    ("shec k=4 m=3 c=2", "shec", {"k": "4", "m": "3", "c": "2"}, (1, 5)),
+)
+#: the reference's failure codes of the broken fixtures and of a missing
+#: file (tests/test_native_registry.py)
+NATIVE_FAILURES = {
+    "missing_version_native": -18, "wrong_version_native": -18,
+    "missing_entry_point_native": -2, "fail_to_initialize_native": -3,
+    "fail_to_register_native": -9, "no_such_plugin_native": -2,
+}
+HANG_TIMEOUT_MS = 300
+CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "data", "ec_corpus")
+CODEC_KERNELS = ("gf2_matrix_w8", "gf2_matrix_w16", "gf2_packet")
+CRUSHTOOL_ARGV = ("--build", "16", "--rule", "erasure", "--num-rep", "12",
+                  "--show-utilization")
 #: the repair path (phase 4): objects of RBD's default size on 8 OSDs,
 #: with a recovery batch budget that gives each object of a full batch
 #: (32) its k whole 1 MiB chunks: at the default 8 MiB a 4 MiB object's
@@ -1728,6 +1780,173 @@ def phase_plugin_family(reg, seed: int, card: str) -> dict:
     return results
 
 
+def _native_handshake() -> dict:
+    """The dlopen registry's load handshake (docstring, phase 3f a)."""
+    assert registry_native.load("xor_native") == 0, \
+        registry_native.last_error()
+    codec = registry_native.factory("xor_native", {"k": "4"})
+    rs = np.random.RandomState(4)
+    data = [rs.randint(0, 256, 4096, dtype=np.uint8) for _ in range(4)]
+    parity = codec.encode(data)[0]
+    assert np.array_equal(parity, np.bitwise_xor.reduce(data))
+    chunks = {i: d for i, d in enumerate(data) if i != 2}
+    chunks[4] = parity
+    assert np.array_equal(codec.decode(chunks, [2], 4096)[2], data[2])
+    assert registry_native.load("regen_native") == 0, \
+        registry_native.last_error()
+    codes = {name: registry_native.load(name) for name in NATIVE_FAILURES}
+    assert codes == NATIVE_FAILURES, codes
+    t0 = time.perf_counter()
+    hang = registry_native.load_with_timeout("hangs_native",
+                                             HANG_TIMEOUT_MS)
+    hang_s = time.perf_counter() - t0
+    assert hang == -110 and hang_s < 5.0, (hang, hang_s)
+    return {"failure_codes": codes, "hang_rc": hang, "hang_s": hang_s}
+
+
+def _native_engine_rows(seed: int) -> dict:
+    """backend=native against backend=cpu (docstring, phase 3f a)."""
+    reg = registry_mod.ErasureCodePluginRegistry()
+    stripes = _family_stripes(seed)
+    gib = FAMILY_STRIPES * FAMILY_STRIPE / 2**30
+    rows = {}
+    for label, name, prof, erased in NATIVE:
+        nat = reg.factory(name, dict(prof, backend="native"))
+        cpu = reg.factory(name, dict(prof, backend="cpu"))
+        want = set(range(nat.get_chunk_count()))
+        times = {}
+        out = {}
+        for engine, ec in (("native", nat), ("cpu", cpu)):
+            t0 = time.perf_counter()
+            enc = [ec.encode(want, s) for s in stripes]
+            enc_s = time.perf_counter() - t0
+            maps = [{c: a for c, a in e.items() if c not in erased}
+                    for e in enc]
+            t0 = time.perf_counter()
+            dec = [ec.decode(want, mp) for mp in maps]
+            times[engine] = (gib / enc_s, gib / (time.perf_counter() - t0))
+            out[engine] = (enc, dec)
+        for i in range(FAMILY_STRIPES):
+            _same_chunks(out["native"][0][i], out["cpu"][0][i],
+                         f"{label} native encode stripe {i}")
+            _same_chunks(out["native"][1][i], out["cpu"][1][i],
+                         f"{label} native decode stripe {i}")
+        rows[label] = {
+            "encode_GiBs": times["native"][0],
+            "decode_GiBs": times["native"][1],
+            "cpu_encode_GiBs": times["cpu"][0],
+            "cpu_decode_GiBs": times["cpu"][1], "erased": list(erased)}
+    return rows
+
+
+def _corpus_checks(card: str) -> dict:
+    """The port's --check of every corpus directory (phase 3f b)."""
+    rows = {}
+    for name in sorted(os.listdir(CORPUS)):
+        if not os.path.isdir(os.path.join(CORPUS, name)):
+            continue
+        on_card = name.startswith(("plugin=cuda ", "plugin=regen ")) or \
+            " backend=cuda" in name
+        before = {k: cuda_gf.launches[k] for k in CODEC_KERNELS}
+        argv = ["--check", "--base", CORPUS] + \
+            ec_non_regression.directory_argv(name)
+        t0 = time.perf_counter()
+        rc = ec_non_regression.main(argv)
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        after = {k: cuda_gf.launches[k] for k in CODEC_KERNELS}
+        rose = {k: after[k] - before[k] for k in CODEC_KERNELS}
+        assert rc == 0, f"corpus {name}: --check exited {rc}"
+        if on_card:
+            assert any(rose.values()), \
+                f"corpus {name}: no codec kernel launched ({rose})"
+        else:
+            assert not any(rose.values()), f"corpus {name}: {rose}"
+        rows[name] = {"card": on_card, "launches": rose, "s": check_s}
+        print(f"[corpus] {name}: --check 0 in {check_s:.3f} s "
+              f"({'card' if on_card else 'host'}); launches before "
+              f"{json.dumps(before)} after {json.dumps(after)}; card {card}",
+              flush=True)
+    return rows
+
+
+def _bench_sweep(card: str) -> dict:
+    """ec_bench_sweep on the card (docstring, phase 3f c)."""
+    argv = ["--plugins", "cuda,jerasure,isa", "--backend", "cuda"]
+    before = {k: cuda_gf.launches[k] for k in CODEC_KERNELS}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ec_bench_sweep.main(argv)
+    sweep_s = time.perf_counter() - t0
+    assert rc == 0, f"ec_bench_sweep exited {rc}"
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+    errors = [r for r in rows if "error" in r]
+    assert not errors, f"ec_bench_sweep error lines: {errors}"
+    assert len(rows) == 42, len(rows)
+    for row in rows:
+        print(f"[sweep] {json.dumps(row)}", flush=True)
+    launches = {k: cuda_gf.launches[k] - before[k] for k in CODEC_KERNELS}
+    assert launches["gf2_matrix_w8"] > 0 and launches["gf2_packet"] > 0, \
+        launches
+    print(f"[sweep] {' '.join(argv)}: {len(rows)} cells in {sweep_s:.1f} s, "
+          f"launches {json.dumps(launches)}; cuda rows' h2d_ops "
+          f"{[r['h2d_ops'] for r in rows if r['plugin'] == 'cuda']}; card "
+          f"{card}", flush=True)
+    return {"rows": rows, "launches": launches, "s": sweep_s}
+
+
+def phase_native_tools(seed: int, card: str) -> dict:
+    """The native layer and the EC tools (docstring, phase 3f)."""
+    t_phase = time.perf_counter()
+    crush = subprocess.Popen(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.crushtool",
+         *CRUSHTOOL_ARGV], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        t0 = time.perf_counter()
+        lib_dir = native_build.native_dir()
+        build_s = time.perf_counter() - t0
+        features = gf_native.cpu_features()
+        cpu = native_build.cpu_model()
+        out = {"build_s": build_s, "cpu_model": cpu, "isa": features}
+        out.update(_native_handshake())
+        print(f"[native] built {lib_dir.name} in {build_s:.1f} s on "
+              f"{cpu} (cpu {features['cpu']}, build {features['build']}); "
+              f"xor_native and regen_native load, xor encode/decode "
+              f"bit-exact; failure codes {json.dumps(out['failure_codes'])};"
+              f" hangs_native {out['hang_rc']} after {out['hang_s']:.3f} s",
+              flush=True)
+        out["engine"] = _native_engine_rows(seed)
+        for label, row in out["engine"].items():
+            print(f"[native] {label}: {FAMILY_STRIPES} x {FAMILY_STRIPE} B, "
+                  f"backend=native encode {row['encode_GiBs']:.3f} GiB/s, "
+                  f"decode {row['decode_GiBs']:.3f} GiB/s (erased "
+                  f"{row['erased']}); backend=cpu encode "
+                  f"{row['cpu_encode_GiBs']:.3f}, decode "
+                  f"{row['cpu_decode_GiBs']:.3f} GiB/s; every chunk equal; "
+                  f"host {cpu}; card {card}", flush=True)
+        out["corpus"] = _corpus_checks(card)
+        out["sweep"] = _bench_sweep(card)
+        for name in sorted(registry_mod._BUILTIN):
+            assert ec_info.main(["--plugin_exists", name]) == 0, name
+        print(f"[ec_info] --plugin_exists 0 for "
+              f"{', '.join(sorted(registry_mod._BUILTIN))}", flush=True)
+        crush_out, crush_err = crush.communicate(timeout=300)
+    finally:
+        crush.kill()
+        crush.wait()
+    assert crush.returncode == 0, crush_err
+    summary = crush_out.strip().splitlines()[-1]
+    assert "result size == 12.00/12" in summary and \
+        summary.endswith("bad mappings 0"), summary
+    out["crushtool"] = summary
+    print(f"[crushtool] {' '.join(CRUSHTOOL_ARGV)}: {summary!r}", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[native] phase {out['seconds']:.1f} s; card {card}", flush=True)
+    return out
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -1861,6 +2080,7 @@ def main(argv=None) -> int:
     cluster = phase_cluster_path(args.seed, card)
     tier = phase_tier_path(reg, args.seed, card)
     family = phase_plugin_family(reg, args.seed, card)
+    native = phase_native_tools(args.seed, card)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
     launched.update(phase_probes(card))
@@ -1873,6 +2093,8 @@ def main(argv=None) -> int:
     print(json.dumps({"cluster_path": cluster}))
     print(json.dumps({"tier_path": tier}))
     print(json.dumps({"plugin_family": family}))
+    print(json.dumps({"native_tools": {
+        key: val for key, val in native.items() if key != "sweep"}}))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

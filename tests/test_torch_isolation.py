@@ -8,7 +8,11 @@ small EC cluster's write, kill, degraded read and recovery at k=2 m=1, the
 device tier's bench and a writeback cluster's tier hit, the registry's
 ``preload()`` and one stripe through each of the regen, isa, shec, lrc and
 example plugins, the repair-path bench's fractional rebuild of 4 objects,
-and the kernel sweep and its two probe tools on the CPU)."""
+and the kernel sweep and its two probe tools on the CPU).  The native host
+libraries are held to the same rule: every source the port's build names
+lies in ``ceph_tpu_torch/native/``, no port module names a path under the
+JAX package, and every shared library a process of the port maps from
+this repository was built under ``ceph_tpu_torch/build/``."""
 
 import ast
 import os
@@ -42,6 +46,14 @@ def test_port_files_import_no_jax_and_no_reference_package():
     assert {"product_matrix.py", "isa.py"} \
         <= {p.name for p in files if p.parent == PORT / "matrices"}
     assert PORT / "osd" / "repair_bench.py" in files
+    # so are the native layer, its engine and the EC tools
+    assert {"build.py", "gf_native.py", "registry_native.py",
+            "py_binding.py"} <= {p.name for p in files
+                                 if p.parent == PORT / "native"}
+    assert PORT / "ops" / "native_engine.py" in files
+    assert {"ec_info.py", "ec_non_regression.py", "ec_bench_sweep.py",
+            "crushtool.py"} <= {p.name for p in files
+                                if p.parent == PORT / "tools"}
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -186,3 +198,76 @@ def test_port_runs_where_jax_and_the_reference_cannot_import():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) > 15
+
+
+def _string_constants(tree):
+    """String constants of a module, less its docstrings."""
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_native_layer_names_no_path_of_the_jax_package():
+    from ceph_tpu_torch.native import build
+
+    assert build.SOURCE_DIR == PORT / "native"
+    assert build.BUILD_DIR == PORT / "build"
+    for name in build.SOURCES:
+        assert (PORT / "native" / name).is_file(), name
+    cxx = "g++"
+    for stage in build.commands(cxx):
+        for cmd in stage:
+            paths = [a for a in cmd[1:] if "/" in a and
+                     not a.startswith(("-Wl,", "-I"))]
+            assert paths and all(
+                Path(a).parent == PORT / "native" for a in paths), cmd
+            assert not any("ceph_tpu/" in a for a in cmd), cmd
+    native = sorted((PORT / "native").glob("*.py")) + [
+        PORT / "ops" / "native_engine.py"]
+    for path in native:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        bad = [c.value for c in _string_constants(tree)
+               if "ceph_tpu/" in c.value or c.value == "ceph_tpu"]
+        assert not bad, (path.name, bad)
+    for path in sorted((PORT / "native").glob("*.[ch]*")):
+        code = [line for line in path.read_text().splitlines()
+                if line.lstrip().startswith("#include")]
+        assert not any("ceph_tpu" in line for line in code), path.name
+
+
+_NATIVE_PROBE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["ceph_tpu"] = None
+import numpy as np
+from ceph_tpu_torch.native import gf_native, py_binding, registry_native
+assert gf_native.cpu_features()["build"]
+assert registry_native.load("xor_native") == 0
+assert registry_native.load("regen_native") == 0
+assert registry_native.load("fail_to_register_native") == -9
+ext = py_binding.load()
+assert ext.crc32c(b"123456789") == 0x1CF96D7C
+from ceph_tpu_torch.plugins import registry
+ec = registry.instance().factory("jerasure", {"backend": "native"})
+ec.encode(set(range(3)), np.zeros(4096, np.uint8))
+maps = {line.split()[-1] for line in open("/proc/self/maps")
+        if line.rstrip().endswith(".so") or ".so." in line}
+print("\n".join(sorted(maps)))
+"""
+
+
+def test_native_libraries_are_built_and_loaded_from_the_port_only():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _NATIVE_PROBE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    mapped = proc.stdout.split()
+    ours = [p for p in mapped if p.startswith(str(REPO) + "/")]
+    assert len(ours) >= 4, mapped
+    for path in ours:
+        assert path.startswith(str(PORT / "build") + "/"), path
+    assert not any("/ceph_tpu/" in p for p in mapped), mapped

@@ -4,8 +4,9 @@ the JAX package's.
 
 Every profile of ``tests/test_plugins_extra.py`` runs through both
 packages with the same payload made with numpy from a seed; the tolerance
-is zero.  Each port plugin runs on the host engine (``backend=cpu``) and
-through the PyTorch engine on profile ``backend=cuda device=cpu`` (the
+is zero.  Each port plugin runs on the host engine (``backend=cpu``), on
+the host's AVX2 kernels (``backend=native``, isa and shec) and through the
+PyTorch engine on profile ``backend=cuda device=cpu`` (the
 ``gf2_matrix_w8`` and ``gf2_matrix_w16`` kernels' plain versions); lrc's
 layers also run the ``cuda`` plugin on ``device=cpu``.  Encoded chunks,
 every decode pattern up to m erasures (up to c for shec), the
@@ -27,8 +28,10 @@ from ceph_tpu_torch.plugins import registry
 from ceph_tpu_torch.plugins.interface import ErasureCodeError
 from ceph_tpu_torch.utils import unported
 
-#: the port's engines: the host LUT engine and the PyTorch engine
-BACKENDS = {"host": {}, "torch": {"backend": "cuda", "device": "cpu"}}
+#: the port's engines: the host LUT engine, the host's AVX2 kernels
+#: (``backend=native``) and the PyTorch engine
+BACKENDS = {"host": {}, "native": {"backend": "native"},
+            "torch": {"backend": "cuda", "device": "cpu"}}
 
 ISA = [(t, k, m) for t in ("reed_sol_van", "cauchy")
        for k, m in ((2, 1), (4, 2), (8, 4), (12, 4))]
@@ -197,14 +200,17 @@ def test_shec_guard_rails_match_jax(profile):
     assert str(e1.value) == str(e2.value)
 
 
-@pytest.mark.parametrize("name", ["isa", "shec"])
-def test_native_backend_is_refused(name):
-    module, item = unported.MISSING["native"]
-    with pytest.raises(unported.NotPortedError) as exc:
-        registry.ErasureCodePluginRegistry().factory(
-            name, {"backend": "native"})
-    assert module in str(exc.value) and item == 6
-    assert "ROADMAP.md queue 1 item 6" in str(exc.value)
+@pytest.mark.parametrize("name,profile", [
+    ("isa", {}), ("isa", {"technique": "cauchy"}), ("shec", {}),
+    ("shec", {"w": "16"}),
+])
+def test_native_backend_runs_the_native_engine(name, profile):
+    from ceph_tpu_torch.ops import native_engine
+
+    assert "native" not in unported.MISSING
+    mine, theirs = _pair(name, profile, BACKENDS["native"])
+    assert mine._engine() is native_engine
+    _roundtrip(mine, theirs, seed=len(profile) + 7, max_erasures=2)
 
 
 # -- lrc --------------------------------------------------------------------
