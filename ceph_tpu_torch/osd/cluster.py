@@ -12,9 +12,8 @@ the EC data path.
 The port's entry points run on the card unless asked for the CPU: the
 default ``plugin`` is ``"cuda"`` (the JAX package's is ``"jerasure"``), and
 a caller asks for the CPU with ``plugin="jerasure"`` or the profile key
-``device=cpu``.  Paths that need a module the port has not copied --
-replicated pools, the mon quorum -- raise at once
-(``ceph_tpu_torch/utils/unported.py``).  Each OSD's device cache tier lives
+``device=cpu``; the mon-backed cluster (``create_with_mons``) keeps that
+default.  Each OSD's device cache tier lives
 on the pool codec's device: the card, or the CPU where the caller asked for
 it.
 """
@@ -29,7 +28,6 @@ from ceph_tpu_torch.osd.ecbackend import ECBackend, OSDShard
 from ceph_tpu_torch.osd.messenger import FaultInjector, Messenger
 from ceph_tpu_torch.osd.objecter import Objecter
 from ceph_tpu_torch.plugins import registry as registry_mod
-from ceph_tpu_torch.utils.unported import refuse
 
 #: the plugin a pool gets when neither ``plugin`` nor the profile names
 #: one: the card (the JAX package defaults to "jerasure")
@@ -60,8 +58,6 @@ class ECCluster:
         pool_type: str = "erasure",
         min_size: Optional[int] = None,
     ):
-        if pool_type == "replicated":
-            refuse("pool_type='replicated'", "replicated")
         self.messenger = Messenger(fault)
         self.pool_type = pool_type
         if pool_type == "replicated":
@@ -123,7 +119,6 @@ class ECCluster:
         ):
             raise ValueError(f"pool {name} exists")
         if pool_type == "replicated":
-            refuse("pool_type='replicated'", "replicated")
             ec = None
             km = int((profile or {}).get("size", size))
         else:
@@ -492,12 +487,65 @@ class ECCluster:
 
         Reference flow: vstart.sh boots mons before osds; pools/profiles
         are created via `ceph osd ...` commands that OSDMonitor validates
-        and commits (SURVEY.md §3.5).  The port has no monitor: this
-        raises."""
-        refuse("ECCluster.create_with_mons", "mon")
+        and commits (SURVEY.md §3.5)."""
+        from ceph_tpu_torch.mon.monitor import MonClient, MonCluster
+
+        plugin = plugin or dict(profile).pop("plugin", DEFAULT_PLUGIN)
+        profile = {k: v for k, v in profile.items() if k != "plugin"}
+        self = cls(
+            n_osds, dict(profile), plugin=plugin, fault=fault,
+            use_crush=True, hosts=hosts, op_queue=op_queue,
+            objectstore=objectstore, data_path=data_path,
+        )
+        self.mons = MonCluster(n_mons, self.messenger)
+        await self.mons.form_quorum()
+        self.monc = MonClient(self.messenger, n_mons, self.backend.name)
+        # route mon replies and map broadcasts through the client dispatcher
+        backend = self.backend
+
+        map_state: Dict = {}
+
+        async def mon_hook(msg: dict) -> None:
+            if await self.monc.handle_reply(msg):
+                return
+            if msg.get("type") == "osdmap" and backend.placement is not None:
+                from ceph_tpu_torch.mon.osdmap import apply_map_view
+
+                # pg->acting snapshot BEFORE the epoch applies: if the
+                # map moved acting sets, the diff drives the event-time
+                # misplaced census (O(changes) accounting)
+                before = backend.placement.pg_actings()
+                # messenger=None: the in-process harness owns its own
+                # liveness view (kill_osd/revive_osd mark it directly)
+                if apply_map_view(msg["map"], map_state, None,
+                                  placements=[backend.placement]):
+                    self.note_remap(before)
+                    self._notify_peering()  # re-peer on every map epoch
+        backend.mon_hook = mon_hook
+        full_profile = dict(profile)
+        full_profile["plugin"] = plugin
+        for cmd in (
+            {"prefix": "osd create", "n": n_osds},
+            {
+                "prefix": "osd erasure-code-profile set",
+                "name": f"{pool}-profile",
+                "profile": full_profile,
+            },
+            {
+                "prefix": "osd pool create",
+                "name": pool,
+                "profile": f"{pool}-profile",
+                "hosts": hosts,
+            },
+        ):
+            rc, out = await self.monc.command(cmd)
+            if rc != 0:
+                raise RuntimeError(f"bootstrap {cmd['prefix']}: {out}")
+        await self.monc.subscribe()
+        return self
 
     async def mon_command(self, cmd: Dict) -> tuple:
-        refuse("ECCluster.mon_command", "mon")
+        return await self.monc.command(cmd)
 
     async def recover_object_shard(
         self, oid: str, shard: int, target_osd: int

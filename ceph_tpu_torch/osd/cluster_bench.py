@@ -57,14 +57,15 @@ def make_overwrites(payloads: Dict[str, bytes], every: int, seed: int,
             if i % every == 0}
 
 
-def _pct(samples: List[float], q: float) -> float:
+def percentile(samples: List[float], q: float) -> float:
+    """The ``q`` quantile of ``samples`` (nearest rank; 0.0 when empty)."""
     if not samples:
         return 0.0
     s = sorted(samples)
     return s[min(len(s) - 1, int(q * len(s)))]
 
 
-async def _client_ops(items, op, workers: int) -> List[float]:
+async def client_ops(items, op, workers: int) -> List[float]:
     """Run ``op(oid, data)`` over ``items`` from ``workers`` concurrent
     client tasks; returns each op's latency in seconds."""
     queue = list(items)
@@ -79,6 +80,20 @@ async def _client_ops(items, op, workers: int) -> List[float]:
 
     await asyncio.gather(*(worker() for _ in range(workers)))
     return lat
+
+
+async def recover_until_clean(cluster, victim: int, tick: float,
+                              deadline_s: float, what: str) -> None:
+    """Revive ``victim``, start auto recovery and wait until
+    ``degraded_report()`` is empty; raises after ``deadline_s``."""
+    cluster.revive_osd(victim)
+    cluster.start_auto_recovery(interval=tick)
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + deadline_s
+    while await cluster.degraded_report():
+        if loop.time() > deadline:
+            raise AssertionError(f"{what}: not clean within {deadline_s} s")
+        await asyncio.sleep(tick)
 
 
 async def run_cycle(cluster, payloads: Dict[str, bytes],
@@ -114,28 +129,18 @@ async def run_cycle(cluster, payloads: Dict[str, bytes],
     first = next(iter(payloads))
     victim = cluster.backend.acting_set(first)[0]
 
-    lat["write"] = await step("write", lambda: _client_ops(
+    lat["write"] = await step("write", lambda: client_ops(
         payloads.items(), write, writers))
     cluster.kill_osd(victim)
     current.update(overwrites)
-    lat["degraded_write"] = await step("degraded_write", lambda: _client_ops(
+    lat["degraded_write"] = await step("degraded_write", lambda: client_ops(
         overwrites.items(), write, writers))
-    lat["degraded_read"] = await step("degraded_read", lambda: _client_ops(
+    lat["degraded_read"] = await step("degraded_read", lambda: client_ops(
         current.items(), read, writers))
 
-    async def recover():
-        cluster.revive_osd(victim)
-        cluster.start_auto_recovery(interval=tick)
-        loop = asyncio.get_running_loop()
-        deadline = loop.time() + deadline_s
-        while await cluster.degraded_report():
-            if loop.time() > deadline:
-                raise AssertionError(
-                    f"cluster cycle: not clean within {deadline_s} s")
-            await asyncio.sleep(tick)
-
-    await step("recovery", recover)
-    lat["read"] = await step("read", lambda: _client_ops(
+    await step("recovery", lambda: recover_until_clean(
+        cluster, victim, tick, deadline_s, "cluster cycle"))
+    lat["read"] = await step("read", lambda: client_ops(
         current.items(), read, writers))
 
     # the shards recovery rewrote on the revived OSD: those of the
@@ -163,8 +168,8 @@ async def run_cycle(cluster, payloads: Dict[str, bytes],
         "time_to_clean_s": steps_s["recovery"],
         "rebuilt_bytes": rebuilt,
         "rebuild_MiBs": rebuilt / 2 ** 20 / steps_s["recovery"],
-        "op_ms": {name: {"p50": _pct(v, 0.50) * 1e3,
-                         "p99": _pct(v, 0.99) * 1e3, "ops": len(v)}
+        "op_ms": {name: {"p50": percentile(v, 0.50) * 1e3,
+                         "p99": percentile(v, 0.99) * 1e3, "ops": len(v)}
                   for name, v in lat.items()},
         "final": current,
     }
@@ -240,35 +245,25 @@ async def run_tier_cycle(cluster, mode: str, payloads: Dict[str, bytes],
 
     first = next(iter(payloads))
     victim = cluster.backend.acting_set(first)[0]
-    await step("write", lambda: _client_ops(payloads.items(), write,
+    await step("write", lambda: client_ops(payloads.items(), write,
                                             writers))
-    await step("read", lambda: _client_ops(current.items(), read, writers))
+    await step("read", lambda: client_ops(current.items(), read, writers))
     await step("tick", tick_all)
     current.update(rewrites)
-    await step("rewrite", lambda: _client_ops(rewrites.items(), write,
+    await step("rewrite", lambda: client_ops(rewrites.items(), write,
                                               writers))
     still = sorted(oid for oid in rewrites
                    if any(osd.tier.contains(cluster.pool, oid)
                           for osd in cluster.osds))
-    await step("read_hot", lambda: _client_ops(current.items(), read,
+    await step("read_hot", lambda: client_ops(current.items(), read,
                                                 writers))
     cluster.kill_osd(victim)
-    await step("degraded_read", lambda: _client_ops(current.items(), read,
+    await step("degraded_read", lambda: client_ops(current.items(), read,
                                                     writers))
 
-    async def recover():
-        cluster.revive_osd(victim)
-        cluster.start_auto_recovery(interval=tick)
-        loop = asyncio.get_running_loop()
-        deadline = loop.time() + deadline_s
-        while await cluster.degraded_report():
-            if loop.time() > deadline:
-                raise AssertionError(
-                    f"tier cycle: not clean within {deadline_s} s")
-            await asyncio.sleep(tick)
-
-    await step("recovery", recover)
-    await step("read_after", lambda: _client_ops(current.items(), read,
+    await step("recovery", lambda: recover_until_clean(
+        cluster, victim, tick, deadline_s, "tier cycle"))
+    await step("read_after", lambda: client_ops(current.items(), read,
                                                  writers))
     gib = 2 ** 30
     read_bytes = sum(len(d) for d in current.values())

@@ -11,9 +11,8 @@ bytes map onto per-OSD shard objects -- lives in the subclasses:
 
 * ``ceph_tpu_torch.osd.ecbackend.ECBackend`` -- k+m erasure-coded chunks
   (reference src/osd/ECBackend.cc);
-* ``ReplicatedBackend`` -- full copies on every acting replica
-  (reference src/osd/ReplicatedBackend.cc); the JAX package has it in
-  ``ceph_tpu/osd/replicated.py``, the port not yet.
+* ``ceph_tpu_torch.osd.replicated.ReplicatedBackend`` -- full copies on
+  every acting replica (reference src/osd/ReplicatedBackend.cc).
 
 Strategy hooks a subclass must provide (the PGBackend virtuals):
 

@@ -271,18 +271,25 @@ class OSDShard:
         build_pg_backend switch (src/osd/PGBackend.cc:533-570):
         "erasure" -> ECBackend driven by the ``ec`` codec;
         "replicated" -> ReplicatedBackend with ``size`` full copies
-        (``ec`` is ignored).  The port has no ReplicatedBackend yet:
-        "replicated" raises."""
+        (``ec`` is ignored)."""
         if pool_type == "replicated":
-            refuse("pool_type='replicated'", "replicated")
-        from ceph_tpu_torch.osd.ecbackend import ECBackend
+            from ceph_tpu_torch.osd.replicated import ReplicatedBackend
 
-        backend = ECBackend(
-            ec, list(range(n_osds)), self.messenger, name=self.name,
-            placement=placement, register=False,
-            tid_alloc=self._next_host_tid, perf=self.perf,
-            min_size=min_size,
-        )
+            backend = ReplicatedBackend(
+                size, list(range(n_osds)), self.messenger, name=self.name,
+                placement=placement, register=False,
+                tid_alloc=self._next_host_tid, perf=self.perf,
+                min_size=min_size,
+            )
+        else:
+            from ceph_tpu_torch.osd.ecbackend import ECBackend
+
+            backend = ECBackend(
+                ec, list(range(n_osds)), self.messenger, name=self.name,
+                placement=placement, register=False,
+                tid_alloc=self._next_host_tid, perf=self.perf,
+                min_size=min_size,
+            )
         backend.pool_name = pool
         # exactly-once hookup: the engine's peering pass merges peers'
         # reqid-dup entries into THIS daemon's PG log, so a promotion
@@ -319,9 +326,10 @@ class OSDShard:
 
     def set_client_caps(self, entity: str, caps: str) -> None:
         """Confine ``entity``'s client ops to an OSDCap string (the
-        keyring 'caps osd' line, ref src/osd/OSDCap.h).  The port has no
-        auth module yet: this raises, and ``client_caps`` stays empty."""
-        refuse("OSDShard.set_client_caps", "auth")
+        keyring 'caps osd' line, ref src/osd/OSDCap.h)."""
+        from ceph_tpu_torch.auth.caps import OSDCap
+
+        self.client_caps[entity] = OSDCap.parse(caps)
 
     # -- background tick: peering-driven recovery (OSD::tick role) ---------
 
@@ -1451,11 +1459,24 @@ class OSDShard:
                     # unhosted name must not leak onto the hosted pool)
                     pool_name = next(iter(self.pools))
                     backend = self.pools[pool_name]
-                # OSDCap enforcement (PrimaryLogPG op_has_sufficient_caps)
-                # confines an entity with registered caps to them; the
-                # port has no auth module (set_client_caps refuses), so
-                # every entity keeps the open-cluster default
-                # (client.admin allow *)
+                cap = self.client_caps.get(src.split("[")[0])
+                if cap is not None and backend is not None:
+                    # OSDCap enforcement (PrimaryLogPG
+                    # op_has_sufficient_caps): an entity with registered
+                    # caps is confined to them; unregistered entities
+                    # keep the open-cluster default (client.admin
+                    # allow *)
+                    from ceph_tpu_torch.auth.caps import op_capable
+
+                    if not op_capable(cap, pool_name, msg.get("oid", ""),
+                                      msg.get("kind", "")):
+                        reply.update(
+                            ok=False, etype="PermissionError",
+                            error=f"{src} caps do not permit "
+                                  f"{msg.get('kind')} on {msg.get('oid')}",
+                        )
+                        backend = None
+                        self.perf.inc("cap_denied")
                 kind = msg.get("kind", "")
                 reqid = msg.get("reqid")
                 dedupable = reqid is not None and kind in MUTATING_KINDS

@@ -517,7 +517,7 @@ def cluster_path(profile_kv: dict, n_objects: int, obj_bytes: int,
 
     def write_pass(cluster, items):
         async def go():
-            return await cluster_bench._client_ops(
+            return await cluster_bench.client_ops(
                 items, lambda oid, data: cluster.write(oid, data), WRITERS)
         return loop.run_until_complete(go())
 

@@ -229,6 +229,19 @@ OPTIONS: Dict[str, Option] = {
              "promotes an object's shards into device memory (and "
              "writeback-mode writes refresh the resident copy, "
              "promote-on-write)"),
+        _opt("osd_heartbeat_grace", float, 4.0, LEVEL_ADVANCED,
+             "seconds of heartbeat silence before an OSD reports a peer "
+             "failed to the mon (reference osd_heartbeat_grace; shrunk "
+             "here to match the mini-cluster's time scale).  The mon "
+             "expires failure reports older than 4 graces"),
+        _opt("mon_mgr_beacon_grace", float, 30.0, LEVEL_ADVANCED,
+             "seconds of mgr-beacon silence before a standby's beacon "
+             "triggers failover (reference mon_mgr_beacon_grace)"),
+        _opt("mon_osd_min_down_reporters", int, 2, LEVEL_ADVANCED,
+             "distinct OSD failure reporters required before the mon "
+             "marks the target down (reference "
+             "mon_osd_min_down_reporters, src/mon/OSDMonitor.cc "
+             "check_failure)"),
         _opt("osd_tier_hbm_bytes", int, 256 << 20, LEVEL_ADVANCED,
              "device byte budget for the storage layer's resident "
              "state: cache-tier shard blocks plus the pipeline's "

@@ -13,10 +13,6 @@ from typing import NoReturn
 #: missing module -> (what it is, ROADMAP.md queue 1 item that ports it)
 MISSING = {
     "mesh": ("ceph_tpu/parallel/mesh_plane.py (the mesh data plane)", 7),
-    "replicated": ("ceph_tpu/osd/replicated.py (replicated pools)", 10),
-    "objectstore": ("ceph_tpu/objectstore/ persistent engines", 11),
-    "mon": ("ceph_tpu/mon/ (the monitor quorum)", 12),
-    "auth": ("ceph_tpu/auth/ (OSD caps)", 13),
     "cls": ("ceph_tpu/cls/ (object classes)", 14),
     "mgr": ("ceph_tpu/mgr/ (the manager's report schema)", 15),
 }

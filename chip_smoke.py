@@ -133,6 +133,33 @@ Phases (any failure raises and exits non-zero):
    ``ec_info --plugin_exists`` for every built-in plugin, and ``crushtool
    --build 16 --rule erasure --num-rep 12 --show-utilization`` (run in a
    child process beside (a) to (c); bad mappings 0).
+3g. The durable cluster: the OSDs keep their shards in the port's
+   persistent object stores, under a fresh directory of the checkout's
+   ``ceph_tpu_torch/build/`` on the machine's local disk (its filesystem
+   from ``df -T`` is printed), removed at the end.  (a)
+   ``ECCluster.create_with_mons`` with 16 OSDs and 3 mons, reed_sol_van
+   k=8 m=4 w=8 on the ``cuda`` plugin, ``objectstore="blockstore"``: the
+   pool and its profile are paxos-committed, then ``osd/durable_bench.py``'s
+   cycle -- 8 client tasks write 64 objects of 4 MiB (RBD's object size;
+   384 MiB stored over 16 block files), one OSD is killed and every object
+   read degraded, the mon leader is killed and, once the lease has failed
+   over (a new leader answers ``status``), 8 more objects are written; then
+   the cluster is abandoned without unmounting its stores (a crash), a new
+   mon-backed cluster mounts the same data path and reads every object
+   back with the same OSD down, revives it and recovers until clean; the
+   recovery's tick loops stop and everything is read again.  After it
+   every stored shard is compared with the port's numpy ``jerasure``
+   encode of its object (the shards' crcs are phase 3c's check).  (b) The same cycle without mons at 16 x 4
+   MiB (4 more written degraded): reed_sol_van w=16 on ``filestore`` and
+   cauchy_good packetsize=2048 on ``kstore``.  (c) On (a)'s OSDs,
+   ``add_pool("meta", pool_type="replicated", size=3)``: 256 small objects
+   each with 16 omap keys (an RGW bucket index's shape), every object and
+   omap read back with one OSD down, and every replica's data and omap
+   copy compared.  The codec kernel's launches are zeroed before and read
+   after each step, and must rise in every step that encodes or decodes.
+   It prints each step's seconds, write and read GiB/s, time to clean, the
+   mon failover's seconds, the bytes on disk, and the card's name and
+   power limit.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased), one of ``-w storage-path --profile`` at the flagship profile
    (64 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
@@ -201,9 +228,11 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -214,7 +243,8 @@ from ceph_tpu_torch.analysis import residency
 from ceph_tpu_torch.matrices import cauchy, liberation, reed_sol
 from ceph_tpu_torch.native import build as native_build
 from ceph_tpu_torch.native import gf_native, registry_native
-from ceph_tpu_torch.osd import cluster_bench, ecutil, storage_bench
+from ceph_tpu_torch.osd import (cluster_bench, durable_bench, ecutil,
+                                storage_bench)
 from ceph_tpu_torch.osd.cluster import ECCluster
 from ceph_tpu_torch.matrices.bitmatrix import (matrix_to_bitmatrix,
                                                survivor_decode_bitmatrix)
@@ -329,6 +359,31 @@ CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 CODEC_KERNELS = ("gf2_matrix_w8", "gf2_matrix_w16", "gf2_packet")
 CRUSHTOOL_ARGV = ("--build", "16", "--rule", "erasure", "--num-rep", "12",
                   "--show-utilization")
+#: the durable cluster (phase 3g): (label, profile, object store, with
+#: mons, objects, objects written degraded, the kernel the profile runs);
+#: the OSDs and mons, the cycle's steps that must launch the kernel, and
+#: the replicated index pool's objects, their bytes and omap keys
+DURABLE_OSDS = 16
+DURABLE_MONS = 3
+DURABLE_PROFILES = (
+    ("reed_sol_van w=8 on blockstore, 3 mons", {"technique": "reed_sol_van"},
+     "blockstore", True, 64, 8, "gf2_matrix_w8"),
+    ("reed_sol_van w=16 on filestore",
+     {"technique": "reed_sol_van", "w": "16"}, "filestore", False, 16, 4,
+     "gf2_matrix_w16"),
+    ("cauchy_good packetsize=2048 on kstore",
+     {"technique": "cauchy_good", "packetsize": "2048"}, "kstore", False, 16,
+     4, "gf2_packet"),
+)
+DURABLE_KERNEL_STEPS = ("write", "degraded_read", "degraded_write",
+                        "remount_read", "recovery")
+INDEX_OBJECTS = 256
+INDEX_BYTES = 512
+INDEX_KEYS = 16
+#: where the durable cluster's data paths go: the checkout's gitignored
+#: build directory, on the machine's local disk
+DURABLE_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "ceph_tpu_torch", "build")
 #: the repair path (phase 4): objects of RBD's default size on 8 OSDs,
 #: with a recovery batch budget that gives each object of a full batch
 #: (32) its k whole 1 MiB chunks: at the default 8 MiB a 4 MiB object's
@@ -1219,13 +1274,14 @@ def _crc32c_plain_rows(rows: np.ndarray) -> np.ndarray:
     return crc
 
 
-def _cluster_check(cluster, ref, final: dict) -> str:
+def _cluster_check(cluster, ref, final: dict, crc: bool = True) -> str:
     """After recovery: every stored shard of every object against the
     numpy ``jerasure`` encode of its final payload (ecutil's stripe
-    layout), and every shard's HashInfo crc against the plain crc32c."""
+    layout), and (``crc``) every shard's HashInfo crc against the plain
+    crc32c."""
     backend = cluster.osds[0].pools[cluster.pool]
     sinfo, km = backend.sinfo, backend.km
-    shards, hashes = [], []
+    n_shards, shards, hashes = 0, [], []
     for oid, payload in final.items():
         buf = np.zeros(sinfo.logical_to_next_stripe_offset(len(payload)),
                        np.uint8)
@@ -1239,15 +1295,19 @@ def _cluster_check(cluster, ref, final: dict) -> str:
             assert got == want[s].tobytes(), \
                 f"cluster path: {soid} on osd.{acting[s]} differs from " \
                 f"the numpy jerasure plugin"
-            hinfo = ecutil.HashInfo.from_dict(
-                store.getattr(soid, ecutil.HINFO_KEY))
-            shards.append(np.frombuffer(got, np.uint8))
-            hashes.append(hinfo.get_chunk_hash(s))
+            n_shards += 1
+            if crc:
+                hinfo = ecutil.HashInfo.from_dict(
+                    store.getattr(soid, ecutil.HINFO_KEY))
+                shards.append(np.frombuffer(got, np.uint8))
+                hashes.append(hinfo.get_chunk_hash(s))
+    if not crc:
+        return f"{n_shards} shards bit-exact vs numpy jerasure"
     plain = _crc32c_plain_rows(np.stack(shards))
     bad = [i for i, (h, p) in enumerate(zip(hashes, plain)) if h != int(p)]
     assert not bad, f"cluster path: {len(bad)} HashInfo crcs differ from " \
         f"the plain crc32c"
-    return (f"{len(shards)} shards bit-exact vs numpy jerasure, their "
+    return (f"{n_shards} shards bit-exact vs numpy jerasure, their "
             f"HashInfo crcs == plain crc32c")
 
 
@@ -1947,6 +2007,137 @@ def phase_native_tools(seed: int, card: str) -> dict:
     return out
 
 
+def _df(path: str) -> str:
+    """``df -T`` of the filesystem holding ``path``: its device, type and
+    sizes."""
+    line = subprocess.run(["df", "-T", path], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-1]
+    return " ".join(line.split())
+
+
+def _durable_cycle(label, extra_profile, kind, mons, n_objects, n_extra,
+                   name, seed, root, card) -> dict:
+    """One durable cycle (docstring, phase 3g a and b); with mons, the
+    replicated index pool (c) on the remounted cluster's OSDs."""
+    reg = registry_mod.instance()
+    ref = reg.factory("jerasure", _profile(extra_profile))
+    payloads = cluster_bench.make_payloads(n_objects, OBJECT, seed)
+    rng = np.random.RandomState(seed + 1)
+    extra = {f"new{i}": rng.bytes(OBJECT) for i in range(n_extra)}
+    path = os.path.join(root, kind)
+    launches = {}
+
+    def hook(_cluster, step, when):
+        if when == "start":
+            cuda_gf.reset_launches()
+        else:
+            torch.cuda.synchronize()
+            launches[step] = cuda_gf.launches[name]
+
+    async def make():
+        if mons:
+            return await ECCluster.create_with_mons(
+                DURABLE_OSDS, _profile(extra_profile), n_mons=DURABLE_MONS,
+                plugin="cuda", objectstore=kind, data_path=path)
+        return ECCluster(DURABLE_OSDS, _profile(extra_profile),
+                         plugin="cuda", objectstore=kind, data_path=path)
+
+    async def main():
+        r = await durable_bench.run_durable_cycle(
+            make, payloads, extra, writers=WRITERS,
+            deadline_s=CLUSTER_DEADLINE_S, hook=hook, data_path=path)
+        cluster = r["cluster"]
+        try:
+            assert type(cluster.ec).__module__ == \
+                "ceph_tpu_torch.plugins.cuda", type(cluster.ec)
+            t0 = time.perf_counter()
+            r["check"] = _cluster_check(cluster, ref, r["final"],
+                                        crc=False)
+            r["check_s"] = time.perf_counter() - t0
+            if mons:
+                rc, st = await cluster.mon_command({"prefix": "status"})
+                assert rc == 0 and st["pools"] == ["ecpool"], (rc, st)
+                objs = durable_bench.index_objects(
+                    INDEX_OBJECTS, INDEX_BYTES, INDEX_KEYS, seed + 2)
+                r["index"] = await durable_bench.run_index_pool(
+                    cluster, objs, writers=WRITERS)
+        finally:
+            await cluster.shutdown()
+        return r
+
+    PerfCounters.reset_all()
+    t0 = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    try:
+        r = loop.run_until_complete(main())
+    finally:
+        loop.close()
+    cycle_s = time.perf_counter() - t0
+    for step in DURABLE_KERNEL_STEPS:
+        assert launches.get(step, 0) > 0, \
+            f"durable {label}: {name} not launched in {step}"
+    head = (f"[durable] {label}: {DURABLE_OSDS} OSDs, {n_objects} x "
+            f"{OBJECT} B objects, {WRITERS} client tasks, osd.{r['victim']} "
+            f"down, {n_extra} written degraded")
+    print(f"{head}: write {r['write_GiBs']:.4f} GiB/s, degraded read "
+          f"{r['degraded_read_GiBs']:.4f} GiB/s, read after the crash "
+          f"{r['remount_read_GiBs']:.4f} GiB/s, read when clean "
+          f"{r['read_GiBs']:.4f} GiB/s; time to clean "
+          f"{r['time_to_clean_s']:.3f} s; card {card}", flush=True)
+    if mons:
+        print(f"{head}: mon leader mon.{r['mon_leaders']['before']} killed, "
+              f"mon.{r['mon_leaders']['after']} answered after "
+              f"{r['steps_s']['mon_failover']:.3f} s; card {card}",
+              flush=True)
+    print(f"{head}: on disk after the writes "
+          f"{json.dumps(r['disk_after_write'])}, after recovery "
+          f"{json.dumps(r['disk_after_recovery'])}; {kind} on {_df(path)}",
+          flush=True)
+    print(f"{head}: crash remount read every one of "
+          f"{len(r['final'])} objects back; {r['check']} "
+          f"({r['check_s']:.1f} s); {name} launches per step "
+          f"{json.dumps(launches)}; steps {json.dumps(r['steps_s'])}; "
+          f"cycle {cycle_s:.1f} s; card {card}", flush=True)
+    if "index" in r:
+        ix = r["index"]
+        print(f"[durable] replicated pool meta size={ix['size']}: "
+              f"{ix['objects']} x {INDEX_BYTES} B objects with "
+              f"{INDEX_KEYS} omap keys each, written in "
+              f"{ix['steps_s']['write']:.3f} s, read with osd.{ix['down']} "
+              f"down in {ix['steps_s']['degraded_read']:.3f} s; "
+              f"{ix['copies_compared']} replica copies and every omap copy "
+              f"equal; card {card}", flush=True)
+    return {"kernel": name, "objectstore": kind, "mons": mons,
+            "objects": n_objects, "extra": n_extra, "obj_bytes": OBJECT,
+            "osds": DURABLE_OSDS, "launches": launches, "cycle_s": cycle_s,
+            **{key: r[key] for key in (
+                "victim", "mon_leaders", "steps_s", "write_GiBs",
+                "degraded_read_GiBs", "remount_read_GiBs", "read_GiBs",
+                "time_to_clean_s", "op_ms", "disk_after_write",
+                "disk_after_recovery", "check_s")},
+            **({"index": r["index"]} if "index" in r else {})}
+
+
+def phase_durable(seed: int, card: str) -> dict:
+    """The durable cluster on the card (docstring, phase 3g)."""
+    t_phase = time.perf_counter()
+    os.makedirs(DURABLE_ROOT, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="durable-", dir=DURABLE_ROOT)
+    print(f"[durable] data path {root} on {_df(root)}", flush=True)
+    out = {}
+    try:
+        for label, extra, kind, mons, n_objects, n_extra, name in \
+                DURABLE_PROFILES:
+            out[label] = _durable_cycle(label, extra, kind, mons, n_objects,
+                                        n_extra, name, seed, root, card)
+            gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[durable] phase {seconds:.1f} s; card {card}", flush=True)
+    return {"profiles": out, "seconds": seconds}
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -2081,6 +2272,7 @@ def main(argv=None) -> int:
     tier = phase_tier_path(reg, args.seed, card)
     family = phase_plugin_family(reg, args.seed, card)
     native = phase_native_tools(args.seed, card)
+    durable = phase_durable(args.seed, card)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
     launched.update(phase_probes(card))
@@ -2095,6 +2287,7 @@ def main(argv=None) -> int:
     print(json.dumps({"plugin_family": family}))
     print(json.dumps({"native_tools": {
         key: val for key, val in native.items() if key != "sweep"}}))
+    print(json.dumps({"durable_path": durable}))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

@@ -11,11 +11,13 @@ attr holds a time, a nonce or a client id (``_version`` is the version
 counter and the primary's name, the same in both), so nothing is compared
 by type only.  The snapshot paths of ``pg.py`` are not driven here.
 
-The paths the port refuses (mon, auth, cls, mgr, replicated pools, mesh
-plane, persistent object stores) raise, naming the missing module and its
-ROADMAP.md queue item; the regenerating-repair lane, which the port now
-has, runs and matches the JAX package's.  The device tier is
-compared in tests/test_torch_tier.py.
+The paths the port refuses (cls, mgr, the mesh plane) raise, naming the
+missing module and its ROADMAP.md queue item; the paths it has since
+ported -- the regenerating-repair lane, the mon quorum, OSD caps,
+replicated pools and the persistent object stores -- run here, and are
+compared with the JAX package's in full in tests/test_torch_mon.py,
+tests/test_torch_replicated.py and tests/test_torch_objectstore.py.  The
+device tier is compared in tests/test_torch_tier.py.
 """
 
 import asyncio
@@ -436,25 +438,41 @@ def test_set_tier_mode_refuses_every_mode_but_none():
 
 
 def test_create_with_mons_and_mon_command_refuse():
+    """Lifted since the port has the mon quorum: ``create_with_mons``
+    brings the cluster up through paxos-committed commands and
+    ``mon_command`` reaches the quorum (a plain cluster has none)."""
+    assert "mon" not in unported.MISSING
+
     async def main():
-        with pytest.raises(unported.NotPortedError) as exc:
-            await cluster.ECCluster.create_with_mons(
-                6, {"k": "2", "m": "1", "device": "cpu"})
-        assert "ceph_tpu/mon/" in str(exc.value)
-        c = _port_cluster()
-        with pytest.raises(unported.NotPortedError):
-            await c.mon_command({"prefix": "status"})
+        c = await cluster.ECCluster.create_with_mons(
+            6, {"k": "2", "m": "1", "device": "cpu"})
+        rc, st = await c.mon_command({"prefix": "status"})
+        assert rc == 0 and st["pools"] == ["ecpool"] and st["num_osds"] == 6
+        await c.write("obj", b"via-mons" * 100)
+        assert await c.read("obj") == b"via-mons" * 100
         await c.shutdown()
+        plain = _port_cluster()
+        with pytest.raises(AttributeError):
+            await plain.mon_command({"prefix": "status"})
+        await plain.shutdown()
 
     _run(main())
 
 
 def test_client_caps_and_mgr_report_refuse():
+    """``set_client_caps`` is lifted (the port has ``auth/caps.py``); the
+    mgr report still refuses."""
     async def main():
         c = _port_cluster()
-        _refuses("auth", lambda: c.osds[0].set_client_caps(
-            "client.x", "allow r"))
-        assert c.osds[0].client_caps == {}
+        await c.write("obj", b"payload")
+        for osd in c.osds:
+            osd.set_client_caps("client.x", "allow r pool=" + c.pool)
+        assert type(c.osds[0].client_caps["client.x"]).__module__ == \
+            "ceph_tpu_torch.auth.caps"
+        ro = c.new_client("client.x")
+        assert await ro.read("obj") == b"payload"
+        with pytest.raises(PermissionError):
+            await ro.write("obj", b"no")
         _refuses("mgr", c.osds[0].mgr_report_stats)
         await c.shutdown()
 
@@ -462,14 +480,22 @@ def test_client_caps_and_mgr_report_refuse():
 
 
 def test_replicated_pools_refuse():
+    """Lifted since the port has ``osd/replicated.py``: a replicated
+    cluster, an added replicated pool and ``host_pool`` each build a
+    ReplicatedBackend."""
+    from ceph_tpu_torch.osd.replicated import ReplicatedBackend
+
     async def main():
-        _refuses("replicated", lambda: cluster.ECCluster(
-            6, {"size": "3"}, pool_type="replicated"))
+        rc = cluster.ECCluster(6, {"size": "3"}, pool_type="replicated")
+        await rc.write("obj", b"r" * 999)
+        assert await rc.read("obj") == b"r" * 999
+        await rc.shutdown()
         c = _port_cluster()
-        _refuses("replicated", lambda: c.add_pool(
-            "meta", {"size": "3"}, pool_type="replicated"))
-        _refuses("replicated", lambda: c.osds[0].host_pool(
-            "meta", None, 6, pool_type="replicated"))
+        rio = c.add_pool("meta", {"size": "3"}, pool_type="replicated")
+        await rio.write("obj", b"m" * 99)
+        assert await rio.read("obj") == b"m" * 99
+        assert isinstance(c.osds[0].host_pool(
+            "meta2", None, 6, pool_type="replicated"), ReplicatedBackend)
         await c.shutdown()
 
     _run(main())
@@ -587,22 +613,39 @@ def test_mesh_plane_is_off_and_its_option_undeclared():
 
 @pytest.mark.parametrize("kind", ["filestore", "kstore", "blockstore",
                                   "blockstore:zlib"])
-def test_persistent_object_stores_refuse(kind):
-    module, item = unported.MISSING["objectstore"]
-    with pytest.raises(ValueError) as exc:
-        objectstore.create(kind, "/nonexistent")
-    assert module in str(exc.value)
-    assert f"ROADMAP.md queue 1 item {item}" in str(exc.value)
+def test_persistent_object_stores_refuse(kind, tmp_path):
+    """Lifted since the port has the persistent engines: an OSD on each
+    engine stores a shard, and the JAX package's engine of the same kind,
+    given the same transaction, leaves the same file tree."""
+    from ceph_tpu import objectstore as j_objectstore
+
+    assert "objectstore" not in unported.MISSING
 
     async def main():
         from ceph_tpu_torch.osd.messenger import Messenger
 
-        with pytest.raises(ValueError):
-            OSDShard(0, Messenger(), objectstore=kind, data_path="/x")
+        osd = OSDShard(0, Messenger(), objectstore=kind,
+                       data_path=str(tmp_path / "port"), device="cpu")
+        osd.store.queue_transaction(t_types.Transaction()
+                                    .write("obj@0", 0, b"s" * 5000)
+                                    .setattr("obj@0", "_v", (1, "c")))
+        osd.store.umount()
 
     _run(main())
+    theirs = j_objectstore.create(kind, str(tmp_path / "jax" / "osd.0"))
+    theirs.queue_transaction(j_types.Transaction()
+                             .write("obj@0", 0, b"s" * 5000)
+                             .setattr("obj@0", "_v", (1, "c")))
+    theirs.umount()
+    mine = {p.relative_to(tmp_path / "port"): p.read_bytes()
+            for p in sorted((tmp_path / "port").rglob("*")) if p.is_file()}
+    want = {p.relative_to(tmp_path / "jax"): p.read_bytes()
+            for p in sorted((tmp_path / "jax").rglob("*")) if p.is_file()}
+    assert mine == want and mine
     with pytest.raises(ValueError):
         objectstore.create("tape")
+    with pytest.raises(ValueError):
+        objectstore.create(kind)  # a persistent engine needs a path
     assert isinstance(objectstore.create("memstore"), objectstore.MemStore)
 
 

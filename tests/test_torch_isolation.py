@@ -8,7 +8,9 @@ small EC cluster's write, kill, degraded read and recovery at k=2 m=1, the
 device tier's bench and a writeback cluster's tier hit, the registry's
 ``preload()`` and one stripe through each of the regen, isa, shec, lrc and
 example plugins, the repair-path bench's fractional rebuild of 4 objects,
-and the kernel sweep and its two probe tools on the CPU).  The native host
+the kernel sweep and its two probe tools on the CPU, a mon-backed cluster
+on blockstore with a replicated pool beside its EC pool, its crash
+remount, each persistent engine's round trip and an OSD cap check).  The native host
 libraries are held to the same rule: every source the port's build names
 lies in ``ceph_tpu_torch/native/``, no port module names a path under the
 JAX package, and every shared library a process of the port maps from
@@ -54,6 +56,18 @@ def test_port_files_import_no_jax_and_no_reference_package():
     assert {"ec_info.py", "ec_non_regression.py", "ec_bench_sweep.py",
             "crushtool.py"} <= {p.name for p in files
                                 if p.parent == PORT / "tools"}
+    # so are the durable cluster's modules: the persistent engines, the KV
+    # layer, the encoding, compressor and log, replicated pools, caps and
+    # the mon quorum
+    assert {"filestore.py", "kstore.py", "blockstore.py", "statfs.py"} \
+        <= {p.name for p in files if p.parent == PORT / "objectstore"}
+    assert {"keyvaluedb.py", "lsm.py"} \
+        <= {p.name for p in files if p.parent == PORT / "kv"}
+    assert {"monitor.py", "paxos.py", "osdmap.py", "services.py"} \
+        <= {p.name for p in files if p.parent == PORT / "mon"}
+    assert {PORT / "utils" / "encoding.py", PORT / "utils" / "log.py",
+            PORT / "compressor.py", PORT / "osd" / "replicated.py",
+            PORT / "auth" / "caps.py"} <= set(files)
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -185,6 +199,39 @@ assert rp["counters"]["recovery_bytes_saved"] > 0 and rp["drain"][-1] == 0
 from ceph_tpu_torch.tools import ec_kernel_sweep, kernel_r4_probe, kernel_r4_split
 for tool in (ec_kernel_sweep, kernel_r4_split, kernel_r4_probe):
     assert tool.main(["--device", "cpu", "--iters", "1"]) == 0
+import tempfile
+from ceph_tpu_torch import objectstore
+from ceph_tpu_torch.auth.caps import OSDCap, op_capable
+from ceph_tpu_torch.osd.types import Transaction
+assert op_capable(OSDCap.parse("allow r pool=p"), "p", "o", "read")
+with tempfile.TemporaryDirectory() as tmp:
+    for kind in ("filestore", "kstore", "blockstore", "blockstore:zlib"):
+        s = objectstore.create(kind, f"{tmp}/{kind}")
+        s.queue_transaction(Transaction().write("o", 0, b"z" * 70000)
+                            .omap_setkeys("o", {"k": b"v"}))
+        s.umount()
+        s = objectstore.create(kind, f"{tmp}/{kind}")
+        assert s.read("o") == b"z" * 70000 and s.omap_get("o") == {"k": b"v"}
+        s.umount()
+    async def durable(path, write):
+        c = await ECCluster.create_with_mons(
+            6, {"k": "2", "m": "1", "device": "cpu"}, n_mons=3,
+            objectstore="blockstore", data_path=path)
+        meta = c.add_pool("meta", pool_type="replicated", size=3)
+        if write:
+            await c.write("d", b"e" * 9000)
+            await meta.write("i", b"m" * 100)
+            await meta.omap_set("i", {"k": b"v"})
+        assert await c.read("d") == b"e" * 9000
+        assert await meta.read("i") == b"m" * 100
+        assert await meta.omap_get("i") == {"k": b"v"}
+        rc, st = await c.mon_command({"prefix": "status"})
+        assert rc == 0 and st["leader"] == 0
+        await c.shutdown()  # no umount: the next pass remounts a crash
+    for write in (True, False):
+        loop = asyncio.new_event_loop()
+        loop.run_until_complete(durable(f"{tmp}/cluster", write))
+        loop.close()
 assert not any(m in ("jax", "tools", "experiments")
                or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
                for m, mod in sys.modules.items() if mod is not None)

@@ -13,7 +13,9 @@ The tolerance is zero.  The port's clusters run the ``cuda`` plugin on
 profile ``device=cpu`` (the kernels' plain versions) and its stores
 ``device="cpu"``; the JAX package's run ``jerasure`` (``tpu`` for
 promote-from-encode, its one plugin that composes device blocks).  The
-mon's tier commands and the mgr's tier gauges are refused in the port.
+mon's tier commands run through the port's mon-backed cluster (and are
+compared with the JAX package's in tests/test_torch_mon.py); the mgr's
+tier gauges are refused in the port.
 """
 
 import asyncio
@@ -691,20 +693,27 @@ def test_tier_range_read_extents_on_device():
 
 
 def test_mon_tier_commands_and_prometheus_gauges_refuse():
-    """The mon's `osd tier` commands need ceph_tpu/mon/ and the tier
-    gauges the mgr's report; the port has neither yet."""
+    """The mon's `osd tier` commands run through the port's mon-backed
+    cluster (the mon half is lifted); the tier gauges need the mgr's
+    report, which the port does not have yet."""
     async def main():
-        c = PORT.make(4)
+        c = await cluster.ECCluster.create_with_mons(
+            4, dict(PROFILE, device="cpu"), plugin="cuda")
         c.set_tier_mode("readproxy")
         await c.write("obj", b"x" * 2048)
         await c.read("obj")
         await _tick_all(c)
-        for cmd in ({"prefix": "osd tier cache-mode", "pool": c.pool,
-                     "mode": "writeback"},
-                    {"prefix": "osd tier status"}):
-            with pytest.raises(unported.NotPortedError) as exc:
-                await c.mon_command(cmd)
-            assert "ceph_tpu/mon/" in str(exc.value)
+        rc, out = await c.mon_command({
+            "prefix": "osd tier cache-mode", "pool": c.pool,
+            "mode": "writeback"})
+        assert (rc, out) == (0, {"pool": c.pool, "cache_mode": "writeback"})
+        rc, st = await c.mon_command({"prefix": "osd tier status"})
+        assert rc == 0
+        assert st["pools"][c.pool] == {"cache_mode": "writeback"}
+        assert st["hbm_budget_bytes"] > 0
+        assert (await c.mon_command({
+            "prefix": "osd tier cache-mode", "pool": c.pool,
+            "mode": "turbo"}))[0] == -22
         with pytest.raises(unported.NotPortedError) as exc:
             c.osds[0].mgr_report_stats()
         assert "ceph_tpu/mgr/" in str(exc.value)
