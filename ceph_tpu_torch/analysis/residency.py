@@ -39,7 +39,7 @@ class ResidencyCounters:
     """Process-wide transfer ledger (thread-safe)."""
 
     __slots__ = ("_lock", "h2d_ops", "h2d_bytes", "d2h_ops", "d2h_bytes",
-                 "library_builds")
+                 "library_builds", "mesh_axes")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -48,6 +48,11 @@ class ResidencyCounters:
         self.d2h_ops = 0
         self.d2h_bytes = 0
         self.library_builds = 0
+        #: per-mesh-axis sliced-dispatch accounting (the mesh data
+        #: plane's slice of the ledger): axis name -> [dispatches,
+        #: bytes placed along that axis].  Keyed dynamically so new
+        #: axes (pg/shard/sub) need no schema change.
+        self.mesh_axes: Dict[str, List[int]] = {}
 
     def note_h2d(self, nbytes: int) -> None:
         with self._lock:
@@ -63,15 +68,29 @@ class ResidencyCounters:
         with self._lock:
             self.library_builds += 1
 
+    def note_mesh(self, axis: str, nbytes: int) -> None:
+        """One sliced dispatch placing ``nbytes`` along mesh ``axis``
+        (the mesh plane calls this per axis of every encode/decode
+        dispatch, so "how much work rides each mesh axis" is a ledger
+        number like the transfer counters)."""
+        with self._lock:
+            ent = self.mesh_axes.setdefault(axis, [0, 0])
+            ent[0] += 1
+            ent[1] += int(nbytes)
+
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
-            return {
+            out = {
                 "h2d_ops": self.h2d_ops,
                 "h2d_bytes": self.h2d_bytes,
                 "d2h_ops": self.d2h_ops,
                 "d2h_bytes": self.d2h_bytes,
                 "library_builds": self.library_builds,
             }
+            for axis, (ops, nbytes) in self.mesh_axes.items():
+                out[f"mesh_{axis}_dispatches"] = ops
+                out[f"mesh_{axis}_bytes"] = nbytes
+            return out
 
     @staticmethod
     def delta(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:

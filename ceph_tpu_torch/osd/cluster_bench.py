@@ -99,11 +99,13 @@ async def recover_until_clean(cluster, victim: int, tick: float,
 async def run_cycle(cluster, payloads: Dict[str, bytes],
                     overwrites: Dict[str, bytes], *, writers: int = 8,
                     tick: float = 0.05, deadline_s: float = 120.0,
-                    hook: Optional[Callable[[object, str, str], None]] = None
-                    ) -> Dict:
+                    hook: Optional[Callable[[object, str, str], None]] = None,
+                    victim: Optional[int] = None) -> Dict:
     """The storage cycle (module docstring) on a cluster built in the
     running loop.  Returns the seconds, op latencies and rates of each
-    step, the killed OSD and the bytes recovery rewrote on it."""
+    step, the killed OSD and the bytes recovery rewrote on it.  The
+    killed OSD is ``victim``, else the first of the first object's
+    acting set."""
     hook = hook or (lambda cluster, step, when: None)
     current = dict(payloads)
     steps_s: Dict[str, float] = {}
@@ -126,8 +128,8 @@ async def run_cycle(cluster, payloads: Dict[str, bytes],
         hook(cluster, name, "end")
         return out
 
-    first = next(iter(payloads))
-    victim = cluster.backend.acting_set(first)[0]
+    if victim is None:
+        victim = cluster.backend.acting_set(next(iter(payloads)))[0]
 
     lat["write"] = await step("write", lambda: client_ops(
         payloads.items(), write, writers))

@@ -8,9 +8,11 @@ dominate -- the pattern "Understanding System Characteristics of Online
 Erasure Coding" documents.
 
 This module is the seam that closes the gap: concurrent in-flight client
-ops on one PG gather their codec work into batched dispatches.  (In the
-JAX package it is also the mesh data plane's dispatch seam; the port has
-no mesh plane yet.)
+ops on one PG gather their codec work into batched dispatches.  It is
+also the mesh data plane's dispatch seam (``osd_mesh_data_plane``): the
+fused batch a tick gathers here is exactly what
+``parallel/mesh_plane.py`` places PG-sliced over the device slots, so
+batching and mesh parallelism compose without a second queue.
 
 Flush policy (documented in docs/ec-storage-path.md):
 

@@ -6,7 +6,10 @@ a persistent engine (``filestore``, ``kstore``, ``blockstore``) under a
 data path: write every object with ``writers`` concurrent client tasks,
 kill the first OSD of the first object's acting set and read every object
 degraded, kill the mon leader and wait for the lease to fail over (where
-the cluster has mons: ``ECCluster.create_with_mons``), write ``extra``
+the cluster has mons: ``ECCluster.create_with_mons``; a ``status`` that a
+mon answers with EAGAIN -- an election still running -- is asked again,
+as a client hunting for the quorum does, for up to
+:data:`FAILOVER_DEADLINE_S`), write ``extra``
 objects while the OSD is still down, then crash -- stop the messenger and
 abandon the daemons without unmounting their stores, the open store
 objects kept alive so that nothing of theirs is flushed or closed -- and
@@ -27,6 +30,7 @@ and omap read back with one OSD down, and every replica's copy compared.
 
 from __future__ import annotations
 
+import asyncio
 import os
 import time
 from typing import Awaitable, Callable, Dict, List, Optional
@@ -36,6 +40,9 @@ import numpy as np
 from ceph_tpu_torch.osd.cluster_bench import (client_ops, percentile,
                                               recover_until_clean)
 
+#: seconds the failover step keeps asking for ``status`` while the mons
+#: answer EAGAIN (no leader yet)
+FAILOVER_DEADLINE_S = 30.0
 #: the durable cycle's steps, in order (``mon_failover`` only with mons)
 STEPS = ("write", "degraded_read", "mon_failover", "degraded_write",
          "remount_read", "recovery", "read")
@@ -129,7 +136,12 @@ async def run_durable_cycle(
             old = await cluster.mons.wait_for_leader()
             leaders["before"] = old.rank
             cluster.mons.kill(old.rank)
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + FAILOVER_DEADLINE_S
             rc, st = await cluster.mon_command({"prefix": "status"})
+            while rc == -11 and loop.time() < deadline:  # EAGAIN
+                await asyncio.sleep(tick)
+                rc, st = await cluster.mon_command({"prefix": "status"})
             if rc != 0 or st["leader"] in (None, old.rank):
                 raise AssertionError(
                     f"durable cycle: no new mon leader ({rc}, {st})")

@@ -133,26 +133,45 @@ class ECBackend(PG):
         """The process mesh data plane, iff gated on AND this pool's
         codec can ride it (matrix technique, w=8) -- the coalescer then
         dispatches its fused batches PG-sliced over the mesh instead of
-        single-device (ceph_tpu/parallel/mesh_plane.py in the JAX
-        package).  The port has no mesh plane yet (ROADMAP.md queue 1
-        item 7): always None, and every batch runs single-device."""
-        return None
+        single-device (ceph_tpu_torch/parallel/mesh_plane.py)."""
+        from ceph_tpu_torch.parallel import mesh_plane as mesh_mod
+
+        plane = mesh_mod.current_plane()
+        if plane is None or not plane.can_encode(self.ec):
+            return None
+        return plane
 
     def _encode_dispatch(self, items):
         """items: (shard-major block, want_resident, pgid) triples from
         :meth:`_encode_op`; one fused, bucketed pipeline dispatch covers
         the whole batch.  Returns (chunk_map, device_block) per item --
         the device block is the still-resident [k+m, bs] encode output
-        for stripes the tier wants hot (promote-from-encode).  (With the
-        JAX package's mesh data plane up, the batch rides one PG-sliced
-        SPMD dispatch instead; the port has no mesh plane.)"""
+        for stripes the tier wants hot (promote-from-encode).  With the
+        mesh data plane up, the batch instead rides ONE PG-sliced
+        dispatch (each stripe placed on the mesh slot owning its PG,
+        parity scattered in-collective where the devices allow)."""
         blocks = [b for b, _keep, _pg in items]
+        plane = self._mesh_plane()
+        if plane is not None:
+            # a coalesced batch belongs to THIS primary: encode it on
+            # the primary's own mesh slot (different primaries' batches
+            # land on different slots and overlap); an unbound
+            # primary (client-side engine) spreads by PG ownership
+            encs = plane.encode_shard_major_many(
+                self.ec, blocks, [pg for _b, _keep, pg in items],
+                slot=plane.slot_of(self.name))
+            return [(enc, None) for enc in encs]
         keep = [keep for _b, keep, _pg in items]
         encs, devs = ecutil.encode_shard_major_many_resident(
             self.ec, blocks, range(self.km), keep)
         return list(zip(encs, devs))
 
     def _decode_dispatch(self, maps):
+        plane = self._mesh_plane()
+        if plane is not None:
+            return plane.decode_concat_many(
+                self.sinfo, self.ec, maps,
+                slot=plane.slot_of(self.name))
         return ecutil.decode_concat_many(self.sinfo, self.ec, maps)
 
     def _pg_of(self, oid: str) -> int:
@@ -317,15 +336,24 @@ class ECBackend(PG):
         if self.tier_mode == "writeback" and logical and (
             resident or self._tier_hot(oid)
         ):
+            # resident blocks are keyed by the mesh slice owning the
+            # object's PG (None off-plane): the tier's per-slice
+            # accounting is how "which device holds what" stays a
+            # ledger fact once the plane slices ownership
+            plane = self._mesh_plane()
+            mesh_slice = plane.owner_slot(self._pg_of(oid)) \
+                if plane is not None else None
             if dev_block is not None:
                 tier.put(self.pool_name, oid, dev_block, version, logical,
-                         dirty=True, resident_origin=True)
+                         dirty=True, resident_origin=True,
+                         mesh_slice=mesh_slice)
                 return True
             block = np.stack([
                 np.asarray(encoded[s], dtype=np.uint8)
                 for s in range(self.km)
             ])
-            tier.put(self.pool_name, oid, block, version, logical, dirty=True)
+            tier.put(self.pool_name, oid, block, version, logical,
+                     dirty=True, mesh_slice=mesh_slice)
             return True
         if resident:
             tier.invalidate(self.pool_name, oid)

@@ -698,12 +698,23 @@ class PG:
                 for top in sub.transaction.ops
             ),
         }
-        # mesh-local vs wire routing split (osd_mesh_data_plane in the
-        # JAX package, ceph_tpu/parallel/mesh_plane.py): a sub-write to
-        # an OSD bound to the process mesh carries a delivery-board
-        # reference instead of its chunk payload.  The port has no mesh
-        # plane yet (ROADMAP.md queue 1 item 7): every peer gets the
-        # full payload frame.
+        # mesh-local vs wire routing split (osd_mesh_data_plane,
+        # ceph_tpu_torch/parallel/mesh_plane.py), chosen per-chunk from
+        # CRUSH placement: a sub-write whose destination OSD is bound to
+        # the process mesh carries a delivery-board reference instead of
+        # its chunk payload -- the bytes already live on the owner's
+        # device slice (in-collective parity scatter / PG-sliced
+        # placement), so the messenger frames only the envelope.  The
+        # frame itself still rides the normal path: ordering, acks,
+        # replay, and kill semantics are untouched, and out-of-mesh
+        # peers keep the full payload frame.
+        from ceph_tpu_torch.parallel import mesh_plane as mesh_mod
+
+        plane = mesh_mod.current_plane()
+        if plane is not None:
+            for dst, sub in subs:
+                if dst != self.name and plane.covers(dst):
+                    plane.detach_sub_write(sub)
         # one multi-destination submit for the whole k+m fan-out: the
         # TCP messenger's per-peer cork queues gather each peer's share
         # into a single scatter-gather burst (one writev + one drain per

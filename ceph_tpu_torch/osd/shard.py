@@ -317,10 +317,16 @@ class OSDShard:
                        getattr(backend, "_dec_coalescer", None)):
                 if co is not None:
                     co.admission = self.qos
-        # mesh data plane membership (osd_mesh_data_plane in the JAX
-        # package binds the daemon to a mesh device slot here): the port
-        # has no mesh plane yet (ROADMAP.md queue 1 item 7), so every
-        # daemon keeps the wire path
+        # mesh data plane membership (osd_mesh_data_plane): bind this
+        # daemon to a mesh device slot so its PG-shard slice lives on
+        # (and its inbound chunks are delivered through) the device
+        # plane; daemons past the slot count stay out-of-mesh and keep
+        # the wire path
+        from ceph_tpu_torch.parallel import mesh_plane as mesh_mod
+
+        plane = mesh_mod.current_plane()
+        if plane is not None:
+            plane.bind(self.name)
         self.pools[pool] = backend
         return backend
 
@@ -1589,16 +1595,19 @@ class OSDShard:
             # references -- claim them back (crc-checked) before the
             # version gate sees the transaction.  A failed claim
             # (evicted / foreign reference) refuses the sub-write:
-            # no ack, no apply; peering recovery repairs the shard.  The
-            # port has no mesh plane (ROADMAP.md queue 1 item 7), so no
-            # reference can be claimed: the sub-write is refused.
-            self.perf.inc("mesh_claim_miss")
-            await self.messenger.send_message(
-                self.name, src, ECSubWriteReply(
-                    from_shard=msg.from_shard, tid=msg.tid,
-                    committed=False, applied=False,
-                ))
-            return
+            # no ack, no apply; peering recovery repairs the shard.
+            from ceph_tpu_torch.parallel import mesh_plane as mesh_mod
+
+            plane = mesh_mod.current_plane()
+            if plane is None or \
+                    not plane.resolve_transaction(msg.transaction):
+                self.perf.inc("mesh_claim_miss")
+                await self.messenger.send_message(
+                    self.name, src, ECSubWriteReply(
+                        from_shard=msg.from_shard, tid=msg.tid,
+                        committed=False, applied=False,
+                    ))
+                return
         soid = shard_oid(msg.oid, msg.from_shard)
         new_vt = vt(msg.at_version)
         cur_vt = self._applied_version.get(soid)

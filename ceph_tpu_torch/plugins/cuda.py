@@ -15,8 +15,17 @@ batched entry points (``encode_batch``/``decode_batch``/
 ``encode_shard_major_batch``) stream granules through the device with
 bounded in-flight depth.
 
-Mesh profiles (``mesh_data``/``mesh_shard``/``mesh_sub`` > 1) are refused
-with EINVAL until the port has its multi-device slice.
+Profile keys ``mesh_shard`` / ``mesh_sub`` / ``mesh_data`` (all default 1)
+additionally split the device work over a (data, shard, sub) grid of
+devices (``parallel/distributed.py``): each shard cell multiplies its
+block of k/mesh_shard chunks and the partial parities are XOR-reduced
+over the shard axis (the fan-out/gather role of the reference's
+ECBackend, src/osd/ECBackend.cc:1976-2030), and chunk columns ride the
+``sub`` axis (sub-chunk parallelism, ErasureCodeInterface.h:251-300).
+Mesh mode requires a matrix technique with w=8 and k divisible by
+mesh_shard.  The grid's devices are the mesh data plane's when it is up
+and large enough, else ``parallel.local_devices()``; they must be of the
+profile's ``device`` type.
 """
 
 from __future__ import annotations
@@ -36,26 +45,121 @@ from ceph_tpu_torch.plugins.interface import (
     ErasureCodeProfile,
 )
 
-_MESH_KEYS = ("mesh_data", "mesh_shard", "mesh_sub")
-
-
 class _CudaMixin:
-    """Routes codec math through the persistent device pipeline."""
+    """Routes codec math through the persistent device pipeline, or over
+    a device grid for a mesh profile."""
 
     _device_codec: DeviceCodec | None = None
     _shared_pipe: EncodePipeline | None = None
+    _mesh_codec = None
+    _mesh_spec = (1, 1, 1)
     #: the shard-major helpers (``osd/ecutil.py``) may pad this codec's
     #: odd blocks up the shared rung ladder (ops/bucketing.py), so that
     #: they ride the pipeline's whole-lane kernels; parity is trimmed back
     shape_bucketing = True
 
     def init(self, profile: ErasureCodeProfile) -> None:
-        for key in _MESH_KEYS:
-            if int(profile.get(key, 1) or 1) > 1:
+        self._mesh_spec = (
+            int(profile.get("mesh_data", 1) or 1),
+            int(profile.get("mesh_shard", 1) or 1),
+            int(profile.get("mesh_sub", 1) or 1),
+        )
+        super().init(profile)
+        if self._mesh_active():
+            if getattr(self, "matrix", None) is None:
                 raise ErasureCodeError(
                     errno.EINVAL,
-                    f"{key} > 1 needs the multi-device slice of the port")
-        super().init(profile)
+                    "mesh_shard/mesh_sub need a matrix technique "
+                    "(reed_sol_van / reed_sol_r6_op / cauchy as matrix)",
+                )
+            if self.w != 8:
+                raise ErasureCodeError(
+                    errno.EINVAL, f"mesh mode supports w=8, not w={self.w}"
+                )
+            if self.k % self._mesh_spec[1]:
+                raise ErasureCodeError(
+                    errno.EINVAL,
+                    f"k={self.k} must be divisible by "
+                    f"mesh_shard={self._mesh_spec[1]}",
+                )
+
+    def _mesh_active(self) -> bool:
+        return any(n > 1 for n in self._mesh_spec)
+
+    @property
+    def mesh_plane_capable(self) -> bool:
+        """Can the OSD mesh data plane (``osd_mesh_data_plane``,
+        ``parallel/mesh_plane.py``) take this codec's coalesced
+        encode/decode batches?  Matrix techniques at w=8 qualify (the
+        plane's ``gf2_matrix_w8`` lanes are bit-exact for them); a
+        profile that ALREADY splits over its own grid (``mesh_shard``/
+        ``mesh_sub``) keeps that path -- the plane must not re-split a
+        split codec."""
+        return (getattr(self, "matrix", None) is not None
+                and self.w == 8 and not self._mesh_active())
+
+    def _mesh(self):
+        if self._mesh_codec is None:
+            from ceph_tpu_torch import parallel
+            from ceph_tpu_torch.parallel import mesh_plane as mesh_mod
+            from ceph_tpu_torch.parallel.distributed import (
+                DistributedCodec,
+                make_mesh,
+            )
+
+            nd, ns, nb = self._mesh_spec
+            # when the OSD mesh data plane is up, the profile's grid
+            # rides the SAME slots (one process, one ownership map),
+            # else the process device list
+            plane = mesh_mod.current_plane()
+            if plane is not None and len(plane.devices) >= nd * ns * nb:
+                devices = plane.devices
+            else:
+                devices = parallel.local_devices()
+            want = self._device.type
+            if any(d.type != want for d in devices):
+                raise ValueError(
+                    f"the mesh profile runs on {want} devices, the device "
+                    f"list holds {sorted({str(d) for d in devices})}")
+            mesh = make_mesh(n_data=nd, n_shard=ns, n_sub=nb,
+                             devices=devices)
+            self._mesh_codec = DistributedCodec(self.matrix, self.w, mesh)
+        return self._mesh_codec
+
+    # -- mesh (grid) data path ---------------------------------------------
+
+    def _mesh_stack(self, stacks: List[np.ndarray]) -> np.ndarray:
+        """[B, k, bs] stripes stacked, the column axis padded to the
+        sub-axis size and the batch axis to the data-axis size (GF
+        products are column-independent, so zero padding is exact and
+        trimmed on the way out)."""
+        nd, _ns, nb = self._mesh_spec
+        arr = np.stack(stacks)
+        return np.pad(arr, ((0, (-arr.shape[0]) % nd), (0, 0),
+                            (0, (-arr.shape[2]) % nb)))
+
+    def _mesh_encode_many(self, stacks: List[np.ndarray]) -> List[np.ndarray]:
+        """Encode a list of [k, bs] stripes in one grid dispatch."""
+        bs = stacks[0].shape[1]
+        parity = self._mesh().encode(self._mesh_stack(stacks))
+        return [parity[i, :, :bs] for i in range(len(stacks))]
+
+    def _mesh_decode_many(
+        self, sig: Sequence[int], erased: Sequence[int],
+        survivor_stacks: List[np.ndarray],
+    ) -> List[np.ndarray]:
+        """Reconstruct erased chunks for stripes sharing one erasure
+        signature: host-side row inversion (the ISA decode-table role),
+        a grid product on the devices."""
+        from ceph_tpu_torch.ops.pipeline import matrix_reconstruct_rows
+
+        _, rows = matrix_reconstruct_rows(
+            self.matrix, self.k, self.m, self.w, list(sig), list(erased)
+        )
+        bs = survivor_stacks[0].shape[1]
+        rec = self._mesh().reconstruct(rows,
+                                       self._mesh_stack(survivor_stacks))
+        return [rec[i, :, :bs] for i in range(len(survivor_stacks))]
 
     def _dc(self) -> DeviceCodec:
         if self._device_codec is None:
@@ -102,6 +206,8 @@ class _CudaMixin:
     # -- sync contract (one fused dispatch per call) -----------------------
 
     def jerasure_encode(self, data: np.ndarray) -> np.ndarray:
+        if self._mesh_active():
+            return self._mesh_encode_many([np.ascontiguousarray(data)])[0]
         bs = data.shape[1]
         if self._pipeline_ok(bs):
             return self._dc().encode(np.ascontiguousarray(data))
@@ -116,6 +222,22 @@ class _CudaMixin:
         return super().jerasure_encode(data)
 
     def jerasure_decode(self, have, blocksize):
+        if self._mesh_active():
+            km = self.k + self.m
+            available = sorted(have.keys())
+            erased = [i for i in range(km) if i not in have]
+            out = {c: np.asarray(a, dtype=np.uint8) for c, a in have.items()}
+            if not erased:
+                return out
+            if len(available) < self.k:
+                raise ValueError("not enough chunks to decode")
+            sel = available[:self.k]
+            rec = self._mesh_decode_many(
+                available, erased, [np.stack([out[c] for c in sel])]
+            )[0]
+            for j, e in enumerate(erased):
+                out[e] = rec[j]
+            return out
         if self._pipeline_ok(blocksize):
             return self._dc().decode(have, blocksize)
         target = bucketing.bucket_bytes(blocksize, self.bucket_align())
@@ -143,6 +265,23 @@ class _CudaMixin:
         prepared = [self.encode_prepare(_to_u8(s)) for s in stripes]
         k, m = self.k, self.m
         blocksize = len(prepared[0][0])
+        if self._mesh_active():
+            # sub-group by blocksize: one stacked grid dispatch per size
+            by_size: Dict[int, List[int]] = {}
+            for idx, p in enumerate(prepared):
+                by_size.setdefault(len(p[0]), []).append(idx)
+            out: List[Dict[int, np.ndarray]] = [None] * len(prepared)  # type: ignore
+            for idxs in by_size.values():
+                codings = self._mesh_encode_many(
+                    [np.stack([prepared[i][j] for j in range(k)])
+                     for i in idxs]
+                )
+                for i, coding in zip(idxs, codings):
+                    enc = dict(prepared[i])
+                    for j in range(m):
+                        enc[k + j] = coding[j]
+                    out[i] = enc
+            return out
         if not self._pipeline_ok(blocksize):
             out = []
             for p in prepared:
@@ -184,7 +323,8 @@ class _CudaMixin:
         out: List = [None] * len(blocks)
         devs: List = [None] * len(blocks)
         pipe_idx = [i for i, b in enumerate(blocks)
-                    if self._pipeline_ok(b.shape[1])]
+                    if not self._mesh_active()
+                    and self._pipeline_ok(b.shape[1])]
         if pipe_idx:
             pipe = self._pipe()
             tickets = [
@@ -203,8 +343,8 @@ class _CudaMixin:
                     devs[i] = pipe.device_result(t)
         rest = [i for i in range(len(blocks)) if out[i] is None]
         if rest:
-            # odd shapes: the generic batched path (buckets inside
-            # jerasure_encode)
+            # mesh / odd shapes: the generic batched path (mesh splits
+            # the dispatch; odd shapes bucket inside jerasure_encode)
             encs = self.encode_batch([blocks[i].reshape(-1) for i in rest])
             for i, enc in zip(rest, encs):
                 out[i] = enc
@@ -233,6 +373,33 @@ class _CudaMixin:
                         c: np.asarray(a, dtype=np.uint8)
                         for c, a in chunk_maps[i].items()
                     }
+                continue
+            if self._mesh_active():
+                sel = sorted(sig)[:self.k]
+                by_size: Dict[int, List[int]] = {}
+                for i in idxs:
+                    by_size.setdefault(
+                        len(next(iter(chunk_maps[i].values()))), []
+                    ).append(i)
+                for sized_idxs in by_size.values():
+                    recs = self._mesh_decode_many(
+                        list(sig), erased,
+                        [
+                            np.stack([
+                                np.asarray(chunk_maps[i][c], dtype=np.uint8)
+                                for c in sel
+                            ])
+                            for i in sized_idxs
+                        ],
+                    )
+                    for pos, i in enumerate(sized_idxs):
+                        full = {
+                            c: np.asarray(a, dtype=np.uint8)
+                            for c, a in chunk_maps[i].items()
+                        }
+                        for j, e in enumerate(erased):
+                            full[e] = recs[pos][j]
+                        results[i] = full
                 continue
             if not self._pipeline_ok(blocksize):
                 for i in idxs:

@@ -35,9 +35,9 @@ What the plugin adds over the classic MDS family:
 Multi-loss falls back to the classic full-stripe decode (the virtual-
 row generator is MDS over whole nodes), and fewer than d helpers are
 REFUSED rather than mis-combined -- the repair matrix is only defined
-for exactly d of them.  The JAX package's mesh lane (a daemon's repair
-matmuls on its own mesh slot) needs ``ceph_tpu/parallel/mesh_plane.py``,
-which the port does not have: :func:`_mesh_run_tab` refuses.
+for exactly d of them.  With the process mesh data plane up
+(``osd_mesh_data_plane``), both repair lanes run on the daemon's own mesh
+slot instead (:func:`_mesh_run_tab`).
 """
 
 from __future__ import annotations
@@ -59,7 +59,6 @@ from ceph_tpu_torch.plugins import registry as registry_mod
 from ceph_tpu_torch.plugins.interface import (SIMD_ALIGN, ErasureCode,
                                               ErasureCodeError,
                                               ErasureCodeProfile)
-from ceph_tpu_torch.utils.unported import refuse
 
 
 def _pipeline_lane(device: torch.device) -> bool:
@@ -309,7 +308,8 @@ class ErasureCodeRegen(ErasureCode):
         (lost, helper-set) signature: each stack is [d, beta] uint8
         (helper symbols in ``helpers`` order); returns the [chunk_len]
         regenerated shard per object -- ONE fused device dispatch for
-        the whole batch (per rung bucket).
+        the whole batch (per rung bucket), the mesh plane's slot when
+        the process plane is up.
 
         Fewer (or duplicate) helpers REFUSE via the repair-matrix
         validation: combining < d helper symbols has no consistent
@@ -326,9 +326,7 @@ class ErasureCodeRegen(ErasureCode):
             outs = _mesh_run_tab(
                 plane, rf, self.d, self.alpha,
                 [np.asarray(s, dtype=np.uint8) for s in helper_stacks])
-            if outs is not None:
-                return [np.ascontiguousarray(o).reshape(-1)
-                        for o in outs]
+            return [np.ascontiguousarray(o).reshape(-1) for o in outs]
         if beta % 4 == 0 and beta > 0 and _pipeline_lane(self._device):
             codec = self._regen_codec(lost, helpers)
             pipe = EncodePipeline(codec.encode_stream())
@@ -463,18 +461,44 @@ def _release_codecs(codecs: Dict) -> None:
 
 
 def _mesh_plane():
-    """The process mesh data plane: the port has none
-    (``ceph_tpu/parallel/mesh_plane.py``, ROADMAP.md queue 1 item 7)."""
-    return None
+    """The process mesh data plane (None with ``osd_mesh_data_plane``
+    off)."""
+    from ceph_tpu_torch.parallel import mesh_plane as mesh_mod
+
+    return mesh_mod.current_plane()
 
 
 def _mesh_run_tab(plane, matrix: np.ndarray, k_in: int, rows_out: int,
                   blocks: List[np.ndarray],
-                  slot_name: Optional[str] = None):
-    """The JAX package's in-collective lane (a mesh member's repair
-    matmuls on its own mesh slot); refused until the port has the mesh
-    plane."""
-    refuse("the regenerating-repair mesh lane", "mesh")
+                  slot_name: Optional[str] = None) -> List[np.ndarray]:
+    """Dispatch ``matrix`` over [k_in, bs] blocks on the process mesh
+    plane (the in-collective lane: survivors/primaries that are mesh
+    members run their repair products on their OWN mesh slot, and
+    distinct daemons' launches overlap across slots' streams)."""
+
+    class _Shim:
+        """mesh_plane._codec keys its tables by (matrix bytes, w)."""
+        mesh_plane_capable = True
+
+        def __init__(self):
+            self.matrix = np.asarray(matrix, dtype=np.uint32)
+            self.w = 8
+
+        def get_data_chunk_count(self):
+            return k_in
+
+        def get_chunk_count(self):
+            return k_in + rows_out
+
+    slot = plane.slot_of(slot_name) if slot_name else None
+    if slot is None:
+        slot = 0
+    bs = int(blocks[0].shape[1])
+    bs_pad = plane._bucket_bs(bs)
+    codec = plane._codec(_Shim())
+    outs = codec.run_tab(
+        codec._enc_tab, blocks, [0] * len(blocks), bs_pad, slot=slot)
+    return [o[:, :bs] for o in outs]
 
 
 def compute_helpers(
@@ -486,7 +510,8 @@ def compute_helpers(
     """Survivor-side helper symbols: dot each full shard's alpha
     sub-chunks with ``phi_f`` (the wire-carried ``regen`` coefficients)
     -- [shard_len] -> [shard_len/alpha] per object, every object of a
-    sub-read message fused into one pipelined GF matmul dispatch.
+    sub-read message fused into one pipelined GF matmul dispatch (the
+    mesh plane's slot for mesh-member daemons).
 
     ``device`` is the caller's codec's (the serving shard's pool codec):
     the card takes the pipeline, the CPU the host LUT engine.  The
@@ -511,8 +536,7 @@ def compute_helpers(
     plane = _mesh_plane()
     if plane is not None and beta > 0:
         outs = _mesh_run_tab(plane, matrix, alpha, 1, blocks, slot_name)
-        if outs is not None:
-            return [np.ascontiguousarray(o[0]) for o in outs]
+        return [np.ascontiguousarray(o[0]) for o in outs]
     if beta % 4 or beta == 0 or not _pipeline_lane(dev):
         # host LUT lane (the CPU, or widths that are not whole int32
         # lanes): ONE fused pass over the concatenated blocks

@@ -109,10 +109,11 @@ class TierEntry:
     """One resident object: the shard-major device block + metadata."""
 
     __slots__ = ("pool", "oid", "block", "version", "logical_size",
-                 "dirty", "nbytes", "last_access")
+                 "dirty", "nbytes", "last_access", "mesh_slice")
 
     def __init__(self, pool: str, oid: str, block, version: tuple,
-                 logical_size: int, dirty: bool, nbytes: int):
+                 logical_size: int, dirty: bool, nbytes: int,
+                 mesh_slice: Optional[int] = None):
         self.pool = pool
         self.oid = oid
         self.block = block          # device tensor [km, shard_len] u8
@@ -121,6 +122,11 @@ class TierEntry:
         self.dirty = dirty
         self.nbytes = nbytes
         self.last_access = 0        # store-sequence LRU stamp
+        #: mesh device slot owning this object's PG slice under the
+        #: mesh data plane (osd_mesh_data_plane); None single-device.
+        #: Keyed so per-slice residency is exact ledger data, not a
+        #: re-derivation from placement at read time.
+        self.mesh_slice = mesh_slice
 
 
 class DeviceTierStore:
@@ -181,6 +187,11 @@ class DeviceTierStore:
 
     def status(self) -> dict:
         with self._lock:
+            by_slice: Dict[str, int] = {}
+            for e in self._entries.values():
+                key = "unsliced" if e.mesh_slice is None \
+                    else str(e.mesh_slice)
+                by_slice[key] = by_slice.get(key, 0) + e.nbytes
             return {
                 "resident_bytes": self._resident_bytes,
                 "budget": self.budget(),
@@ -188,9 +199,14 @@ class DeviceTierStore:
                 "dirty": sum(1 for e in self._entries.values() if e.dirty),
                 "hit": self.hits,
                 "miss": self.misses,
+                # resident bytes grouped by owning mesh slice (the mesh
+                # data plane's PG-slice ownership; "unsliced" =
+                # single-device inserts)
+                "by_mesh_slice": by_slice,
                 "objects": [
                     {"pool": e.pool, "oid": e.oid, "bytes": e.nbytes,
-                     "dirty": e.dirty, "version": list(e.version)}
+                     "dirty": e.dirty, "version": list(e.version),
+                     "mesh_slice": e.mesh_slice}
                     for e in self._entries.values()
                 ],
             }
@@ -229,7 +245,8 @@ class DeviceTierStore:
     def put(self, pool: Optional[str], oid: str, block, version: tuple,
             logical_size: int, dirty: bool = False,
             resident_origin: bool = False,
-            promote_from_recovery: bool = False) -> TierEntry:
+            promote_from_recovery: bool = False,
+            mesh_slice: Optional[int] = None) -> TierEntry:
         """Insert/replace one object's shard-major block (host blocks are
         transferred; device tensors from ``put_many`` slicing are taken
         as-is), then evict to budget.
@@ -257,7 +274,8 @@ class DeviceTierStore:
 
         trace.event("tier_put_resident" if resident_origin
                     else "tier_put")
-        ent = self._insert(pool, oid, block, version, logical_size, dirty)
+        ent = self._insert(pool, oid, block, version, logical_size, dirty,
+                           mesh_slice=mesh_slice)
         self.evict_to_budget()
         return ent
 
@@ -337,7 +355,8 @@ class DeviceTierStore:
         return n
 
     def _insert(self, pool, oid, block, version, logical_size,
-                dirty, promoted: bool = False) -> TierEntry:
+                dirty, promoted: bool = False,
+                mesh_slice: Optional[int] = None) -> TierEntry:
         nbytes = int(block.shape[0]) * int(block.shape[1]) * \
             block.element_size()
         with self._lock:
@@ -346,7 +365,8 @@ class DeviceTierStore:
                 self._resident_bytes -= old.nbytes
                 self._account.release(self.OWNER, old.nbytes)
             ent = TierEntry(pool, oid, block, tuple(version),
-                            logical_size, dirty, nbytes)
+                            logical_size, dirty, nbytes,
+                            mesh_slice=mesh_slice)
             self._seq += 1
             ent.last_access = self._seq
             self._entries[(pool, oid)] = ent

@@ -255,6 +255,38 @@ OPTIONS: Dict[str, Option] = {
              "cache off).  The tier yields to this working set, never "
              "the other way around",
              see_also=("osd_tier_hbm_bytes",)),
+        _opt("osd_mesh_data_plane", bool, False, LEVEL_ADVANCED,
+             "mesh-slice the OSD data plane over the process device list "
+             "(ceph_tpu_torch/parallel/mesh_plane.py): PG ownership is "
+             "sliced over the mesh's pg axis, the per-PG coalescer's "
+             "fused encode batches run across the device slots, and "
+             "chunk payloads destined for in-mesh OSDs are delivered "
+             "through the delivery board instead of being carried by "
+             "the messenger.  False (default) keeps the single-device "
+             "path -- the A/B baseline",
+             see_also=("osd_mesh_devices", "osd_mesh_scatter",
+                       "osd_mesh_board_bytes")),
+        _opt("osd_mesh_devices", int, 0, LEVEL_ADVANCED,
+             "device slots the mesh data plane spans (0 = every device "
+             "of parallel.local_devices()).  Each slot hosts one OSD's "
+             "PG-shard slice; OSDs past the slot count stay out-of-mesh "
+             "and keep the wire delivery path",
+             see_also=("osd_mesh_data_plane",)),
+        _opt("osd_mesh_scatter", str, "auto", LEVEL_ADVANCED,
+             "in-collective parity scatter mode for the mesh data "
+             "plane: 'auto' splits the GF product over the mesh's shard "
+             "axis (reduce-scatter parity placement) on CUDA devices, "
+             "where the reduction rides device-to-device copies; 'on' "
+             "forces it (CPU correctness runs); 'off' keeps every "
+             "slot's encode local (pg slicing only)",
+             see_also=("osd_mesh_data_plane",)),
+        _opt("osd_mesh_board_bytes", int, 64 << 20, LEVEL_ADVANCED,
+             "byte bound on the mesh delivery board (the in-collective "
+             "chunk handoff between in-mesh OSDs): beyond it the "
+             "oldest unclaimed deposits are dropped and the affected "
+             "sub-write fails over to normal recovery (bounded memory; "
+             "claims release immediately)",
+             see_also=("osd_mesh_data_plane",)),
         _opt("osd_tier_promote_max_per_tick", int, 8, LEVEL_ADVANCED,
              "max objects promoted per tier-agent tick; the whole set "
              "rides one batched gather + device transfer",

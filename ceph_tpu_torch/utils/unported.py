@@ -12,7 +12,6 @@ from typing import NoReturn
 
 #: missing module -> (what it is, ROADMAP.md queue 1 item that ports it)
 MISSING = {
-    "mesh": ("ceph_tpu/parallel/mesh_plane.py (the mesh data plane)", 7),
     "cls": ("ceph_tpu/cls/ (object classes)", 14),
     "mgr": ("ceph_tpu/mgr/ (the manager's report schema)", 15),
 }

@@ -160,6 +160,27 @@ Phases (any failure raises and exits non-zero):
    It prints each step's seconds, write and read GiB/s, time to clean, the
    mon failover's seconds, the bytes on disk, and the card's name and
    power limit.
+3h. The mesh data plane (``parallel/``) over 4 slots: every card the
+   process sees when it sees 4 or more, else ``cuda:0`` four times (one
+   stream a slot; ``parallel.configure_devices``).  (a) ``ECCluster(16,
+   reed_sol_van k=8 m=4 w=8, plugin="cuda")`` runs phase 3c's cycle at 64
+   x 4 MiB with ``osd_mesh_data_plane`` on (osd.0-3 bound to the slots;
+   ``osd_mesh_scatter`` auto, on for CUDA: encodes reduce-scattered over
+   the slots, decodes on the primary's slot, chunks to bound OSDs through
+   the delivery board), the killed OSD one the plane binds, then the same
+   cycle with the plane off: every stored shard is equal in the two runs
+   and to the numpy ``jerasure`` encode, ``mesh_wire_bytes_avoided`` > 0,
+   ``mesh_claim_miss`` 0, the board lost nothing, and ``gf2_matrix_w8``'s
+   launches (zeroed before and read after each step) rise in the write,
+   degraded read and recovery.  (b) ``DistributedCodec`` on (data, shard,
+   sub) = (1, 4, 1) and (2, 2, 1) with ``osd_mesh_scatter=on``: encode,
+   encode_scatter, verify and reconstruct (chunks 1 and 6) of 8 x 8 MiB
+   stripes against ``cpu_engine``, a corrupted stripe failing verify, and
+   each owner's parity slice on its cell's device.  (c)
+   ``entry.dryrun_multichip(4, fast=True)``.  (d) A ``mesh_shard=2`` pool,
+   k=4 m=2, 8 OSDs, 16 x 4 MiB through the storage cycle, every shard
+   against numpy.  It prints the GiB/s, time to clean, the plane's
+   counters, ledger and board, and the launches per step.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased), one of ``-w storage-path --profile`` at the flagship profile
    (64 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
@@ -239,6 +260,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ceph_tpu_torch import parallel
 from ceph_tpu_torch.analysis import residency
 from ceph_tpu_torch.matrices import cauchy, liberation, reed_sol
 from ceph_tpu_torch.native import build as native_build
@@ -248,9 +270,10 @@ from ceph_tpu_torch.osd import (cluster_bench, durable_bench, ecutil,
 from ceph_tpu_torch.osd.cluster import ECCluster
 from ceph_tpu_torch.matrices.bitmatrix import (matrix_to_bitmatrix,
                                                survivor_decode_bitmatrix)
-from ceph_tpu_torch.ops import cuda_gf, sweep_gf
+from ceph_tpu_torch.ops import cpu_engine, cuda_gf, sweep_gf
 from ceph_tpu_torch.ops.gf import gf
 from ceph_tpu_torch.ops.pipeline import DeviceStream, granules_dispatched
+from ceph_tpu_torch.parallel import mesh_plane
 from ceph_tpu_torch.plugins import registry as registry_mod
 from ceph_tpu_torch.tier.device_tier import (DeviceByteAccount,
                                              device_byte_account)
@@ -384,6 +407,18 @@ INDEX_KEYS = 16
 #: build directory, on the machine's local disk
 DURABLE_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "ceph_tpu_torch", "build")
+#: the mesh data plane (phase 3h): slots of the plane (every card the
+#: process sees, else one card this many times), the full-width cluster's
+#: OSDs and objects, the grids of the codec step, and the mesh_shard pool
+MESH_SLOTS = 4
+MESH_OSDS = 16
+MESH_OBJECTS = 64
+MESH_GRIDS = ((1, 4, 1), (2, 2, 1))
+MESH_STRIPES = 8
+MESH_SHARD_PROFILE = {"technique": "reed_sol_van", "k": "4", "m": "2",
+                      "mesh_shard": "2"}
+MESH_SHARD_OSDS = 8
+MESH_SHARD_OBJECTS = 16
 #: the repair path (phase 4): objects of RBD's default size on 8 OSDs,
 #: with a recovery batch budget that gives each object of a full batch
 #: (32) its k whole 1 MiB chunks: at the default 8 MiB a 4 MiB object's
@@ -2138,6 +2173,308 @@ def phase_durable(seed: int, card: str) -> dict:
     return {"profiles": out, "seconds": seconds}
 
 
+def _mesh_devices():
+    """Every card the process sees when it sees MESH_SLOTS or more, else
+    ``cuda:0`` MESH_SLOTS times (a stream each)."""
+    n = torch.cuda.device_count()
+    if n >= MESH_SLOTS:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"{n} distinct cards")
+    return ([torch.device("cuda", 0)] * MESH_SLOTS,
+            f"cuda:0 repeated {MESH_SLOTS} times")
+
+
+def _shard_bytes(cluster) -> dict:
+    """Every stored shard's bytes (``(osd, name)`` -> data), the PG-meta
+    objects left out, as the JAX package's mesh test compares them."""
+    return {(osd.osd_id, soid): osd.store.read(soid)
+            for osd in cluster.osds for soid in osd.store.list_objects()
+            if soid.rpartition("@")[2] != "meta"}
+
+
+def _mesh_cycle(plane_on: bool, payloads, overwrites, card) -> dict:
+    """One storage cycle of ``ECCluster(16, reed_sol_van k=8 m=4,
+    plugin="cuda")`` with ``osd_mesh_data_plane`` on or off (docstring,
+    phase 3h a); the victim is an OSD bound to the plane, the same OSD
+    in both runs."""
+    cfg = get_config()
+    cfg.set_val("osd_mesh_data_plane", plane_on)
+    mesh_plane.reset()
+    launches, mesh_before = {}, {}
+
+    def hook(_cluster, step, when):
+        ledger = residency.counters().snapshot()
+        if when == "start":
+            cuda_gf.reset_launches()
+            mesh_before[step] = ledger
+        else:
+            torch.cuda.synchronize()
+            launches[step] = cuda_gf.launches["gf2_matrix_w8"]
+            mesh_before[step] = {
+                key: ledger[key] - mesh_before[step].get(key, 0)
+                for key in ledger if key.startswith("mesh_")}
+
+    async def main():
+        cluster = ECCluster(MESH_OSDS, _profile({"technique": "reed_sol_van"}),
+                            plugin="cuda")
+        plane = mesh_plane.current_plane()
+        # the first OSD of an acting set that the plane binds (the
+        # plane-off run kills the same one)
+        victim = next(o for oid in payloads
+                      for o in cluster.backend.acting_set(oid)
+                      if o < MESH_SLOTS)
+        assert plane is None or plane.covers(f"osd.{victim}"), \
+            f"mesh path: osd.{victim} is not bound to the plane"
+        try:
+            r = await cluster_bench.run_cycle(
+                cluster, payloads, overwrites, writers=WRITERS,
+                deadline_s=CLUSTER_DEADLINE_S, hook=hook, victim=victim)
+        finally:
+            await cluster.shutdown()
+        r["cluster"] = cluster
+        r["plane"] = plane.status() if plane is not None else None
+        return r
+
+    PerfCounters.reset_all()
+    t0 = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    try:
+        r = loop.run_until_complete(main())
+    finally:
+        loop.close()
+    r["cycle_s"] = time.perf_counter() - t0
+    r["launches"] = launches
+    r["mesh_ledger"] = mesh_before
+    for step in CLUSTER_KERNEL_STEPS:
+        assert launches[step] > 0, \
+            f"mesh path (plane {plane_on}): gf2_matrix_w8 not launched in " \
+            f"{step}"
+    return r
+
+
+def _mesh_codec_step(seed: int, card: str) -> dict:
+    """``DistributedCodec`` on the card (docstring, phase 3h b)."""
+    from ceph_tpu_torch.parallel.distributed import (DistributedCodec,
+                                                     make_mesh)
+
+    rng = np.random.RandomState(seed + 7)
+    matrix = reed_sol.vandermonde_coding_matrix(K, M, 8)
+    data = rng.randint(0, 256, size=(MESH_STRIPES, K, STRIPE // K),
+                       dtype=np.uint8)
+    want = np.stack([cpu_engine.matrix_encode(matrix, d, 8) for d in data])
+    F = gf(8)
+    sel = [c for c in range(K + M) if c not in ERASED][:K]
+    A = np.zeros((K, K), dtype=np.uint32)
+    for r, c in enumerate(sel):
+        if c < K:
+            A[r, c] = 1
+        else:
+            A[r] = matrix[c - K]
+    rows = F.mat_invert(A)[list(ERASED)]
+    survivors = np.concatenate([data, want], axis=1)[:, sel]
+    gib = data.nbytes / 2**30
+    out = {}
+    for grid in MESH_GRIDS:
+        mesh = make_mesh(*grid, devices=parallel.local_devices())
+        codec = DistributedCodec(matrix, 8, mesh)
+        cuda_gf.reset_launches()
+        times = {}
+        for name, fn in (
+                ("encode", lambda: codec.encode(data)),
+                ("encode_scatter", lambda: codec.encode_scatter(data)),
+                ("verify", lambda: codec.verify(data, want)),
+                ("reconstruct", lambda: codec.reconstruct(rows, survivors))):
+            fn()
+            t0 = time.perf_counter()
+            res = fn()
+            times[name] = time.perf_counter() - t0
+            if name.startswith("encode"):
+                assert np.array_equal(res, want), \
+                    f"mesh codec {grid}: {name} differs from cpu_engine"
+            elif name == "verify":
+                assert res.all(), f"mesh codec {grid}: verify failed"
+            else:
+                assert np.array_equal(res, data[:, list(ERASED)]), \
+                    f"mesh codec {grid}: reconstruct differs from the data"
+        bad = want.copy()
+        bad[1, 0, 5] ^= 0xFF
+        ok = codec.verify(data, bad)
+        assert not ok[1] and ok[[0, *range(2, MESH_STRIPES)]].all(), \
+            f"mesh codec {grid}: verify missed the corrupted stripe {ok}"
+        owners = codec.parity_owner_slots()
+        scattered = codec.encode_scatter_shards(data)
+        per = M // grid[1]
+        for (d, s, u), index, t in scattered:
+            assert index[1] == slice(s * per, (s + 1) * per) and \
+                t.device == mesh.devices[d, s, u], (grid, index, t.device)
+            assert np.array_equal(t.cpu().numpy(), want[index]), \
+                f"mesh codec {grid}: owner slice of cell {(d, s, u)}"
+        torch.cuda.synchronize()
+        launches = cuda_gf.launches["gf2_matrix_w8"]
+        assert launches > 0, f"mesh codec {grid}: gf2_matrix_w8 not launched"
+        out[str(grid)] = {
+            "GiBs": {name: gib / t for name, t in times.items()},
+            "owners": owners, "launches": launches}
+        print(f"[mesh] DistributedCodec (data, shard, sub) = {grid} over "
+              f"{[str(d) for d in mesh.devices.flat]}: {MESH_STRIPES} x "
+              f"{STRIPE} B stripes, encode / encode_scatter / verify / "
+              f"reconstruct (chunks {ERASED}) GiB/s "
+              + " / ".join(f"{gib / times[n]:.4f}" for n in times)
+              + f", equal to cpu_engine; parity owners {owners}; "
+              f"gf2_matrix_w8 launches {launches}; card {card}", flush=True)
+    return out
+
+
+def _mesh_shard_pool(seed: int, card: str) -> dict:
+    """A ``mesh_shard=2`` pool through the storage cycle (docstring,
+    phase 3h d)."""
+    ref = registry_mod.instance().factory(
+        "jerasure", {"technique": "reed_sol_van", "k": "4", "m": "2"})
+    payloads = cluster_bench.make_payloads(MESH_SHARD_OBJECTS, OBJECT,
+                                           seed + 3)
+    overwrites = cluster_bench.make_overwrites(payloads, CLUSTER_OVERWRITE,
+                                               seed + 4)
+    launches = {}
+
+    def hook(_cluster, step, when):
+        if when == "start":
+            cuda_gf.reset_launches()
+        else:
+            torch.cuda.synchronize()
+            launches[step] = cuda_gf.launches["gf2_matrix_w8"]
+
+    r = cluster_bench.run_storage_cycle(
+        lambda: ECCluster(MESH_SHARD_OSDS, dict(MESH_SHARD_PROFILE),
+                          plugin="cuda"),
+        payloads, overwrites, writers=WRITERS,
+        deadline_s=CLUSTER_DEADLINE_S, hook=hook)
+    assert r["cluster"].ec._mesh_codec is not None, \
+        "mesh_shard pool: the grid codec never ran"
+    for step in CLUSTER_KERNEL_STEPS:
+        assert launches[step] > 0, \
+            f"mesh_shard pool: gf2_matrix_w8 not launched in {step}"
+    check = _cluster_check(r["cluster"], ref, r["final"], crc=False)
+    print(f"[mesh] mesh_shard=2 pool k=4 m=2: {MESH_SHARD_OSDS} OSDs, "
+          f"{MESH_SHARD_OBJECTS} x {OBJECT} B objects, osd.{r['victim']} "
+          f"down: write {r['write_GiBs']:.4f} GiB/s, degraded read "
+          f"{r['degraded_read_GiBs']:.4f} GiB/s, time to clean "
+          f"{r['time_to_clean_s']:.3f} s; {check}; gf2_matrix_w8 launches "
+          f"per step {json.dumps(launches)}; card {card}", flush=True)
+    return {"launches": launches, **{key: r[key] for key in (
+        "write_GiBs", "degraded_read_GiBs", "read_GiBs", "time_to_clean_s",
+        "steps_s")}}
+
+
+def phase_mesh_plane(seed: int, card: str) -> dict:
+    """The mesh data plane on the card (docstring, phase 3h)."""
+    from ceph_tpu_torch import entry
+
+    t_phase = time.perf_counter()
+    devices, layout = _mesh_devices()
+    parallel.configure_devices(devices)
+    cfg = get_config()
+    prior = (cfg.get_val("osd_mesh_data_plane"),
+             cfg.get_val("osd_mesh_scatter"))
+    print(f"[mesh] plane over {len(devices)} slots: {layout}", flush=True)
+    out = {"slots": len(devices), "layout": layout}
+    try:
+        # (a) the full-width cluster with the plane on, then off
+        ref = registry_mod.instance().factory(
+            "jerasure", _profile({"technique": "reed_sol_van"}))
+        payloads = cluster_bench.make_payloads(MESH_OBJECTS, OBJECT, seed)
+        overwrites = cluster_bench.make_overwrites(
+            payloads, CLUSTER_OVERWRITE, seed + 1)
+        runs = {}
+        for plane_on in (True, False):
+            runs[plane_on] = _mesh_cycle(plane_on, payloads, overwrites,
+                                         card)
+        on, off = runs[True], runs[False]
+        assert on["victim"] == off["victim"]
+        t0 = time.perf_counter()
+        same = _shard_bytes(on["cluster"]) == _shard_bytes(off["cluster"])
+        assert same, "mesh path: stored shards differ with the plane off"
+        check = _cluster_check(on["cluster"], ref, on["final"], crc=False)
+        check_s = time.perf_counter() - t0
+        st = on["plane"]
+        counters = st["counters"]
+        assert counters["mesh_wire_bytes_avoided"] > 0, counters
+        assert counters["mesh_claim_miss"] == 0, counters
+        assert st["board"]["misses"] == 0, st["board"]
+        assert counters["mesh_encode_stripes"] > 0 and \
+            counters["mesh_decode_stripes"] > 0, counters
+        ledger = {key: sum(step.get(key, 0)
+                           for step in on["mesh_ledger"].values())
+                  for key in ("mesh_pg_dispatches", "mesh_pg_bytes",
+                              "mesh_shard_dispatches", "mesh_shard_bytes")}
+        slot = st["members"][f"osd.{on['victim']}"]
+        head = (f"[mesh] reed_sol_van k=8 m=4: {MESH_OSDS} OSDs, "
+                f"{MESH_OBJECTS} x {OBJECT} B objects, {WRITERS} client "
+                f"tasks, osd.{on['victim']} (slot {slot}) down")
+        for label, r in (("plane on", on), ("plane off", off)):
+            print(f"{head}, {label}: write {r['write_GiBs']:.4f} GiB/s, "
+                  f"degraded write {r['degraded_write_GiBs']:.4f}, "
+                  f"degraded read {r['degraded_read_GiBs']:.4f}, read "
+                  f"{r['read_GiBs']:.4f}; time to clean "
+                  f"{r['time_to_clean_s']:.3f} s; gf2_matrix_w8 launches "
+                  f"per step {json.dumps(r['launches'])}; cycle "
+                  f"{r['cycle_s']:.1f} s; card {card}", flush=True)
+        print(f"{head}: stored shards equal with the plane on and off; "
+              f"{check} ({check_s:.1f} s); mesh_wire_bytes_avoided "
+              f"{counters['mesh_wire_bytes_avoided']}, mesh_claim_miss "
+              f"{counters['mesh_claim_miss']}, fused dispatches "
+              f"{counters['mesh_fused_dispatches']}, local dispatches "
+              f"{counters['mesh_local_dispatches']}, encode / decode "
+              f"stripes {counters['mesh_encode_stripes']} / "
+              f"{counters['mesh_decode_stripes']}; ledger "
+              f"{json.dumps(ledger)}; board {json.dumps(st['board'])}; "
+              f"card {card}", flush=True)
+        out["cluster"] = {
+            label: {key: r[key] for key in (
+                "victim", "write_GiBs", "degraded_write_GiBs",
+                "degraded_read_GiBs", "read_GiBs", "time_to_clean_s",
+                "launches", "cycle_s", "steps_s")}
+            for label, r in (("plane_on", on), ("plane_off", off))}
+        out["cluster"]["plane"] = {"counters": counters,
+                                   "board": st["board"], "ledger": ledger}
+        del runs, on, off
+        gc.collect()
+        mesh_plane.reset()
+        cfg.set_val("osd_mesh_data_plane", False)
+
+        # (b) the grid codec, the reduce-scatter forced on
+        cfg.set_val("osd_mesh_scatter", "on")
+        out["codec"] = _mesh_codec_step(seed, card)
+
+        # (c) the dry run's fast half on the card
+        buf = io.StringIO()
+        cuda_gf.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            entry.dryrun_multichip(MESH_SLOTS, fast=True)
+        torch.cuda.synchronize()
+        line = buf.getvalue().strip().splitlines()[-1]
+        assert line.startswith("dryrun_multichip ok (fast)") and \
+            "0 steady library builds" in line, line
+        assert cuda_gf.launches["gf2_matrix_w8"] > 0
+        print(f"[mesh] entry.dryrun_multichip({MESH_SLOTS}, fast=True): "
+              f"{line}; gf2_matrix_w8 launches "
+              f"{cuda_gf.launches['gf2_matrix_w8']}; card {card}",
+              flush=True)
+        out["dryrun"] = line
+        cfg.set_val("osd_mesh_scatter", prior[1])
+
+        # (d) a mesh_shard=2 pool, the plane off
+        out["mesh_shard_pool"] = _mesh_shard_pool(seed, card)
+    finally:
+        cfg.set_val("osd_mesh_data_plane", prior[0])
+        cfg.set_val("osd_mesh_scatter", prior[1])
+        mesh_plane.reset()
+        parallel.configure_devices(None)
+        gc.collect()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase {out['seconds']:.1f} s; card {card}", flush=True)
+    return out
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -2273,6 +2610,7 @@ def main(argv=None) -> int:
     family = phase_plugin_family(reg, args.seed, card)
     native = phase_native_tools(args.seed, card)
     durable = phase_durable(args.seed, card)
+    mesh = phase_mesh_plane(args.seed, card)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
     launched.update(phase_probes(card))
@@ -2288,6 +2626,7 @@ def main(argv=None) -> int:
     print(json.dumps({"native_tools": {
         key: val for key, val in native.items() if key != "sweep"}}))
     print(json.dumps({"durable_path": durable}))
+    print(json.dumps({"mesh_path": mesh}))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

@@ -11,13 +11,14 @@ attr holds a time, a nonce or a client id (``_version`` is the version
 counter and the primary's name, the same in both), so nothing is compared
 by type only.  The snapshot paths of ``pg.py`` are not driven here.
 
-The paths the port refuses (cls, mgr, the mesh plane) raise, naming the
-missing module and its ROADMAP.md queue item; the paths it has since
-ported -- the regenerating-repair lane, the mon quorum, OSD caps,
-replicated pools and the persistent object stores -- run here, and are
+The paths the port refuses (cls, mgr) raise, naming the missing module
+and its ROADMAP.md queue item; the paths it has since ported -- the
+regenerating-repair lane, the mon quorum, OSD caps, replicated pools, the
+persistent object stores and the mesh data plane -- run here, and are
 compared with the JAX package's in full in tests/test_torch_mon.py,
-tests/test_torch_replicated.py and tests/test_torch_objectstore.py.  The
-device tier is compared in tests/test_torch_tier.py.
+tests/test_torch_replicated.py, tests/test_torch_objectstore.py and
+tests/test_torch_mesh_plane.py.  The device tier is compared in
+tests/test_torch_tier.py.
 """
 
 import asyncio
@@ -601,14 +602,45 @@ def test_regen_lane_refuses_in_recovery_planning():
 
 
 def test_mesh_plane_is_off_and_its_option_undeclared():
+    """Lifted since the port has the mesh data plane: its four options
+    are declared as the JAX package declares them, the plane is off by
+    default (every backend single-device), and with the gate on every
+    OSD's backend takes the process plane, bound to a slot."""
+    from ceph_tpu.utils import config as j_config
+    from ceph_tpu_torch import parallel
+    from ceph_tpu_torch.parallel import mesh_plane
+
+    for name in ("osd_mesh_data_plane", "osd_mesh_devices",
+                 "osd_mesh_scatter", "osd_mesh_board_bytes"):
+        opt, ref = config.OPTIONS[name], j_config.OPTIONS[name]
+        assert (opt.type, opt.default, opt.level, opt.see_also) == \
+            (ref.type, ref.default, ref.level, ref.see_also), name
+    cfg = config.get_config()
+    assert cfg.get_val("osd_mesh_data_plane") is False
+
     async def main():
         c = _port_cluster()
         assert all(o.pools[c.pool]._mesh_plane() is None for o in c.osds)
         await c.shutdown()
+        cfg.set_val("osd_mesh_data_plane", True)
+        parallel.configure_devices(["cpu"] * 4)
+        try:
+            c = _port_cluster()
+            planes = {id(o.pools[c.pool]._mesh_plane()) for o in c.osds}
+            plane = mesh_plane.current_plane()
+            assert planes == {id(plane)}
+            assert plane.status()["members"] == {
+                f"osd.{i}": i for i in range(4)}
+            await c.write("o", b"m" * 5000)
+            assert await c.read("o") == b"m" * 5000
+            assert plane.counters["mesh_wire_bytes_avoided"] > 0
+            await c.shutdown()
+        finally:
+            cfg.set_val("osd_mesh_data_plane", False)
+            parallel.configure_devices(None)
+            mesh_plane.reset()
 
     _run(main())
-    with pytest.raises(KeyError):
-        config.get_config().get_val("osd_mesh_data_plane")
 
 
 @pytest.mark.parametrize("kind", ["filestore", "kstore", "blockstore",

@@ -10,7 +10,8 @@ device tier's bench and a writeback cluster's tier hit, the registry's
 example plugins, the repair-path bench's fractional rebuild of 4 objects,
 the kernel sweep and its two probe tools on the CPU, a mon-backed cluster
 on blockstore with a replicated pool beside its EC pool, its crash
-remount, each persistent engine's round trip and an OSD cap check).  The native host
+remount, each persistent engine's round trip, an OSD cap check and the
+entry twin's fast dry run over four CPU slots).  The native host
 libraries are held to the same rule: every source the port's build names
 lies in ``ceph_tpu_torch/native/``, no port module names a path under the
 JAX package, and every shared library a process of the port maps from
@@ -68,6 +69,10 @@ def test_port_files_import_no_jax_and_no_reference_package():
     assert {PORT / "utils" / "encoding.py", PORT / "utils" / "log.py",
             PORT / "compressor.py", PORT / "osd" / "replicated.py",
             PORT / "auth" / "caps.py"} <= set(files)
+    # and the mesh data plane with the entry twin
+    assert {"__init__.py", "distributed.py", "mesh_plane.py"} \
+        <= {p.name for p in files if p.parent == PORT / "parallel"}
+    assert PORT / "entry.py" in files
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -232,6 +237,14 @@ with tempfile.TemporaryDirectory() as tmp:
         loop = asyncio.new_event_loop()
         loop.run_until_complete(durable(f"{tmp}/cluster", write))
         loop.close()
+import contextlib, io
+from ceph_tpu_torch import entry, parallel
+parallel.configure_devices(["cpu"] * 4)
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    entry.dryrun_multichip(4, fast=True)
+assert buf.getvalue().startswith("dryrun_multichip ok (fast)")
+parallel.configure_devices(None)
 assert not any(m in ("jax", "tools", "experiments")
                or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
                for m, mod in sys.modules.items() if mod is not None)

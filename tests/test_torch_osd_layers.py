@@ -451,7 +451,12 @@ def test_config_declares_the_cluster_options_as_jax_does():
         opt, ref = config.OPTIONS[name], j_config.OPTIONS[name]
         assert (opt.type, opt.default, opt.level) == \
             (ref.type, ref.default, ref.level), name
-    assert "osd_mesh_data_plane" not in config.OPTIONS
+    # the mesh data plane's options, declared since the port has it
+    for name in ("osd_mesh_data_plane", "osd_mesh_devices",
+                 "osd_mesh_scatter", "osd_mesh_board_bytes"):
+        opt, ref = config.OPTIONS[name], j_config.OPTIONS[name]
+        assert (opt.type, opt.default, opt.level, opt.see_also) == \
+            (ref.type, ref.default, ref.level, ref.see_also), name
 
 
 def test_counters_and_config_are_each_packages_own():

@@ -169,8 +169,13 @@ def test_cuda_plugin_is_registered_and_checks_profiles():
     with pytest.raises(ErasureCodeError) as err:
         reg.factory("cuda", {"technique": "nope", "device": "cpu"})
     assert err.value.errno == -errno.ENOENT
+    # a mesh profile is taken (the grid codec, parallel/distributed.py);
+    # one whose k does not split over mesh_shard is EINVAL, as in the
+    # JAX tpu plugin
+    assert reg.factory("cuda", {"k": "4", "m": "2", "mesh_shard": "2",
+                                "device": "cpu"})._mesh_active()
     with pytest.raises(ErasureCodeError) as err:
-        reg.factory("cuda", {"k": "4", "m": "2", "mesh_shard": "2",
+        reg.factory("cuda", {"k": "3", "m": "2", "mesh_shard": "2",
                              "device": "cpu"})
     assert err.value.errno == -errno.EINVAL
     with pytest.raises(ErasureCodeError) as err:

@@ -318,21 +318,48 @@ def test_the_card_is_the_default_and_cpu_is_asked_for():
 
 
 def test_mesh_lane_is_refused_not_skipped(monkeypatch):
-    """A mesh plane would take the JAX package's in-collective lane: the
-    port refuses it (ROADMAP.md queue 1 item 7) instead of running the
-    single-device lane."""
-    module, item = unported.MISSING["mesh"]
-    monkeypatch.setattr(regen, "_mesh_plane", lambda: object())
-    mine, _ = _pair(4, 3)
-    stack = np.zeros((6, 8), np.uint8)
-    for call in (lambda: regen.compute_helpers(
-                     [1, 2, 3], [np.zeros(24, np.uint8)], device="cpu"),
-                 lambda: mine.regenerate_batch(0, [1, 2, 3, 4, 5, 6],
-                                               [stack])):
-        with pytest.raises(unported.NotPortedError) as exc:
-            call()
-        assert "mesh" in str(exc.value) and module in str(exc.value)
-        assert f"ROADMAP.md queue 1 item {item}" in str(exc.value)
+    """Lifted since the port has the mesh data plane: with a plane up,
+    the helper symbols and the regeneration run on the daemon's mesh slot
+    (the plane's slot-local dispatch, ``gf2_matrix_w8``'s plain twin on
+    CPU slots) and give the JAX package's mesh lane's bytes, and the
+    single-device lanes' -- nothing is refused or skipped."""
+    from ceph_tpu.parallel import mesh_plane as j_mesh_plane
+    from ceph_tpu_torch import parallel
+    from ceph_tpu_torch.parallel import mesh_plane
+
+    assert "mesh" not in unported.MISSING
+    mine, theirs = _pair(4, 3)
+    rng = np.random.RandomState(41)
+    shards = [rng.randint(0, 256, 3 * 2000, dtype=np.uint8)
+              for _ in range(3)]
+    stacks = [rng.randint(0, 256, (6, 2000), dtype=np.uint8)
+              for _ in range(2)]
+    helpers = [1, 2, 3, 4, 5, 6]
+    plain = (regen.compute_helpers([1, 2, 3], shards, device="cpu"),
+             mine.regenerate_batch(0, helpers, stacks))
+    parallel.configure_devices(["cpu"] * 4)
+    try:
+        plane = mesh_plane.configure(4)
+        jplane = j_mesh_plane.configure(4)
+        plane.bind("osd.0")
+        jplane.bind("osd.0")
+        monkeypatch.setattr(regen, "_mesh_plane", lambda: plane)
+        monkeypatch.setattr(j_regen, "_mesh_plane", lambda: jplane)
+        got = (regen.compute_helpers([1, 2, 3], shards, "osd.0",
+                                     device="cpu"),
+               mine.regenerate_batch(0, helpers, stacks))
+        want = (j_regen.compute_helpers([1, 2, 3], shards, "osd.0"),
+                theirs.regenerate_batch(0, helpers, stacks))
+        assert plane.counters["mesh_local_dispatches"] == 2
+        assert plane.counters == jplane.counters
+    finally:
+        parallel.configure_devices(None)
+        mesh_plane.reset()
+        j_mesh_plane.reset()
+    for a, b, c in zip(got, want, plain):
+        assert len(a) == len(b) == len(c)
+        for x, y, z in zip(a, b, c):
+            assert np.array_equal(x, y) and np.array_equal(x, z)
 
 
 # -- the cluster's regen lane -----------------------------------------------

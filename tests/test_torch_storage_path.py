@@ -189,17 +189,19 @@ def _keys(obj, prefix=""):
 def test_ec_benchmark_storage_path_profile_prints_reference_keys():
     argv = ["-w", "storage-path", "--objects", "6", "-s", "8192",
             "--writers", "3", "--profile", "-P", "k=4", "-P", "m=2"]
-    ours = _json_of(ec_benchmark.main, argv + ["-P", "device=cpu"])
-    # the JAX package's process ledger lists a mesh axis once any earlier
+    # each package's process ledger lists a mesh axis once any earlier
     # test in the process dispatched over its mesh plane, which this run
-    # does not use: run it on a ledger free of other tests' axes
-    ledger = j_residency.counters()
-    axes = dict(ledger.mesh_axes)
-    ledger.mesh_axes.clear()
+    # does not use: run both on ledgers free of other tests' axes
+    ledgers = (residency.counters(), j_residency.counters())
+    axes = [dict(ledger.mesh_axes) for ledger in ledgers]
+    for ledger in ledgers:
+        ledger.mesh_axes.clear()
     try:
+        ours = _json_of(ec_benchmark.main, argv + ["-P", "device=cpu"])
         theirs = _json_of(j_ec_benchmark.main, argv + ["-p", "tpu"])
     finally:
-        ledger.mesh_axes.update(axes)
+        for ledger, saved in zip(ledgers, axes):
+            ledger.mesh_axes.update(saved)
     # the one renamed gate: steady_jit_retraces -> steady_library_builds,
     # and jit_retraces -> library_builds in each ledger
     assert _keys(ours) == {k.replace("jit_retraces", "library_builds")
