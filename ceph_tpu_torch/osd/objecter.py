@@ -47,7 +47,6 @@ from ceph_tpu_torch.utils import trace
 _PS_SUBMIT = _profiler.stage("objecter.submit")
 from ceph_tpu_torch.utils.optracker import OpTracker
 from ceph_tpu_torch.utils.perf import PerfCounters
-from ceph_tpu_torch.utils.unported import refuse
 
 #: error type names coming back over the wire -> local exception classes
 _EXCEPTIONS = {
@@ -652,9 +651,10 @@ class Objecter:
         return ok, cur
 
     async def exec(self, oid: str, cls: str, method: str, inp: bytes = b""):
-        """Object class call.  The port has no object classes yet: this
-        raises before anything is sent."""
-        refuse(f"exec {cls}.{method}", "cls")
+        ret, out = await self._submit(
+            "exec", oid, cls=cls, method=method, inp=bytes(inp)
+        )
+        return ret, out
 
     async def watch(self, oid: str, callback) -> None:
         # callbacks key on the namespaced oid (notify events carry the

@@ -53,7 +53,6 @@ from ceph_tpu_torch.osd.types import (
 )
 from ceph_tpu_torch.utils import trace
 from ceph_tpu_torch.utils.perf import PerfCounters, stage_histogram
-from ceph_tpu_torch.utils.unported import refuse
 
 SIZE_KEY = "_size"
 #: per-shard object version xattr (the object_info_t version role): every
@@ -1260,9 +1259,10 @@ class PG:
         The reference dlopens cls plugins on the OSD (ClassHandler); our
         primary engine hosts the class registry and methods run against
         this backend's object surface, with omap_cas as the atomicity
-        primitive where a method needs read-modify-write.  The port has
-        no object classes yet: this raises."""
-        refuse(f"exec {cls}.{method}", "cls")
+        primitive where a method needs read-modify-write."""
+        from ceph_tpu_torch.cls import call_method
+
+        return await call_method(self, oid, cls, method, inp)
 
     # -- snapshots (SnapMapper / make_writeable roles) ---------------------
 

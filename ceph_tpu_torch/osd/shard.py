@@ -44,7 +44,6 @@ from ceph_tpu_torch.native.gf_native import crc32c
 from ceph_tpu_torch.profiling import ledger as _profiler
 from ceph_tpu_torch.utils import trace
 from ceph_tpu_torch.utils.perf import PerfCounters, stage_histogram
-from ceph_tpu_torch.utils.unported import refuse
 
 #: wire-tax cost centers for the OSD execution seam (fetched once; a
 #: global-bool branch when profiling is off).  ``osd.op_exec`` bills the
@@ -559,10 +558,51 @@ class OSDShard:
         Everything here is O(counters): store totals are maintained
         incrementally by the object stores, per-PG degraded/misplaced
         counts by the pg_stats seams -- building a report NEVER walks
-        the object store (the regression tests/test_telemetry.py pins).
-        The port has no mgr module yet: this raises.
+        the object store (tests/test_torch_mgr.py pins it with a store
+        whose listing raises).
+
+        The ``residency`` slice is the port's transfer ledger, which
+        counts ``library_builds`` where the JAX package's counts
+        ``jit_retraces``.  It is read without a guard: the ledger is a
+        port module, and a failed read must show, not vanish from the
+        report.
         """
-        refuse("OSDShard.mgr_report_stats", "mgr")
+        from ceph_tpu_torch import profiling
+        from ceph_tpu_torch.analysis import residency
+        from ceph_tpu_torch.mgr.report import (REPORT_SCHEMA_VERSION,
+                                               filter_counters)
+        from ceph_tpu_torch.utils.perf import histogram_marginals
+
+        tier = self.tier.status()
+        stats = {
+            "v": REPORT_SCHEMA_VERSION,
+            "kind": "osd",
+            "boot_id": self.boot_id,
+            "store": dict(self.store.stats()),
+            "perf": filter_counters(self.perf.snapshot()),
+            "pgs": {
+                pool: backend.pg_stats.pg_stat()
+                for pool, backend in self.pools.items()
+            },
+            "ops_in_flight": self.optracker.num_inflight(),
+            # scalar tier residency only (the full per-object listing
+            # stays an admin-socket affair)
+            "tier": {key: tier[key] for key in
+                     ("resident_bytes", "budget", "entries", "dirty",
+                      "hit", "miss")},
+            "hist": histogram_marginals(f"osd.{self.osd_id}."),
+            # residency-ledger counters ride along; co-located daemons
+            # share one process ledger, so the mgr labels but does not
+            # sum these across daemons of one process
+            "residency": dict(residency.counters().snapshot()),
+        }
+        # stage-profiler slice: per-stage ns + loop/GC scalars; None
+        # (omitted) when profile_mode is off.  Same one-ledger-per-process
+        # caveat as residency.
+        prof_slice = profiling.report_slice()
+        if prof_slice is not None:
+            stats["profile"] = prof_slice
+        return stats
 
     def _op_cost(self, msg) -> int:
         if isinstance(msg, ECSubWrite):

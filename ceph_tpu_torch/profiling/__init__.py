@@ -1,9 +1,10 @@
 """Wire-tax profiler: hot-path cost attribution for the Python wire loop.
 
-Port of ``ceph_tpu/profiling`` (its ledger and loop/GC arm; the
-reference's stack sampler, its ``full`` mode and its admin-socket and
-exposition views wait for a port path that uses them, and the wire-tax
-benchmark for the port's wire path).  The port keeps its
+Port of ``ceph_tpu/profiling`` (its ledger and loop/GC arm, and the
+mgr's two views of them, :func:`report_slice` and
+:func:`prometheus_text`; the reference's stack sampler, its ``full`` mode
+and its admin-socket views wait for a port path that uses them, and the
+wire-tax benchmark for the port's wire path).  The port keeps its
 own module state, so a process that imports both packages does not
 cross-feed them; its stage markers are the Python ones (the reference
 swaps in C markers from its native wire codec, which the port has not).
@@ -150,3 +151,50 @@ def decomposition(wall_ns: int) -> dict:
         if wall_ns else 0.0,
         "rows": rows,
     }
+
+
+def report_slice() -> Optional[dict]:
+    """The compact MgrReport payload slice (None when off): per-stage
+    ns + the loop/GC scalars -- what the mgr renders as
+    ``ceph_profile_stage_seconds_total{stage}``."""
+    if _mode == "off":
+        return None
+    out = {"stages": {name: s["ns"]
+                      for name, s in _ledger.stages_snapshot().items()}}
+    mon = _loopmon.active()
+    if mon is not None:
+        out["gc_ns"] = mon.gc_ns
+        out["callback_ns"] = mon.callback_ns
+        out["lag_ms"] = round(mon.lag_ms, 3)
+    return out
+
+
+def prometheus_text() -> str:
+    """In-process exposition: cumulative per-stage seconds (the
+    wire-fed twin renders the same family from report frames in
+    mgr/pgmap.py)."""
+    if _mode == "off":
+        return ""
+    lines = [
+        "# HELP ceph_profile_stage_seconds_total exclusive seconds "
+        "per wire-tax profiler stage (ceph_tpu_torch/profiling/)",
+        "# TYPE ceph_profile_stage_seconds_total counter",
+    ]
+    for name, s in _ledger.stages_snapshot().items():
+        lines.append(
+            f'ceph_profile_stage_seconds_total{{stage="{name}"}} '
+            f"{s['ns'] / 1e9:.6f}")
+    mon = _loopmon.active()
+    if mon is not None:
+        lines += [
+            "# HELP ceph_profile_gc_seconds_total GC pause seconds "
+            "(gc.callbacks accounting)",
+            "# TYPE ceph_profile_gc_seconds_total counter",
+            f"ceph_profile_gc_seconds_total {mon.gc_ns / 1e9:.6f}",
+            "# HELP ceph_profile_callback_seconds_total seconds inside "
+            "asyncio callbacks (the event-loop arm)",
+            "# TYPE ceph_profile_callback_seconds_total counter",
+            f"ceph_profile_callback_seconds_total "
+            f"{mon.callback_ns / 1e9:.6f}",
+        ]
+    return "\n".join(lines)

@@ -7,8 +7,9 @@ cache pool overlaying an HDD base pool, hot objects' ENCODED shards
 stay resident in device memory and reads decode without the H2D ingest
 step.  ``device_tier`` holds the byte-budgeted store and the
 process-wide device ledger; ``agent`` is the promote/flush/evict loop.
-The mon's ``osd tier`` commands and the mgr's tier gauges need modules
-the port has not copied (``utils/unported.py``).
+The mon's ``osd tier`` commands (``mon/monitor.py``) set a pool's cache
+mode and report the budget; the mgr exports each OSD's resident bytes
+and budget as gauges (``mgr/mgr.py``).
 """
 
 from ceph_tpu_torch.tier.device_tier import (  # noqa: F401

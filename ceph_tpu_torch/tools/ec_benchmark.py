@@ -2,7 +2,8 @@
 """ceph_erasure_code_benchmark-compatible CLI for the port's plugins.
 
 Port of the ``encode``, ``decode``, ``storage-path``, ``recovery-path``,
-``repair-path`` and ``tier-path`` workloads of ``tools/ec_benchmark.py``
+``repair-path``, ``tier-path`` and ``elastic-path`` workloads of
+``tools/ec_benchmark.py``
 (reference: src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137 setup,
 :150-188 encode, :253-327 decode): encode and decode print
 ``<elapsed_seconds>\\t<KiB>`` where KiB = iterations * size / 1024 (times
@@ -28,6 +29,16 @@ its profile is fixed the same way, and it prints one JSON line.
 resident block against cold reads that decode with ``--erasures`` data
 shards withheld, best of ``--iterations``, bit-exactness gated before
 timing) and prints its result as one JSON line.
+``elastic-path`` runs ``osd/elastic_bench.py`` (a mon-backed 10-OSD pool,
+k=2 m=1 on the ``cuda`` plugin: a +2-OSD expansion under 24 clients, then
+a backfill target killed mid-migration, a live primary removed and an
+add-then-remove flap, every step committed through the mons' paxos; 72 +
+16 objects of 12 KiB, or 24 + 8 of 4 KiB with ``--smoke``); its profile
+is fixed like recovery-path's, its gates (moved bytes <= 1.25x the
+theoretical minimum, <= 2 misplaced upticks, client p99 <= 2000 ms,
+HEALTH_OK from the mgr's fold after each stage, bit-exact reads and an
+exactly-once audit) raise before anything is printed, and it prints one
+JSON line and a summary on stderr.
 
 Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark -p cuda -w encode \\
@@ -42,6 +53,7 @@ Examples:
         --objects 32 -s 4194304
     python -m ceph_tpu_torch.tools.ec_benchmark -w tier-path \\
         --objects 64 -s 4194304 -i 2 -e 2 -P k=8 -P m=4
+    python -m ceph_tpu_torch.tools.ec_benchmark -w elastic-path
 
 The default plugin is ``cuda``, which runs on the card and raises where
 there is none; ``-P device=cpu`` runs it on the CPU, and ``-p jerasure``
@@ -72,7 +84,8 @@ def parse_args(argv):
                         "card)")
     p.add_argument("-w", "--workload", default="encode",
                    choices=["encode", "decode", "storage-path",
-                            "recovery-path", "repair-path", "tier-path"])
+                            "recovery-path", "repair-path", "tier-path",
+                            "elastic-path"])
     p.add_argument("-e", "--erasures", type=int, default=1,
                    help="number of erasures when decoding")
     p.add_argument("--erased", type=int, action="append", default=[],
@@ -98,8 +111,9 @@ def parse_args(argv):
                         "instead of the full result.  Exits nonzero on any "
                         "steady-state library build (the harness gate)")
     p.add_argument("--smoke", action="store_true",
-                   help="repair-path only: the tiny CI shape (8 OSDs, "
-                        "8 objects of 6 KiB)")
+                   help="repair-path and elastic-path only: the tiny CI "
+                        "shape (repair: 8 OSDs, 8 objects of 6 KiB; "
+                        "elastic: 24 + 8 objects of 4 KiB, 8 clients)")
     p.add_argument("--payload", default="X", choices=["X", "random"],
                    help="payload contents: 'X' matches the reference tool "
                         "(ceph_erasure_code_benchmark.cc:173); 'random' "
@@ -163,6 +177,8 @@ def main(argv=None) -> int:
         return _recovery_path(args, profile)
     if args.workload == "repair-path":
         return _repair_path(args, profile)
+    if args.workload == "elastic-path":
+        return _elastic_path(args, profile)
 
     k = int(profile.get("k", "0"))
     m = int(profile.get("m", "0"))
@@ -383,6 +399,38 @@ def _repair_path(args, overlay) -> int:
         f"{result['bytes_saved']} repair bytes saved, "
         f"{result['fractional']['counters']['regen_helpers_served']}"
         " helper symbols served",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _elastic_path(args, overlay) -> int:
+    """Elastic membership: a +2-OSD online expansion under client load
+    (moved bytes <= 1.25x the theoretical minimum, misplaced peak then
+    a monotone drain, HEALTH_OK, bounded client p99), then three chaos
+    arms on the same cluster: the backfill target killed mid-migration,
+    a live primary removed under load, and an add-then-remove flap.
+    Bit-exact reads and an exactly-once write audit gate every stage
+    before any number is printed."""
+    from ceph_tpu_torch.osd.elastic_bench import (PROFILE,
+                                                  run_elastic_path_bench)
+
+    result = run_elastic_path_bench(smoke=args.smoke,
+                                    profile=dict(PROFILE, **overlay))
+    print(json.dumps(result))
+    print(
+        f"elastic-path {result['n_osds']}osd "
+        f"{result['n_objects']}x{result['obj_bytes']}B "
+        f"{result['n_clients']}cl: moved ratio "
+        f"{result['data_moved_ratio']} (gate 1.25), "
+        f"time-to-clean {result['time_to_clean_s']}s, "
+        f"client p99 {result['client_p99_during_expansion_ms']}ms, "
+        f"misplaced peak {result['misplaced_peak']} "
+        f"({result['misplaced_upticks']} upticks), chaos "
+        f"kill/rm/flap rounds "
+        f"{result['chaos']['target_kill']['rounds']}/"
+        f"{result['chaos']['primary_rm']['rounds']}/"
+        f"{result['chaos']['flap']['rounds']}",
         file=sys.stderr,
     )
     return 0

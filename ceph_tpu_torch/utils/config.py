@@ -237,6 +237,47 @@ OPTIONS: Dict[str, Option] = {
         _opt("mon_mgr_beacon_grace", float, 30.0, LEVEL_ADVANCED,
              "seconds of mgr-beacon silence before a standby's beacon "
              "triggers failover (reference mon_mgr_beacon_grace)"),
+        _opt("mgr_modules", str, "status prometheus", LEVEL_BASIC,
+             "mgr modules loaded at start: bare names resolve under "
+             "ceph_tpu_torch.mgr.mgr_modules, dotted paths import "
+             "third-party modules (reference: mgr_initial_modules)"),
+        _opt("mgr_beacon_interval", float, 0.25, LEVEL_ADVANCED,
+             "seconds between daemon->mgr liveness beacons (the "
+             "MgrClient beacon cadence; reference mgr_tick_period, "
+             "shrunk to the mini-cluster time scale)",
+             see_also=("mgr_daemon_beacon_grace",)),
+        _opt("mgr_report_interval", float, 1.0, LEVEL_ADVANCED,
+             "seconds between daemon->mgr MgrReport frames (per-PG "
+             "stats, perf-counter slice, histogram marginals -- the "
+             "mgr_stats_period role); consecutive reports feed the "
+             "PGMap rate engine, so shrinking this sharpens the io "
+             "rates at the cost of frame traffic"),
+        _opt("mgr_daemon_beacon_grace", float, 2.0, LEVEL_ADVANCED,
+             "seconds of beacon silence before the mgr's wire-fed map "
+             "marks a daemon down (OSD_DOWN / MON_DOWN from staleness "
+             "-- the mon_osd_report_timeout role, shrunk to the "
+             "mini-cluster time scale)",
+             see_also=("mgr_beacon_interval",)),
+        _opt("mgr_pg_stale_grace", float, 4.0, LEVEL_ADVANCED,
+             "seconds without a fresh per-PG report before the PGMap "
+             "flags PG_STALE for that (pool, primary) slice (the "
+             "reference's stale-PG detection via pg stats epochs)",
+             see_also=("mgr_report_interval",)),
+        _opt("mgr_lag_warn_ms", float, 250.0, LEVEL_ADVANCED,
+             "event-loop lag (sampled sleep-drift EWMA, shipped in "
+             "beacons/reports) at or above which a daemon counts "
+             "toward the DAEMON_LAG health check",
+             see_also=("mgr_lag_sustain",)),
+        _opt("mgr_lag_sustain", int, 3, LEVEL_ADVANCED,
+             "consecutive over-threshold beacons/reports before "
+             "DAEMON_LAG fires (one GC pause must not page an "
+             "operator; a saturated wire loop should)",
+             see_also=("mgr_lag_warn_ms",)),
+        _opt("osd_pool_default_erasure_code_profile", str,
+             "plugin=cuda technique=reed_sol_van k=2 m=1",
+             LEVEL_ADVANCED, "default EC profile for new pools (the JAX "
+             "package's names plugin=jerasure, on the host; the port's "
+             "runs on the card, with the same bytes)"),
         _opt("mon_osd_min_down_reporters", int, 2, LEVEL_ADVANCED,
              "distinct OSD failure reporters required before the mon "
              "marks the target down (reference "

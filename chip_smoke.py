@@ -181,6 +181,41 @@ Phases (any failure raises and exits non-zero):
    k=4 m=2, 8 OSDs, 16 x 4 MiB through the storage cycle, every shard
    against numpy.  It prints the GiB/s, time to clean, the plane's
    counters, ledger and board, and the launches per step.
+3i. The control plane, reed_sol_van k=8 m=4 w=8 on the ``cuda`` plugin,
+   16 OSDs, objects of 4 MiB (RBD's object size).  (a) Object classes
+   through librados: ``Rados(16)`` and ``pool_create`` with that profile,
+   64 objects by ``IoCtx.write_full``, an ``rbd`` header lifecycle on
+   ``rbd_header.img`` (create, set_size, snap_add, snap_protect,
+   add_child, set_features, metadata_set / get, a refused unprotect), a
+   ``lock`` contended between two ``IoCtx``s, ``version`` inc / check, a
+   class method registered here that moves 4 objects through the codec
+   (``ClsContext.read`` and ``write_full``), then the header's primary
+   OSD killed: ``exec`` and the omap still answer and every object reads
+   back exact; every stored shard against the numpy ``jerasure`` encode
+   and its crc.  It prints the ``exec`` p50 and p99.  (b) The manager: a
+   ``MgrDaemon`` over a cycle of 64 x 4 MiB writes, an OSD killed, a
+   quarter overwritten and everything read degraded, revive and
+   recovery; ``/health``, ``/status`` and ``/metrics`` scraped over
+   HTTP (127.0.0.1, port 0) before the kill, while the OSD is down,
+   after recovery and after the balancer: HEALTH_OK, HEALTH_WARN
+   (OSD_DOWN, PG_DEGRADED), HEALTH_OK, HEALTH_OK, with
+   ``ceph_transfer_bytes_total{direction="h2d"}`` equal to the residency
+   ledger's ``h2d_bytes`` at the scrape (the tick loops stopped, so it
+   holds still) and every OSD's ``mgr_report_stats`` folded into a
+   ``PGMap`` whose health equals ``health_checks``; the balancer's
+   ``optimize`` reweights CRUSH and the cluster goes clean again; every
+   read exact and every stored shard against numpy.  It prints the scrape
+   ms.  (c) ``run_elastic_path_bench()`` at its full shape and gates (10
+   OSDs, 3 mons, k=2 m=1, 72 + 16 objects of 12 KiB, 24 clients), then
+   its ``_run`` at 16 + 8 objects of 4 MiB and 8 clients under the same
+   gates, each with 0 steady library builds.  (d) ``run_failover_bench()``
+   at its defaults and at 16 x 4 MiB.  Before each bench's cluster shuts
+   down it recovers until clean, and every object's stored shards are
+   held against the numpy ``jerasure`` encode of what it reads back
+   (without crcs in (b), (c) and (d): (a) and phase 3c check them).
+   ``gf2_matrix_w8``'s launches are
+   zeroed before and read after every step and must rise in each step
+   that encodes or decodes; the phase prints their sum.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased), one of ``-w storage-path --profile`` at the flagship profile
    (64 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
@@ -282,6 +317,7 @@ from ceph_tpu_torch.tools import (ec_bench_sweep, ec_benchmark, ec_info,
                                   ec_kernel_sweep, ec_non_regression,
                                   kernel_r4_probe, kernel_r4_split)
 from ceph_tpu_torch.utils.config import get_config
+from ceph_tpu_torch.utils.encoding import Decoder, Encoder
 from ceph_tpu_torch.utils.perf import PerfCounters
 
 #: H100 SXM published memory rate (NVIDIA data sheet) at the 700 W limit
@@ -419,6 +455,18 @@ MESH_SHARD_PROFILE = {"technique": "reed_sol_van", "k": "4", "m": "2",
                       "mesh_shard": "2"}
 MESH_SHARD_OSDS = 8
 MESH_SHARD_OBJECTS = 16
+#: the control plane (phase 3i): OSDs, objects of RBD's object size, the
+#: deadline of a wait for clean, the elastic bench's second run (phase
+#: 3c's client count at RBD's object size; 16 + 8 objects, cut from 32 +
+#: 8, which took 52.8 s of a 103.8 s phase on the H100) and the failover
+#: bench's second run
+CONTROL_OSDS = 16
+CONTROL_OBJECTS = 64
+CONTROL_DEADLINE_S = 120.0
+ELASTIC_4M = {"n_objects": 16, "obj_bytes": OBJECT, "n_hot": 8,
+              "n_clients": WRITERS, "moved_ratio_bound": 1.25,
+              "uptick_bound": 2, "client_p99_bound_ms": 2000.0, "seed": 99}
+FAILOVER_4M = {"n_objects": 16, "obj_bytes": OBJECT}
 #: the repair path (phase 4): objects of RBD's default size on 8 OSDs,
 #: with a recovery batch budget that gives each object of a full batch
 #: (32) its k whole 1 MiB chunks: at the default 8 MiB a 4 MiB object's
@@ -2475,6 +2523,491 @@ def phase_mesh_plane(seed: int, card: str) -> dict:
     return out
 
 
+def _w8_launches() -> int:
+    torch.cuda.synchronize()
+    return cuda_gf.launches["gf2_matrix_w8"]
+
+
+def _register_smoke_class() -> None:
+    """A class method that moves a whole object through the codec:
+    ``ClsContext.read`` (a decode where a data shard is missing) and
+    ``write_full`` of its bytes XORed with the input byte (an encode); it
+    answers the object's size."""
+    from ceph_tpu_torch import cls
+
+    async def rewrite(ctx, inp):
+        data = np.frombuffer(await ctx.read(), np.uint8)
+        await ctx.write_full((data ^ np.uint8(inp[0])).tobytes())
+        return 0, Encoder().value(await ctx.stat()).bytes()
+
+    cls.register("smoke", "rewrite")(rewrite)
+
+
+def _control_classes(seed: int, ref, card: str) -> dict:
+    """Object classes through librados (docstring, phase 3i a)."""
+    from ceph_tpu_torch.client import Rados
+
+    _register_smoke_class()
+    payloads = cluster_bench.make_payloads(CONTROL_OBJECTS, OBJECT, seed + 31)
+    launches, steps_s, exec_s = {}, {}, []
+    rados = Rados(CONTROL_OSDS)
+    io = rados.pool_create(
+        "rbd", dict(_profile({"technique": "reed_sol_van"}), plugin="cuda"))
+    io2 = rados.open_ioctx("rbd")
+    cluster = io._cluster
+
+    def run(step, fn):
+        cuda_gf.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        steps_s[step] = time.perf_counter() - t0
+        launches[step] = _w8_launches()
+        return out
+
+    def ex(ioctx, oid, c, method, req=None):
+        """One timed exec: ``req`` bytes as they are, a value encoded;
+        the output decoded."""
+        if req is None or isinstance(req, bytes):
+            inp = req or b""
+        else:
+            inp = Encoder().value(req).bytes()
+        t0 = time.perf_counter()
+        rc, out = ioctx.exec(oid, c, method, inp)
+        exec_s.append(time.perf_counter() - t0)
+        return rc, (Decoder(out).value() if out else None)
+
+    def write():
+        for oid, data in payloads.items():
+            io.write_full(oid, data)
+
+    hdr = "rbd_header.img"
+
+    def header():
+        rcs = [ex(io, hdr, "rbd", "create",
+                  {"size": 1 << 30, "order": 22, "features": ["layering"]}),
+               ex(io, hdr, "rbd", "set_size", {"size": 2 << 30}),
+               ex(io, hdr, "rbd", "snap_add", {"name": "s1"}),
+               ex(io, hdr, "rbd", "snap_protect", {"name": "s1"}),
+               ex(io, hdr, "rbd", "add_child",
+                  {"snap_id": 1, "child": "clone1"}),
+               ex(io, hdr, "rbd", "set_features", {"enable": ["journaling"]}),
+               ex(io, hdr, "rbd", "metadata_set",
+                  {"conf_rbd_cache": b"false"}),
+               ex(io, hdr, "rbd", "snap_unprotect", {"name": "s1"})]
+        assert [rc for rc, _ in rcs] == [0] * 7 + [-16], rcs
+        rc, md = ex(io, hdr, "rbd", "get_metadata")
+        assert rc == 0 and md["size"] == 2 << 30 and md["snap_seq"] == 1 \
+            and md["snaps"]["s1"]["protected"] and \
+            md["features"] == ["journaling", "layering"], md
+        assert io.exec(hdr, "rbd", "metadata_get", Encoder().value(
+            {"key": "conf_rbd_cache"}).bytes()) == (0, b"false")
+        return md
+
+    def locks():
+        assert io.lock_exclusive(hdr, "lock", "client.a") == 0
+        assert io2.lock_exclusive(hdr, "lock", "client.b") == -16
+        rc, info = ex(io2, hdr, "lock", "get_info", {"name": "lock"})
+        assert (rc, info["lockers"]) == (0, ["client.a"]), info
+        assert io.unlock(hdr, "lock", "client.a") == 0
+        assert io2.lock_exclusive(hdr, "lock", "client.b") == 0
+        assert ex(io, hdr, "version", "inc") == (0, 1)
+        assert ex(io2, hdr, "version", "inc") == (0, 2)
+        assert ex(io, hdr, "version", "check", {"ver": 2})[0] == 0
+        assert ex(io, hdr, "version", "check", {"ver": 1})[0] == -125
+
+    def rewrite():
+        for oid in list(payloads)[:4]:
+            rc, size = ex(io, oid, "smoke", "rewrite", b"\x5a")
+            assert (rc, size) == (0, OBJECT), (rc, size)
+            payloads[oid] = (np.frombuffer(payloads[oid], np.uint8)
+                             ^ np.uint8(0x5A)).tobytes()
+            assert io.read(oid) == payloads[oid], oid
+
+    victim = cluster.backend.acting_set(hdr)[0]
+
+    def degraded():
+        cluster.kill_osd(victim)
+        rc, md = ex(io2, hdr, "rbd", "get_metadata")
+        assert rc == 0 and md["size"] == 2 << 30, md
+        rc, info = ex(io, hdr, "lock", "get_info", {"name": "lock"})
+        assert info["lockers"] == ["client.b"], info
+        assert ex(io, hdr, "version", "inc") == (0, 3)
+        assert io.omap_get(hdr, ["order"]) == {
+            "order": Encoder().value(22).bytes()}
+        for oid, data in payloads.items():
+            assert io.read(oid) == data, f"control path: degraded read " \
+                f"of {oid} differs"
+
+    try:
+        run("write", write)
+        run("rbd_header", header)
+        run("lock_version", locks)
+        run("cls_rewrite", rewrite)
+        run("degraded", degraded)
+        cluster.revive_osd(victim)
+        t0 = time.perf_counter()
+        check = _cluster_check(cluster, ref, payloads)
+        check_s = time.perf_counter() - t0
+    finally:
+        rados.shutdown()
+    assert launches["write"] > 0 and launches["cls_rewrite"] > 0 and \
+        launches["degraded"] > 0, launches
+    lat = sorted(exec_s)
+    out = {"write_GiBs": CONTROL_OBJECTS * OBJECT / 2**30 / steps_s["write"],
+           "exec_p50_ms": cluster_bench.percentile(lat, 0.50) * 1e3,
+           "exec_p99_ms": cluster_bench.percentile(lat, 0.99) * 1e3,
+           "execs": len(lat), "victim": victim, "steps_s": steps_s,
+           "launches": launches}
+    print(f"[control] (a) classes: Rados({CONTROL_OSDS}) pool rbd, "
+          f"{CONTROL_OBJECTS} x {OBJECT} B by IoCtx.write_full at "
+          f"{out['write_GiBs']:.4f} GiB/s; rbd header, locks between two "
+          f"IoCtxs, version inc / check, smoke.rewrite of 4 objects "
+          f"through ClsContext.read / write_full; osd.{victim} (the "
+          f"header's primary) down: exec and omap answer, {CONTROL_OBJECTS}"
+          f" degraded reads exact; exec p50 {out['exec_p50_ms']:.3f} ms, "
+          f"p99 {out['exec_p99_ms']:.3f} ms over {len(lat)} execs; {check} "
+          f"({check_s:.1f} s); gf2_matrix_w8 launches per step "
+          f"{json.dumps(launches)}; steps {json.dumps(steps_s)}; card {card}",
+          flush=True)
+    return out
+
+
+async def _http_get(port: int, path: str):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\n\r\n".encode())
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    head, _, body = data.partition(b"\r\n\r\n")
+    return head.decode().split("\r\n")[0], body.decode()
+
+
+def _misplaced(cluster) -> int:
+    return sum(len(b.pg_stats.misplaced) for o in cluster.osds
+               for b in o.pools.values())
+
+
+def _control_mgr(seed: int, ref, card: str) -> dict:
+    """The manager over a cluster cycle (docstring, phase 3i b)."""
+    from ceph_tpu_torch.mgr import (ClusterState, MgrDaemon, PGMap,
+                                    PyModuleRegistry, health_checks)
+    from ceph_tpu_torch.mgr.report import MgrReport
+
+    payloads = cluster_bench.make_payloads(CONTROL_OBJECTS, OBJECT, seed + 41)
+    overwrites = cluster_bench.make_overwrites(payloads, CLUSTER_OVERWRITE,
+                                               seed + 42)
+    final = dict(payloads, **overwrites)
+    launches, steps_s, scrapes = {}, {}, {}
+
+    async def main():
+        cluster = ECCluster(CONTROL_OSDS,
+                            _profile({"technique": "reed_sol_van"}),
+                            plugin="cuda")
+        daemon = MgrDaemon(cluster)
+        port = await daemon.start()
+        now = [1000.0]
+        pgmap = PGMap(expected=[o.name for o in cluster.osds],
+                      clock=lambda: now[0])
+
+        async def step(name, coro_fn):
+            cuda_gf.reset_launches()
+            t0 = time.perf_counter()
+            out = await coro_fn()
+            steps_s[name] = time.perf_counter() - t0
+            launches[name] = _w8_launches()
+            return out
+
+        async def scrape(label, want_status, want_checks):
+            before = residency.counters().snapshot()
+            t0 = time.perf_counter()
+            got = {path: await _http_get(port, path)
+                   for path in ("/health", "/status", "/metrics")}
+            ms = (time.perf_counter() - t0) * 1e3
+            after = residency.counters().snapshot()
+            assert before == after, (before, after)
+            for path, (head, _) in got.items():
+                assert head == "HTTP/1.1 200 OK", (path, head)
+            health = json.loads(got["/health"][1])
+            status = json.loads(got["/status"][1])
+            metrics = got["/metrics"][1]
+            assert health["status"] == want_status and \
+                set(health["checks"]) == want_checks, (label, health)
+            h2d = f'ceph_transfer_bytes_total{{direction="h2d"}} ' \
+                f'{after["h2d_bytes"]}'
+            assert h2d in metrics, (label, h2d)
+            for family in ("ceph_library_builds_total",
+                           "ceph_transfer_ops_total",
+                           "ceph_trace_spans_finished",
+                           "ceph_osd_tier_resident_bytes"):
+                assert f"# TYPE {family} " in metrics, (label, family)
+            # every OSD's report folded into the wire-fed map, whose
+            # health is the in-process checks' (a virtual clock past the
+            # beacon grace between scrapes: a silent daemon is down)
+            now[0] += 3.0
+            for osd in cluster.osds:
+                if not cluster.messenger.is_down(osd.name):
+                    pgmap.apply(MgrReport(osd.name, int(now[0]), 1.0,
+                                          osd.mgr_report_stats(), 0.0))
+            folded = pgmap.health()
+            state = health_checks(ClusterState(cluster).dump())
+            assert folded["status"] == state["status"] == want_status and \
+                set(folded["checks"]) == set(state["checks"]), \
+                (label, folded, state)
+            scrapes[label] = {"ms": ms, "status": health["status"],
+                              "checks": sorted(health["checks"]),
+                              "h2d_bytes": after["h2d_bytes"],
+                              "osds_up": status["osdmap"]["num_up_osds"],
+                              "metrics_lines": len(metrics.splitlines())}
+
+        async def write(oid, data):
+            await cluster.write(oid, data)
+
+        async def read(oid, want):
+            assert await cluster.read(oid) == want, \
+                f"control path: read of {oid} differs"
+
+        async def settle(what):
+            """Tick until the stores are clean, nothing is misplaced and
+            the mgr's checks (fed by each primary's incremental PG stats,
+            which a peering pass's epilogue clears after the stores are
+            whole) say HEALTH_OK; then stop the tick loops, so the
+            ledger holds still while a scrape renders it."""
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + CONTROL_DEADLINE_S
+            while _misplaced(cluster) or await cluster.degraded_report() \
+                    or health_checks(ClusterState(cluster).dump())[
+                        "status"] != "HEALTH_OK":
+                assert loop.time() < deadline, \
+                    f"control path: not clean after {what}"
+                await asyncio.sleep(0.05)
+            durable_bench.stop_auto_recovery(cluster)
+
+        try:
+            await step("write", lambda: cluster_bench.client_ops(
+                payloads.items(), write, WRITERS))
+            await scrape("before_kill", "HEALTH_OK", set())
+            victim = cluster.backend.acting_set("obj0")[0]
+            cluster.kill_osd(victim)
+            await step("degraded_write", lambda: cluster_bench.client_ops(
+                overwrites.items(), write, WRITERS))
+            await step("degraded_read", lambda: cluster_bench.client_ops(
+                final.items(), read, WRITERS))
+            await scrape("osd_down", "HEALTH_WARN",
+                         {"OSD_DOWN", "PG_DEGRADED"})
+            await step("recovery", lambda: cluster_bench.recover_until_clean(
+                cluster, victim, 0.05, CONTROL_DEADLINE_S, "control path"))
+            await step("settle", lambda: settle("the recovery"))
+            await scrape("recovered", "HEALTH_OK", set())
+            host = PyModuleRegistry(cluster, modules=["balancer"])
+            rc, before, _ = host.handle_command({"prefix": "balancer eval"})
+            weights0 = list(cluster.placement.weights)
+
+            async def balance():
+                rc, out, err = host.handle_command(
+                    {"prefix": "balancer optimize"})
+                assert rc == 0, (rc, out, err)
+                # the OSDs' tick loops peer onto the new weights
+                cluster.start_auto_recovery(interval=0.05)
+                await settle("the balancer")
+                return out
+
+            optimized = await step("balancer", balance)
+            weights = list(cluster.placement.weights)
+            await step("read", lambda: cluster_bench.client_ops(
+                final.items(), read, WRITERS))
+            await scrape("balanced", "HEALTH_OK", set())
+            rc, after, _ = host.handle_command({"prefix": "balancer eval"})
+            await host.stop()
+        finally:
+            await daemon.stop()
+            await cluster.shutdown()
+        return cluster, victim, optimized, weights0, weights, before, after
+
+    PerfCounters.reset_all()
+    loop = asyncio.new_event_loop()
+    try:
+        cluster, victim, optimized, w0, w1, ev0, ev1 = \
+            loop.run_until_complete(main())
+    finally:
+        loop.close()
+    assert optimized.startswith("reweighted") and w1 != w0, optimized
+    t0 = time.perf_counter()
+    # the crcs of this path's shards are (a)'s and phase 3c's check
+    check = _cluster_check(cluster, ref, final, crc=False)
+    check_s = time.perf_counter() - t0
+    for step in CLUSTER_KERNEL_STEPS:
+        assert launches[step] > 0, \
+            f"control path: gf2_matrix_w8 not launched in {step}"
+    score0, score1 = (float(e.strip().splitlines()[-1].split()[-1])
+                      for e in (ev0, ev1))
+    gib = CONTROL_OBJECTS * OBJECT / 2**30
+    out = {"victim": victim, "steps_s": steps_s, "launches": launches,
+           "scrapes": scrapes, "balancer": optimized.strip(),
+           "score_before": score0, "score_after": score1,
+           "write_GiBs": gib / steps_s["write"],
+           "degraded_write_GiBs": len(overwrites) * OBJECT / 2**30
+           / steps_s["degraded_write"],
+           "degraded_read_GiBs": gib / steps_s["degraded_read"],
+           "time_to_clean_s": steps_s["recovery"],
+           "rebalance_s": steps_s["balancer"]}
+    print(f"[control] (b) mgr: ECCluster({CONTROL_OSDS}), {CONTROL_OBJECTS} "
+          f"x {OBJECT} B; write {out['write_GiBs']:.4f} GiB/s, osd.{victim}"
+          f" down, {len(overwrites)} overwritten at "
+          f"{out['degraded_write_GiBs']:.4f} GiB/s, degraded read "
+          f"{out['degraded_read_GiBs']:.4f} GiB/s, "
+          f"clean in {out['time_to_clean_s']:.3f} s (the mgr's health OK "
+          f"{steps_s['settle']:.3f} s later); health over HTTP "
+          f"{' -> '.join(s['status'] for s in scrapes.values())}; scrape ms "
+          f"(/health + /status + /metrics) "
+          f"{json.dumps({k: round(v['ms'], 3) for k, v in scrapes.items()})};"
+          f" every report folded into a PGMap, health equal to "
+          f"health_checks; balancer {optimized.strip()!r}, score "
+          f"{score0:.4f} -> {score1:.4f}, clean again in "
+          f"{out['rebalance_s']:.3f} s; {check} ({check_s:.1f} s); "
+          f"gf2_matrix_w8 launches per step {json.dumps(launches)}; card "
+          f"{card}", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _shards_checked_at_shutdown(technique_profile: dict, checks: list):
+    """While open, every ``ECCluster.shutdown`` first recovers the cluster
+    until clean (a bench may leave a revived OSD's shards stale), stops
+    its tick loops, reads every object and holds its stored shards
+    against the numpy ``jerasure`` encode of what it read; the check's
+    line and seconds go to ``checks``."""
+    ref = registry_mod.instance().factory("jerasure", technique_profile)
+    orig = ECCluster.shutdown
+
+    async def shutdown(self):
+        t0 = time.perf_counter()
+        self.start_auto_recovery(interval=0.05)
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + CONTROL_DEADLINE_S
+        while await self.degraded_report():
+            assert loop.time() < deadline, "control path: never clean"
+            await asyncio.sleep(0.05)
+        durable_bench.stop_auto_recovery(self)
+        oids = sorted({name.rpartition("@")[0] for osd in self.osds
+                       if not self.messenger.is_down(osd.name)
+                       for name in osd.store.list_objects()
+                       if name.rpartition("@")[2].isdigit()})
+        final = {oid: await self.read(oid) for oid in oids}
+        checks.append((_cluster_check(self, ref, final, crc=False),
+                       time.perf_counter() - t0))
+        await orig(self)
+
+    ECCluster.shutdown = shutdown
+    try:
+        yield
+    finally:
+        ECCluster.shutdown = orig
+
+
+def _control_elastic(card: str) -> dict:
+    """Elastic membership (docstring, phase 3i c)."""
+    from ceph_tpu_torch.osd import elastic_bench
+
+    out = {}
+    hot = {"default": 16, "4MiB": ELASTIC_4M["n_hot"]}
+    for label, run in (
+            ("default", lambda: elastic_bench.run_elastic_path_bench()),
+            ("4MiB", lambda: _in_new_loop(elastic_bench._run(**ELASTIC_4M)))):
+        PerfCounters.reset_all()
+        cuda_gf.reset_launches()
+        checks = []
+        t0 = time.perf_counter()
+        with _shards_checked_at_shutdown(
+                {"technique": "reed_sol_van", "k": elastic_bench.PROFILE["k"],
+                 "m": elastic_bench.PROFILE["m"]}, checks):
+            r = run()
+        seconds = time.perf_counter() - t0
+        r["launches"] = _w8_launches()
+        r["seconds"] = seconds
+        (check, check_s), = checks
+        assert r["bit_exact"] is True and r["steady_library_builds"] == 0 \
+            and r["launches"] > 0, r
+        out[label] = r
+        print(f"[control] (c) elastic {label}: {r['n_osds']} OSDs + 2, "
+              f"{r['n_objects']} + {hot[label]} x {r['obj_bytes']} B, "
+              f"{r['n_clients']} clients: moved "
+              f"ratio {r['data_moved_ratio']} (gate 1.25), time to clean "
+              f"{r['time_to_clean_s']} s, client p99 "
+              f"{r['client_p99_during_expansion_ms']} ms (gate 2000), "
+              f"misplaced peak {r['misplaced_peak']} "
+              f"({r['misplaced_upticks']} upticks), chaos rounds "
+              f"{r['chaos']['target_kill']['rounds']}/"
+              f"{r['chaos']['primary_rm']['rounds']}/"
+              f"{r['chaos']['flap']['rounds']}, steady library builds "
+              f"{r['steady_library_builds']}; {check} ({check_s:.1f} s, "
+              f"recovery to clean included); gf2_matrix_w8 launches "
+              f"{r['launches']}; {seconds:.1f} s; card {card}", flush=True)
+    return out
+
+
+def _in_new_loop(coro):
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(coro)
+    finally:
+        loop.close()
+
+
+def _control_failover(card: str) -> dict:
+    """Failover (docstring, phase 3i d)."""
+    from ceph_tpu_torch.osd.failover_bench import (PROFILE,
+                                                   run_failover_bench)
+
+    out = {}
+    for label, kw in (("default", {}), ("4MiB", FAILOVER_4M)):
+        cuda_gf.reset_launches()
+        checks = []
+        t0 = time.perf_counter()
+        with _shards_checked_at_shutdown(
+                {key: PROFILE[key] for key in ("technique", "k", "m")},
+                checks):
+            r = run_failover_bench(**kw)
+        r["launches"] = _w8_launches()
+        r["seconds"] = time.perf_counter() - t0
+        (check, check_s), = checks
+        assert r["launches"] > 0, r
+        out[label] = r
+        print(f"[control] (d) failover {label} {json.dumps(kw)}: "
+              f"time to first success mean {r['ttfs_mean_ms']} ms (max "
+              f"{r['ttfs_max_ms']}), thrash p99 {r['thrash_p99_ms']} ms, "
+              f"steady p50 / p99 {r['steady_p50_ms']} / "
+              f"{r['steady_p99_ms']} ms, {r['kills']} kills, "
+              f"{r['op_resend']} resends, {r['dup_op_hit']} dup hits; "
+              f"{check} ({check_s:.1f} s, recovery to clean included); "
+              f"gf2_matrix_w8 launches {r['launches']}; "
+              f"{r['seconds']:.1f} s; card {card}", flush=True)
+    return out
+
+
+def phase_control_plane(seed: int, card: str) -> dict:
+    """Object classes, the manager, elastic membership and failover on
+    the card (docstring, phase 3i)."""
+    t_phase = time.perf_counter()
+    ref = registry_mod.instance().factory(
+        "jerasure", _profile({"technique": "reed_sol_van"}))
+    out = {"classes": _control_classes(seed, ref, card)}
+    gc.collect()
+    out["mgr"] = _control_mgr(seed, ref, card)
+    gc.collect()
+    out["elastic"] = _control_elastic(card)
+    gc.collect()
+    out["failover"] = _control_failover(card)
+    gc.collect()
+    out["launches"] = sum(
+        sum(out[part]["launches"].values()) for part in ("classes", "mgr")) \
+        + sum(r["launches"] for part in ("elastic", "failover")
+              for r in out[part].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[control] phase {out['seconds']:.1f} s; gf2_matrix_w8 launches "
+          f"on the control path {out['launches']}; card {card}", flush=True)
+    return out
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -2611,6 +3144,7 @@ def main(argv=None) -> int:
     native = phase_native_tools(args.seed, card)
     durable = phase_durable(args.seed, card)
     mesh = phase_mesh_plane(args.seed, card)
+    control = phase_control_plane(args.seed, card)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
     launched.update(phase_probes(card))
@@ -2627,6 +3161,7 @@ def main(argv=None) -> int:
         key: val for key, val in native.items() if key != "sweep"}}))
     print(json.dumps({"durable_path": durable}))
     print(json.dumps({"mesh_path": mesh}))
+    print(json.dumps({"control_path": control}, default=str))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

@@ -11,13 +11,14 @@ attr holds a time, a nonce or a client id (``_version`` is the version
 counter and the primary's name, the same in both), so nothing is compared
 by type only.  The snapshot paths of ``pg.py`` are not driven here.
 
-The paths the port refuses (cls, mgr) raise, naming the missing module
-and its ROADMAP.md queue item; the paths it has since ported -- the
-regenerating-repair lane, the mon quorum, OSD caps, replicated pools, the
-persistent object stores and the mesh data plane -- run here, and are
-compared with the JAX package's in full in tests/test_torch_mon.py,
-tests/test_torch_replicated.py, tests/test_torch_objectstore.py and
-tests/test_torch_mesh_plane.py.  The device tier is compared in
+The port refuses no path of the in-process cluster.  The paths it once
+refused -- the regenerating-repair lane, the mon quorum, OSD caps,
+replicated pools, the persistent object stores, the mesh data plane,
+object classes and the mgr report -- run here, and are compared with the
+JAX package's in full in tests/test_torch_mon.py,
+tests/test_torch_replicated.py, tests/test_torch_objectstore.py,
+tests/test_torch_mesh_plane.py, tests/test_torch_cls.py and
+tests/test_torch_mgr.py.  The device tier is compared in
 tests/test_torch_tier.py.
 """
 
@@ -39,7 +40,7 @@ from ceph_tpu_torch.osd import cluster, cluster_bench, ecbackend, placement
 from ceph_tpu_torch.osd import types as t_types
 from ceph_tpu_torch.osd.shard import OSDShard
 from ceph_tpu_torch.plugins import registry as registry_mod
-from ceph_tpu_torch.utils import config, unported
+from ceph_tpu_torch.utils import config
 from ceph_tpu_torch.utils.perf import PerfCounters
 
 CODES = {
@@ -395,7 +396,7 @@ def test_osd_scenario_matches_jax(name):
     assert all(flat), seen
 
 
-# -- refusals ----------------------------------------------------------------
+# -- paths the port once refused ----------------------------------------------
 
 
 def _in_loop(fn):
@@ -407,14 +408,6 @@ def _in_loop(fn):
 
 def _port_cluster():
     return PORT.make(6, {"k": "2", "m": "1"})
-
-
-def _refuses(key, fn):
-    module, item = unported.MISSING[key]
-    with pytest.raises(unported.NotPortedError) as exc:
-        fn()
-    assert module in str(exc.value)
-    assert f"ROADMAP.md queue 1 item {item}" in str(exc.value)
 
 
 def test_set_tier_mode_refuses_every_mode_but_none():
@@ -432,7 +425,6 @@ def test_set_tier_mode_refuses_every_mode_but_none():
         assert all(o.tier.device.type == "cpu" for o in c.osds)
         c.set_tier_mode("writeback")
         assert await c.osds[0].tier_tick() == 0  # nothing hot yet
-        assert "tier" not in unported.MISSING
         await c.shutdown()
 
     _run(main())
@@ -442,8 +434,6 @@ def test_create_with_mons_and_mon_command_refuse():
     """Lifted since the port has the mon quorum: ``create_with_mons``
     brings the cluster up through paxos-committed commands and
     ``mon_command`` reaches the quorum (a plain cluster has none)."""
-    assert "mon" not in unported.MISSING
-
     async def main():
         c = await cluster.ECCluster.create_with_mons(
             6, {"k": "2", "m": "1", "device": "cpu"})
@@ -461,8 +451,11 @@ def test_create_with_mons_and_mon_command_refuse():
 
 
 def test_client_caps_and_mgr_report_refuse():
-    """``set_client_caps`` is lifted (the port has ``auth/caps.py``); the
-    mgr report still refuses."""
+    """Both lifted: ``set_client_caps`` (the port has ``auth/caps.py``)
+    and the mgr report (``mgr/``), whose payload carries the JAX
+    package's report keys and equals its report of the same writes but
+    for the times, the boot nonce and the ledger's one renamed key
+    (compared in full in tests/test_torch_mgr.py)."""
     async def main():
         c = _port_cluster()
         await c.write("obj", b"payload")
@@ -474,10 +467,26 @@ def test_client_caps_and_mgr_report_refuse():
         assert await ro.read("obj") == b"payload"
         with pytest.raises(PermissionError):
             await ro.write("obj", b"no")
-        _refuses("mgr", c.osds[0].mgr_report_stats)
+        report = c.osds[0].mgr_report_stats()
         await c.shutdown()
+        return report
 
-    _run(main())
+    mine = _run(main())
+
+    async def theirs():
+        c = JAX.make(6, {"k": "2", "m": "1"})
+        await c.write("obj", b"payload")
+        report = c.osds[0].mgr_report_stats()
+        await c.shutdown()
+        return report
+
+    ref = _run(theirs())
+    assert set(mine) == set(ref)
+    assert mine["v"] == 1 and mine["kind"] == "osd"
+    assert (mine["store"], mine["pgs"], mine["tier"]) == \
+        (ref["store"], ref["pgs"], ref["tier"])
+    assert set(mine["residency"]) ^ set(ref["residency"]) == \
+        {"library_builds", "jit_retraces"}
 
 
 def test_replicated_pools_refuse():
@@ -503,17 +512,33 @@ def test_replicated_pools_refuse():
 
 
 def test_exec_refuses_on_client_and_primary():
-    async def main():
-        c = _port_cluster()
-        await c.write("o", b"x" * 100)
-        with pytest.raises(unported.NotPortedError) as exc:
-            await c.backend.exec("o", "lock", "lock", b"")
-        assert "ceph_tpu/cls/" in str(exc.value)
-        with pytest.raises(unported.NotPortedError):
-            await c.primary_backend("o").exec("o", "lock", "lock", b"")
-        await c.shutdown()
+    """Lifted since the port has ``cls/``: ``exec`` runs on the client
+    (sent to the primary) and on the primary itself, with the JAX
+    package's return codes and output bytes (every class is compared in
+    tests/test_torch_cls.py)."""
+    from ceph_tpu_torch.utils.encoding import Encoder
 
-    _run(main())
+    def req(locker):
+        return Encoder().value({"name": "l", "locker": locker,
+                                "type": "exclusive"}).bytes()
+
+    async def main(P):
+        c = P.make(6, {"k": "2", "m": "1"})
+        await c.write("o", b"x" * 100)
+        out = [await c.backend.exec("o", "lock", "lock", req("a")),
+               await c.primary_backend("o").exec("o", "lock", "lock",
+                                                 req("b")),
+               await c.backend.exec("o", "lock", "get_info",
+                                    Encoder().value({"name": "l"}).bytes()),
+               await c.backend.exec("o", "nope", "nah"),
+               await c.read("o")]
+        await c.shutdown()
+        return out
+
+    mine, theirs = _run(main(PORT)), _run(main(JAX))
+    assert mine == theirs
+    assert [r[0] for r in mine[:4]] == [0, -16, 0, -8]
+    assert mine[4] == b"x" * 100
 
 
 REGEN = {"k": "4", "m": "3", "plugin": "regen"}
@@ -650,8 +675,6 @@ def test_persistent_object_stores_refuse(kind, tmp_path):
     engine stores a shard, and the JAX package's engine of the same kind,
     given the same transaction, leaves the same file tree."""
     from ceph_tpu import objectstore as j_objectstore
-
-    assert "objectstore" not in unported.MISSING
 
     async def main():
         from ceph_tpu_torch.osd.messenger import Messenger

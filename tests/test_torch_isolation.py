@@ -10,8 +10,10 @@ device tier's bench and a writeback cluster's tier hit, the registry's
 example plugins, the repair-path bench's fractional rebuild of 4 objects,
 the kernel sweep and its two probe tools on the CPU, a mon-backed cluster
 on blockstore with a replicated pool beside its EC pool, its crash
-remount, each persistent engine's round trip, an OSD cap check and the
-entry twin's fast dry run over four CPU slots).  The native host
+remount, each persistent engine's round trip, an OSD cap check, the
+entry twin's fast dry run over four CPU slots, object-class ``exec``s
+through ``Rados``/``IoCtx``, a mgr scrape over HTTP and the elastic
+bench's smoke shape).  The native host
 libraries are held to the same rule: every source the port's build names
 lies in ``ceph_tpu_torch/native/``, no port module names a path under the
 JAX package, and every shared library a process of the port maps from
@@ -73,6 +75,17 @@ def test_port_files_import_no_jax_and_no_reference_package():
     assert {"__init__.py", "distributed.py", "mesh_plane.py"} \
         <= {p.name for p in files if p.parent == PORT / "parallel"}
     assert PORT / "entry.py" in files
+    # and the object classes, the librados surface, the manager and the
+    # elastic and failover benches
+    assert {"__init__.py", "cls_lock.py", "cls_version.py", "cls_rbd.py"} \
+        <= {p.name for p in files if p.parent == PORT / "cls"}
+    assert {"__init__.py", "mgr.py", "module_host.py", "pgmap.py",
+            "report.py"} <= {p.name for p in files if p.parent == PORT / "mgr"}
+    assert {"__init__.py", "status.py", "prometheus.py", "balancer.py"} \
+        <= {p.name for p in files
+            if p.parent == PORT / "mgr" / "mgr_modules"}
+    assert {PORT / "client.py", PORT / "osd" / "elastic_bench.py",
+            PORT / "osd" / "failover_bench.py"} <= set(files)
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -245,6 +258,36 @@ with contextlib.redirect_stdout(buf):
     entry.dryrun_multichip(4, fast=True)
 assert buf.getvalue().startswith("dryrun_multichip ok (fast)")
 parallel.configure_devices(None)
+from ceph_tpu_torch.client import Rados
+from ceph_tpu_torch.utils.encoding import Encoder
+rados = Rados(n_osds=6)
+io_a = rados.pool_create("cls", {"k": "2", "m": "1", "device": "cpu"})
+io_b = rados.open_ioctx("cls")
+io_a.write_full("hdr", b"h" * 5000)
+assert io_a.lock_exclusive("hdr", "l", "a") == 0
+assert io_b.lock_exclusive("hdr", "l", "b") == -16
+assert io_a.exec("hdr", "rbd", "create",
+                 Encoder().value({"size": 1 << 22}).bytes())[0] == 0
+assert io_b.exec("hdr", "version", "inc")[0] == 0
+assert io_b.read("hdr") == b"h" * 5000
+from ceph_tpu_torch.mgr import MgrDaemon
+async def scrape(c):
+    d = MgrDaemon(c)
+    port = await d.start()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(b"GET /metrics HTTP/1.1\r\n\r\n")
+    await writer.drain()
+    body = await reader.read()
+    writer.close()
+    await d.stop()
+    return body.decode()
+text = rados._run(scrape(io_a._cluster))
+assert "ceph_library_builds_total " in text and "ceph_osd_up{" in text
+rados.shutdown()
+from ceph_tpu_torch.osd import elastic_bench
+el = elastic_bench.run_elastic_path_bench(
+    smoke=True, profile=dict(elastic_bench.PROFILE, device="cpu"))
+assert el["bit_exact"] and el["data_moved_ratio"] <= 1.25
 assert not any(m in ("jax", "tools", "experiments")
                or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
                for m, mod in sys.modules.items() if mod is not None)

@@ -26,7 +26,6 @@ from ceph_tpu.plugins.interface import ErasureCodeError as JErasureCodeError
 from ceph_tpu_torch.matrices import isa as isa_matrices
 from ceph_tpu_torch.plugins import registry
 from ceph_tpu_torch.plugins.interface import ErasureCodeError
-from ceph_tpu_torch.utils import unported
 
 #: the port's engines: the host LUT engine, the host's AVX2 kernels
 #: (``backend=native``) and the PyTorch engine
@@ -207,7 +206,6 @@ def test_shec_guard_rails_match_jax(profile):
 def test_native_backend_runs_the_native_engine(name, profile):
     from ceph_tpu_torch.ops import native_engine
 
-    assert "native" not in unported.MISSING
     mine, theirs = _pair(name, profile, BACKENDS["native"])
     assert mine._engine() is native_engine
     _roundtrip(mine, theirs, seed=len(profile) + 7, max_erasures=2)

@@ -33,7 +33,6 @@ from ceph_tpu_torch.osd.cluster import ECCluster
 from ceph_tpu_torch.plugins import regen
 from ceph_tpu_torch.plugins import registry
 from ceph_tpu_torch.plugins.interface import ErasureCodeError
-from ceph_tpu_torch.utils import unported
 from ceph_tpu_torch.utils.config import get_config
 
 #: (k, m) of the JAX package's codec sweeps
@@ -303,7 +302,6 @@ def test_registry_publishes_the_jax_profile_and_the_device():
     assert mine.get_sub_chunk_count() == theirs.get_sub_chunk_count() == 5
     for size in (1, 4096, 4 << 20):
         assert mine.get_chunk_size(size) == theirs.get_chunk_size(size)
-    assert "regen" not in unported.MISSING
 
 
 def test_the_card_is_the_default_and_cpu_is_asked_for():
@@ -327,7 +325,6 @@ def test_mesh_lane_is_refused_not_skipped(monkeypatch):
     from ceph_tpu_torch import parallel
     from ceph_tpu_torch.parallel import mesh_plane
 
-    assert "mesh" not in unported.MISSING
     mine, theirs = _pair(4, 3)
     rng = np.random.RandomState(41)
     shards = [rng.randint(0, 256, 3 * 2000, dtype=np.uint8)

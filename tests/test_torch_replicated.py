@@ -26,7 +26,7 @@ from ceph_tpu.utils import config as j_config
 from ceph_tpu.utils.perf import PerfCounters as JPerfCounters
 from ceph_tpu_torch.osd import cluster, cluster_bench, pg, replicated
 from ceph_tpu_torch.osd import types as t_types
-from ceph_tpu_torch.utils import config, unported
+from ceph_tpu_torch.utils import config
 from ceph_tpu_torch.utils.perf import PerfCounters
 
 EC_PROFILE = {"k": "4", "m": "2", "technique": "reed_sol_van"}
@@ -378,8 +378,6 @@ def test_replicated_scenario_matches_jax(name):
 
 
 def test_replicated_pools_are_ported():
-    assert "replicated" not in unported.MISSING
-
     async def main():
         c = make_cluster(PORT)
         assert c.ec is None and c.pool_type == "replicated"

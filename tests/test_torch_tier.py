@@ -41,7 +41,7 @@ from ceph_tpu_torch.ops import pipeline
 from ceph_tpu_torch.osd import cluster, cluster_bench, hitset
 from ceph_tpu_torch.plugins import registry
 from ceph_tpu_torch.tier import device_tier, tier_bench
-from ceph_tpu_torch.utils import config, unported
+from ceph_tpu_torch.utils import config
 from ceph_tpu_torch.utils.perf import PerfCounters
 
 PROFILE = {"k": "2", "m": "1"}
@@ -689,13 +689,17 @@ def test_tier_range_read_extents_on_device():
     _both(lambda pkg: _run(main(pkg)))
 
 
-# -- what the port refuses ---------------------------------------------------
+# -- the mon and mgr halves of the tier -------------------------------------
 
 
 def test_mon_tier_commands_and_prometheus_gauges_refuse():
-    """The mon's `osd tier` commands run through the port's mon-backed
-    cluster (the mon half is lifted); the tier gauges need the mgr's
-    report, which the port does not have yet."""
+    """Both halves lifted: the mon's `osd tier` commands run through the
+    port's mon-backed cluster, and the mgr exports the tier gauges
+    (tests/test_tier.py's ``test_prometheus_exports_tier_gauges``): each
+    OSD's resident bytes and budget, in the exposition and in its
+    report, equal to its tier's status."""
+    from ceph_tpu_torch.mgr.mgr import ClusterState, prometheus_text
+
     async def main():
         c = await cluster.ECCluster.create_with_mons(
             4, dict(PROFILE, device="cpu"), plugin="cuda")
@@ -714,9 +718,20 @@ def test_mon_tier_commands_and_prometheus_gauges_refuse():
         assert (await c.mon_command({
             "prefix": "osd tier cache-mode", "pool": c.pool,
             "mode": "turbo"}))[0] == -22
-        with pytest.raises(unported.NotPortedError) as exc:
-            c.osds[0].mgr_report_stats()
-        assert "ceph_tpu/mgr/" in str(exc.value)
+        text = prometheus_text(ClusterState(c).dump())
+        assert "# TYPE ceph_osd_tier_resident_bytes gauge" in text
+        assert "# TYPE ceph_osd_tier_hbm_budget_bytes gauge" in text
+        for osd in c.osds:
+            st = osd.tier.status()
+            label = f'{{ceph_daemon="{osd.name}"}}'
+            assert f'ceph_osd_tier_resident_bytes{label} ' \
+                f'{st["resident_bytes"]}' in text
+            assert f'ceph_osd_tier_hbm_budget_bytes{label} ' \
+                f'{st["budget"]}' in text
+            assert osd.mgr_report_stats()["tier"] == {
+                key: st[key] for key in ("resident_bytes", "budget",
+                                         "entries", "dirty", "hit", "miss")}
+        assert sum(o.tier.status()["resident_bytes"] for o in c.osds) > 0
         await c.shutdown()
 
     _run(main())
