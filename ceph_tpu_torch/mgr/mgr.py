@@ -8,7 +8,7 @@ package's in two series, both because the port's ledgers differ:
   libraries built or first loaded (``analysis/residency.py``), where the
   JAX package counts XLA compilations;
 * ``ceph_wire_codec_native`` is left out: it reports the native wire
-  codec, which comes with the TCP messenger (ROADMAP.md queue 1 item 16).
+  codec, which the port does not have yet (ROADMAP.md queue 1 item 16b).
 
 The JAX package guards each exposition section with ``except Exception:
 pass``.  Every section here reads a port module that is always present,
@@ -295,8 +295,8 @@ def prometheus_text(state: dict) -> str:
     # library_builds under steady traffic means a hot path builds or
     # loads a library; a rising d2h on the write path means residency
     # broke.  (The JAX package also exposes ceph_wire_codec_native here,
-    # the native wire codec's gauge; the port has that codec with the TCP
-    # messenger, ROADMAP.md queue 1 item 16.)
+    # the native wire codec's gauge; the port gets that codec with
+    # ROADMAP.md queue 1 item 16b.)
     from ceph_tpu_torch.analysis import residency as _residency
     from ceph_tpu_torch.parallel import mesh_plane as _mesh_mod
 

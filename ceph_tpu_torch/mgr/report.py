@@ -1,9 +1,10 @@
 """MgrClient-style daemon telemetry: beacon + report frames.
 
-Port of ``ceph_tpu/mgr/report.py``.  :class:`ReportSender` runs over the
-in-process messenger (``osd/messenger.py``); the TCP messenger and its
-wire codecs are ROADMAP.md queue 1 item 16, so the frames here are
-Python objects on that messenger, not encoded bytes.
+Port of ``ceph_tpu/mgr/report.py``.  :class:`ReportSender` runs over
+whichever messenger the daemon has: on the in-process one
+(``osd/messenger.py``) the frames are Python objects, on
+``msg/tcp.py`` they cross as ``msg/wire.py``'s typed beacon and report
+frames.
 
 Reference: src/mgr/MgrClient.cc -- every daemon opens a session to the
 active mgr and ships (a) a lightweight beacon proving liveness and (b) a

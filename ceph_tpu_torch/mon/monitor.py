@@ -12,11 +12,37 @@ non-leaders forward to the leader the way peons forward proposals.
 A profile that names no plugin is validated with ``osd/cluster.py``'s
 ``DEFAULT_PLUGIN``, the card's (``cuda``; the JAX package's mon uses
 ``jerasure``).
+
+One deliberate difference from the JAX package: a resent mutating
+command is idempotent.  ``MonClient.command`` gives each command one
+request id, ``(client name, incarnation, tid)``, and keeps it across
+every resend to every mon (as the objecter keeps its reqid across
+resends; the incarnation comes from a per-process counter seeded with
+entropy, so two clients that share a name never mint one id).  A mon
+keys each record on that id, bound to the authenticated caller (a reqid
+whose name is not the caller's is dropped), and on a digest of the
+command, so that a record answers only the command it was made for.
+The final proposal of a mutating command carries the key and a
+declarative answer (the ``answer`` of ``_commit``); every mon that
+applies the commit records ``key -> (rc, out)`` in a bounded map (the
+role of the PG log's dups), a mon that receives a command whose key is
+recorded answers the record once the caller has passed the command's
+cap check, and a proposal whose key was already applied (a resend that
+raced the first commit) applies as a no-op.  Read-only commands propose nothing
+and are not recorded.  The JAX package's client resends with a new id,
+so a reply that comes late turns a committed ``osd add`` into -17
+EEXIST there.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
+import contextvars
+import hashlib
+import itertools
+import json
+import os
 from typing import Dict, List, Optional
 
 from ceph_tpu_torch.mon.osdmap import OSDMap
@@ -28,6 +54,36 @@ from ceph_tpu_torch.mon.services import (AuthDB, ClusterLog,
                                          MgrMap)
 from ceph_tpu_torch.osd.messenger import Messenger
 from ceph_tpu_torch.utils.log import dout
+
+#: the record key of the client command the current task executes (set
+#: by ``Monitor._handle_command``, read by ``Monitor._propose``)
+_RECORD_KEY: contextvars.ContextVar = contextvars.ContextVar(
+    "mon_record_key", default=None)
+#: applied command results each mon remembers (the reference's
+#: osd_pg_log_dups_tracked default plays the same role for client ops)
+REQIDS_TRACKED = 3000
+#: per-process MonClient incarnation source, the reqid's middle field
+#: (the objecter's ``_INCARNATIONS`` role): seeded with entropy, so that
+#: a restarted client, or a second one under the same name, never
+#: reuses a reqid another instance's command was recorded under
+_INCARNATIONS = itertools.count(int.from_bytes(os.urandom(6), "big"))
+
+
+def record_key(reqid, cmd: dict, caller: str) -> Optional[tuple]:
+    """The key a mon records a command's result under: the client's
+    ``(name, incarnation, tid)`` and a digest of ``cmd``.  None (the
+    command is not recorded) without a well-formed reqid, or when its
+    name is not ``caller``, the authenticated entity."""
+    if not isinstance(reqid, (list, tuple)) or len(reqid) != 3 or \
+            reqid[0] != caller:
+        return None
+    try:
+        incarnation, tid = int(reqid[1]), int(reqid[2])
+    except (TypeError, ValueError):
+        return None
+    digest = hashlib.sha256(json.dumps(
+        cmd, sort_keys=True, default=repr).encode()).hexdigest()[:16]
+    return (caller, incarnation, tid, digest)
 
 
 class Monitor:
@@ -50,6 +106,11 @@ class Monitor:
         #: leader-local beacon liveness (the reference keeps pending
         #: beacon state outside paxos too): daemon name -> last stamp
         self._beacons: Dict[str, float] = {}
+        #: applied mutating commands: record key -> (rc, out), oldest
+        #: first, at most REQIDS_TRACKED (rebuilt by the store replay
+        #: below like every other slice of committed state)
+        self._reqid_results: "collections.OrderedDict[tuple, tuple]" = \
+            collections.OrderedDict()
         self._store_db = None
         if store_path is not None:
             # MonitorDBStore role: paxos state on an LSM KeyValueDB; a
@@ -262,10 +323,40 @@ class Monitor:
     # -- committed-state application ---------------------------------------
 
     def _apply_commit(self, value: dict) -> str:
+        """Apply one committed value; returns the slice name (also used
+        for startup replay from the durable store, where nothing is
+        pushed).  A value that carries a command's record key is applied
+        once: the commit records the command's answer, and a later value
+        with the same key (a resend that raced the first commit) applies
+        as a no-op, slice ``"dup"``."""
+        reqid = value.get("reqid")
+        if reqid is None:
+            return self._apply_inc(value["inc"])
+        key = tuple(reqid)
+        if key in self._reqid_results:
+            return "dup"
+        kind = self._apply_inc(value["inc"])
+        self._reqid_results[key] = (0, self._answer(value["answer"]))
+        while len(self._reqid_results) > REQIDS_TRACKED:
+            self._reqid_results.popitem(last=False)
+        return kind
+
+    def _answer(self, spec) -> object:
+        """A mutating command's answer, from its proposal's declarative
+        form and this mon's state just after the commit: ``("epoch",)``,
+        ``("mgrmap",)``, ``("fsmap",)`` or ``("const", out)``."""
+        kind = spec[0]
+        if kind == "epoch":
+            return {"epoch": self.osdmap.epoch}
+        if kind == "mgrmap":
+            return self.mgrmap.to_dict()
+        if kind == "fsmap":
+            return self.fsmap.to_dict()
+        return copy.deepcopy(spec[1])
+
+    def _apply_inc(self, inc: dict) -> str:
         """Route one committed increment to its service slice; returns
-        the slice name (also used for startup replay from the durable
-        store, where nothing is pushed)."""
-        inc = value["inc"]
+        the slice name."""
         op = inc.get("op", "")
         if op.startswith("kv_"):
             self.kvstore.apply(inc)
@@ -357,6 +448,25 @@ class Monitor:
 
     async def _handle_command(self, src: str, msg: dict) -> None:
         cmd = msg["cmd"]
+        # authenticated caller for cap checks and records: the wire
+        # source, or the original requester when a peer mon forwarded.
+        # A reply_to set by anything that is NOT a quorum peer is a spoof
+        # attempt and is ignored for authorization purposes.
+        caller = (msg.get("reply_to") if src.startswith("mon.")
+                  else src) or src
+        # a caller the command's cap check refuses gets no record key:
+        # neither a recorded answer nor one read after do_command
+        key = record_key(msg.get("reqid"), cmd, caller) \
+            if self._may(cmd.get("prefix", ""), caller) else None
+        done = self._reqid_results.get(key) if key is not None else None
+        if done is not None:
+            # a resend of a command this mon saw committed: the first
+            # commit's answer, never a second application
+            await self.messenger.send_message(
+                self.name, msg.get("reply_to", src),
+                {"type": "mon_command_reply", "id": msg["id"],
+                 "rc": done[0], "out": done[1]})
+            return
         if not self.is_leader():
             if self.leader is None:
                 await self.messenger.send_message(
@@ -375,12 +485,16 @@ class Monitor:
                 fwd["reply_to"] = src
                 await self._send_to_rank(self.leader, fwd)
             return
-        # authenticated caller for cap checks: the wire source, or the
-        # original requester when a peer mon forwarded.  A reply_to set
-        # by anything that is NOT a quorum peer is a spoof attempt and
-        # is ignored for authorization purposes.
-        caller = msg.get("reply_to") if src.startswith("mon.") else src
-        rc, out = await self.do_command(cmd, caller=caller or src)
+        token = _RECORD_KEY.set(key)
+        try:
+            rc, out = await self.do_command(cmd, caller=caller)
+        finally:
+            _RECORD_KEY.reset(token)
+        if key is not None and key in self._reqid_results:
+            # the commit's answer: this execution's own (computed from the
+            # state the commit left, as do_command's is), or the first
+            # one's where a racing resend applied the command first
+            rc, out = self._reqid_results[key]
         await self.messenger.send_message(
             self.name,
             msg.get("reply_to", src),
@@ -389,10 +503,20 @@ class Monitor:
 
     _pid_counter = 0
 
-    async def _propose(self, inc: dict) -> bool:
+    async def _propose(self, inc: dict, answer=None) -> bool:
+        """Commit ``inc`` through paxos.  ``answer`` (the command's
+        declarative answer, see :meth:`_answer`) marks the final
+        proposal of a mutating command: the value then carries the
+        command's record key (see :func:`record_key`), when it has one,
+        so that every mon records the answer and a resend applies
+        nothing twice."""
         async with self._cmd_lock:  # one in-flight proposal (paxos updating)
             Monitor._pid_counter += 1
             value = {"inc": inc, "pid": f"{self.rank}:{Monitor._pid_counter}"}
+            key = _RECORD_KEY.get() if answer is not None else None
+            if key is not None:
+                value["reqid"] = list(key)
+                value["answer"] = list(answer)
             for _ in range(3):
                 if await self.paxos.propose(value, self.quorum):
                     return True
@@ -406,6 +530,14 @@ class Monitor:
                 ):
                     return True
             return False
+
+    async def _commit(self, inc: dict, answer) -> tuple:
+        """Commit a mutating command's final increment; its ``(rc,
+        out)``: ``answer`` (see :meth:`_answer`) read from the state the
+        commit left, or -11 without a quorum."""
+        if not await self._propose(inc, answer=answer):
+            return -11, "no quorum"
+        return 0, self._answer(answer)
 
     #: AuthMonitor mutations: minting, rotating, revoking or re-capping
     #: keys needs mon admin capability (reference: MonCap gates on
@@ -433,13 +565,17 @@ class Monitor:
 
         return MonCap.parse((rec.get("caps") or {}).get("mon", "")).is_admin()
 
+    def _may(self, prefix: str, caller: Optional[str]) -> bool:
+        """Whether ``caller`` passes the cap check of command ``prefix``."""
+        return prefix not in self._AUTH_MUTATIONS or \
+            self._caller_admin_capable(caller)
+
     async def do_command(self, cmd: dict, caller: Optional[str] = None):
         """Returns (rc, out).  Command names follow the ceph CLI.
         ``caller`` is the authenticated wire entity (None for local
         invocations); AuthMonitor mutations are gated on its mon caps."""
         prefix = cmd.get("prefix", "")
-        if prefix in self._AUTH_MUTATIONS and \
-                not self._caller_admin_capable(caller):
+        if not self._may(prefix, caller):
             self.clog.apply({
                 "op": "clog_append", "who": self.name, "level": "warn",
                 "message": f"denied '{prefix}' from {caller}: no mon "
@@ -459,8 +595,9 @@ class Monitor:
                 ),
             }
         if prefix == "osd create":
-            ok = await self._propose({"op": "create_osds", "n": cmd["n"]})
-            return (0, f"created {cmd['n']} osds") if ok else (-11, "no quorum")
+            return await self._commit(
+                {"op": "create_osds", "n": cmd["n"]},
+                ("const", f"created {cmd['n']} osds"))
         if prefix == "osd boot":
             # an OSD daemon reporting for duty (reference OSD::_send_boot
             # -> OSDMonitor::prepare_boot, src/osd/OSD.cc:5386): mark it
@@ -474,9 +611,8 @@ class Monitor:
             self._failure_reports.pop(osd, None)
             if self.osdmap.up.get(osd):
                 return 0, {"epoch": self.osdmap.epoch, "already_up": True}
-            ok = await self._propose({"op": "osd_up", "osd": osd})
-            return (0, {"epoch": self.osdmap.epoch}) if ok \
-                else (-11, "no quorum")
+            return await self._commit({"op": "osd_up", "osd": osd},
+                                      ("epoch",))
         if prefix == "osd failure":
             # peer-reported failure (reference MOSDFailure ->
             # OSDMonitor::check_failure, src/mon/OSDMonitor.cc): collect
@@ -504,8 +640,9 @@ class Monitor:
             if len(reporters) < need:
                 return 0, {"reports": len(reporters), "need": need}
             self._failure_reports.pop(osd, None)
-            ok = await self._propose({"op": "osd_down", "osd": osd})
-            if ok:
+            rc, out = await self._commit({"op": "osd_down", "osd": osd},
+                                         ("const", {"marked_down": True}))
+            if rc == 0:
                 self.clog.apply({
                     "op": "clog_append", "who": self.name,
                     "level": "warn",
@@ -513,7 +650,7 @@ class Monitor:
                                f"({len(reporters)} reporters)",
                     "stamp": 0.0,
                 })
-            return (0, {"marked_down": True}) if ok else (-11, "no quorum")
+            return rc, out
         if prefix == "osd erasure-code-profile set":
             name, profile = cmd["name"], dict(cmd["profile"])
             # validate by instantiating the codec (OSDMonitor.cc:5353)
@@ -527,10 +664,9 @@ class Monitor:
                 )
             except Exception as e:  # noqa: BLE001 -- validation surface
                 return -22, f"invalid profile: {e}"
-            ok = await self._propose(
-                {"op": "profile_set", "name": name, "profile": profile}
-            )
-            return (0, name) if ok else (-11, "no quorum")
+            return await self._commit(
+                {"op": "profile_set", "name": name, "profile": profile},
+                ("const", name))
         if prefix == "osd erasure-code-profile ls":
             return 0, sorted(self.osdmap.ec_profiles)
         if prefix == "osd erasure-code-profile get":
@@ -540,8 +676,8 @@ class Monitor:
             for pool in self.osdmap.pools.values():
                 if pool.profile_name == cmd["name"]:
                     return -16, f"profile in use by pool {pool.name}"  # EBUSY
-            ok = await self._propose({"op": "profile_rm", "name": cmd["name"]})
-            return (0, "") if ok else (-11, "no quorum")
+            return await self._commit(
+                {"op": "profile_rm", "name": cmd["name"]}, ("const", ""))
         if prefix == "osd pool create":
             name = cmd["name"]
             if name in self.osdmap.pools:
@@ -568,8 +704,8 @@ class Monitor:
                     "pg_num": cmd.get("pg_num", 128),
                     "hosts": cmd.get("hosts"),
                 }
-                ok = await self._propose({"op": "pool_create", "pool": pool})
-                return (0, pool) if ok else (-11, "no quorum")
+                return await self._commit({"op": "pool_create", "pool": pool},
+                                          ("const", pool))
             pname = cmd["profile"]
             profile = self.osdmap.ec_profiles.get(pname)
             if profile is None:
@@ -600,8 +736,8 @@ class Monitor:
                 "pg_num": cmd.get("pg_num", 128),
                 "hosts": cmd.get("hosts"),
             }
-            ok = await self._propose({"op": "pool_create", "pool": pool})
-            return (0, pool) if ok else (-11, "no quorum")
+            return await self._commit({"op": "pool_create", "pool": pool},
+                                      ("const", pool))
         # -- cache tiering (OSDMonitor `osd tier` subset re-targeted at
         # device residency: the cache device is the card's memory, so the
         # commands set the pool's mode rather than overlay a second
@@ -615,11 +751,9 @@ class Monitor:
             if mode not in CACHE_MODES:
                 return -22, (f"bad cache mode {mode!r} (want one of "
                              f"{'/'.join(CACHE_MODES)})")
-            ok = await self._propose(
-                {"op": "pool_tier", "name": name, "cache_mode": mode}
-            )
-            return (0, {"pool": name, "cache_mode": mode}) if ok \
-                else (-11, "no quorum")
+            return await self._commit(
+                {"op": "pool_tier", "name": name, "cache_mode": mode},
+                ("const", {"pool": name, "cache_mode": mode}))
         if prefix == "osd tier status":
             from ceph_tpu_torch.utils.config import get_config as _gc
 
@@ -633,15 +767,15 @@ class Monitor:
             }
         # -- ConfigKeyService (src/mon/ConfigKeyService.cc) ----------------
         if prefix == "config-key set":
-            ok = await self._propose(
-                {"op": "kv_set", "key": cmd["key"], "value": cmd["value"]})
-            return (0, "") if ok else (-11, "no quorum")
+            return await self._commit(
+                {"op": "kv_set", "key": cmd["key"], "value": cmd["value"]},
+                ("const", ""))
         if prefix == "config-key get":
             v = self.kvstore.kv.get(cmd["key"])
             return (0, v) if v is not None else (-2, "not found")
         if prefix == "config-key rm":
-            ok = await self._propose({"op": "kv_rm", "key": cmd["key"]})
-            return (0, "") if ok else (-11, "no quorum")
+            return await self._commit({"op": "kv_rm", "key": cmd["key"]},
+                                      ("const", ""))
         if prefix == "config-key ls":
             return 0, sorted(self.kvstore.kv)
         if prefix == "config-key exists":
@@ -649,15 +783,14 @@ class Monitor:
                 else (-2, "not found")
         # -- centralized config (ConfigMonitor role) -----------------------
         if prefix == "config set":
-            ok = await self._propose({
+            return await self._commit({
                 "op": "config_set", "who": cmd["who"],
                 "name": cmd["name"], "value": str(cmd["value"]),
-            })
-            return (0, "") if ok else (-11, "no quorum")
+            }, ("const", ""))
         if prefix == "config rm":
-            ok = await self._propose({
-                "op": "config_rm", "who": cmd["who"], "name": cmd["name"]})
-            return (0, "") if ok else (-11, "no quorum")
+            return await self._commit({
+                "op": "config_rm", "who": cmd["who"], "name": cmd["name"]},
+                ("const", ""))
         if prefix == "config get":
             return 0, self.configdb.entity_view(cmd["who"])
         if prefix == "config dump":
@@ -668,13 +801,12 @@ class Monitor:
             if level not in ClusterLog.LEVELS:
                 return -22, f"bad level {level!r} (want one of " \
                             f"{'/'.join(ClusterLog.LEVELS)})"
-            ok = await self._propose({
+            return await self._commit({
                 "op": "clog_append", "who": cmd.get("who", "client"),
                 "level": level,
                 "message": cmd.get("message", ""),
                 "stamp": cmd.get("stamp", 0.0),
-            })
-            return (0, "logged") if ok else (-11, "no quorum")
+            }, ("const", "logged"))
         if prefix == "log last":
             level = cmd.get("level")
             if level is not None and level not in ClusterLog.LEVELS:
@@ -690,13 +822,11 @@ class Monitor:
             import secrets as _secrets
 
             key = _secrets.token_hex(16)
-            ok = await self._propose({
+            return await self._commit({
                 "op": "auth_add", "entity": ent, "key": key,
                 "caps": cmd.get("caps") or {},
-            })
-            return (0, {"entity": ent, "key": key,
-                        "caps": dict(cmd.get("caps") or {})}) if ok \
-                else (-11, "no quorum")
+            }, ("const", {"entity": ent, "key": key,
+                         "caps": dict(cmd.get("caps") or {})}))
         if prefix == "auth get":
             have = self.authdb.entities.get(cmd["entity"])
             if have is None:
@@ -706,11 +836,10 @@ class Monitor:
         if prefix == "auth caps":
             if cmd["entity"] not in self.authdb.entities:
                 return -2, "not found"
-            ok = await self._propose({
+            return await self._commit({
                 "op": "auth_caps", "entity": cmd["entity"],
                 "caps": cmd.get("caps") or {},
-            })
-            return (0, "") if ok else (-11, "no quorum")
+            }, ("const", ""))
         if prefix == "auth rotate":
             # key rotation (the reference's rotating secrets role): a
             # fresh secret replaces the old; clients re-key on their
@@ -720,15 +849,14 @@ class Monitor:
             import secrets as _secrets
 
             key = _secrets.token_hex(16)
-            ok = await self._propose({
-                "op": "auth_rotate", "entity": cmd["entity"], "key": key})
-            return (0, {"key": key}) if ok else (-11, "no quorum")
+            return await self._commit({
+                "op": "auth_rotate", "entity": cmd["entity"], "key": key},
+                ("const", {"key": key}))
         if prefix == "auth rm":
             if cmd["entity"] not in self.authdb.entities:
                 return -2, "not found"  # never strips file-provisioned keys
-            ok = await self._propose(
-                {"op": "auth_rm", "entity": cmd["entity"]})
-            return (0, "") if ok else (-11, "no quorum")
+            return await self._commit(
+                {"op": "auth_rm", "entity": cmd["entity"]}, ("const", ""))
         if prefix == "auth list":
             return 0, {
                 e: {"caps": dict(v["caps"])}  # keys never leave via list
@@ -762,32 +890,30 @@ class Monitor:
             who = cmd.get("who", self.mgrmap.active)
             if who is None:
                 return -2, "no active mgr"
-            ok = await self._propose({"op": "mgr_failover", "failed": who})
-            return (0, self.mgrmap.to_dict()) if ok else (-11, "no quorum")
+            return await self._commit({"op": "mgr_failover", "failed": who},
+                                      ("mgrmap",))
         if prefix == "mgr stat":
             return 0, self.mgrmap.to_dict()
         # -- MDSMonitor (src/mon/MDSMonitor.cc subset) ---------------------
         if prefix == "fs new":
             if cmd["name"] in self.fsmap.filesystems:
                 return -17, "fs exists"
-            ok = await self._propose({
+            return await self._commit({
                 "op": "fs_new", "name": cmd["name"],
                 "max_mds": cmd.get("max_mds", 1),
-            })
-            return (0, self.fsmap.to_dict()) if ok else (-11, "no quorum")
+            }, ("fsmap",))
         if prefix == "fs rm":
             if cmd["name"] not in self.fsmap.filesystems:
                 return -2, "no such fs"
-            ok = await self._propose({"op": "fs_rm", "name": cmd["name"]})
-            return (0, "") if ok else (-11, "no quorum")
+            return await self._commit({"op": "fs_rm", "name": cmd["name"]},
+                                      ("const", ""))
         if prefix == "fs set max_mds":
             if cmd["name"] not in self.fsmap.filesystems:
                 return -2, "no such fs"
-            ok = await self._propose({
+            return await self._commit({
                 "op": "fs_set_max_mds", "name": cmd["name"],
                 "max_mds": int(cmd["max_mds"]),
-            })
-            return (0, self.fsmap.to_dict()) if ok else (-11, "no quorum")
+            }, ("fsmap",))
         if prefix == "fs ls":
             return 0, sorted(self.fsmap.filesystems)
         if prefix == "mds beacon":
@@ -804,9 +930,8 @@ class Monitor:
                     return -11, "no quorum"
             return 0, self.fsmap.to_dict()
         if prefix == "mds fail":
-            ok = await self._propose({"op": "mds_failover",
-                                      "name": cmd["name"]})
-            return (0, self.fsmap.to_dict()) if ok else (-11, "no quorum")
+            return await self._commit({"op": "mds_failover",
+                                       "name": cmd["name"]}, ("fsmap",))
         if prefix == "fs dump":
             return 0, self.fsmap.to_dict()
         if prefix == "osd add":
@@ -822,9 +947,7 @@ class Monitor:
                 from ceph_tpu_torch.crush.map import weight_fp
 
                 inc["weight"] = weight_fp(cmd["weight"])  # float -> 16.16
-            ok = await self._propose(inc)
-            return (0, {"epoch": self.osdmap.epoch}) if ok \
-                else (-11, "no quorum")
+            return await self._commit(inc, ("epoch",))
         if prefix == "osd rm":
             # elastic contraction; refuse to drop any pool below its
             # mappable floor (registry-validation parity: same EBUSY
@@ -835,9 +958,8 @@ class Monitor:
             blocked = self._min_size_block(osd)
             if blocked:
                 return -16, blocked  # EBUSY
-            ok = await self._propose({"op": "osd_rm", "osd": osd})
-            return (0, {"epoch": self.osdmap.epoch}) if ok \
-                else (-11, "no quorum")
+            return await self._commit({"op": "osd_rm", "osd": osd},
+                                      ("epoch",))
         if prefix in ("osd out", "osd in", "osd down", "osd up"):
             if prefix == "osd out":
                 blocked = self._min_size_block(int(cmd["osd"]))
@@ -848,8 +970,7 @@ class Monitor:
                 from ceph_tpu_torch.crush.map import weight_fp
 
                 inc["weight"] = weight_fp(cmd["weight"])  # float -> 16.16
-            ok = await self._propose(inc)
-            return (0, "") if ok else (-11, "no quorum")
+            return await self._commit(inc, ("const", ""))
         return -38, f"unknown command {prefix}"  # ENOSYS
 
     def _min_size_block(self, victim: int) -> Optional[str]:
@@ -878,6 +999,9 @@ class MonClient:
         self.messenger = messenger
         self.n_mons = n_mons
         self.name = name
+        #: reqid incarnation: (name, incarnation, tid) names each command
+        #: across its resends, and no other instance's
+        self.incarnation = next(_INCARNATIONS)
         self._id = 0
         self._replies: Dict[int, asyncio.Future] = {}
         self._active = 0  # last monitor that answered (hunting state)
@@ -892,35 +1016,44 @@ class MonClient:
         return True
 
     async def command(self, cmd: dict, timeout: float = 2.0):
-        """Try each monitor until one answers (hunting)."""
+        """Try each monitor until one answers (hunting).  The command
+        keeps one request id, ``(name, incarnation, tid)``, across every
+        resend, so a mon that already committed it answers the first
+        commit's result, and a late reply to an earlier send is taken as
+        the answer."""
         last = (-110, "timeout")  # ETIMEDOUT
-        for attempt in range(self.n_mons):
-            rank = (self._active + attempt) % self.n_mons
-            if self.messenger.is_down(f"mon.{rank}"):
-                continue  # don't burn a timeout on a known-dead mon
-            self._id += 1
-            mid = self._id
-            fut = asyncio.get_event_loop().create_future()
-            self._replies[mid] = fut
-            await self.messenger.send_message(
-                self.name,
-                f"mon.{rank}",
-                {"type": "mon_command", "cmd": cmd, "id": mid},
-            )
-            try:
-                rc, out = await asyncio.wait_for(fut, timeout)
-            except asyncio.TimeoutError:
-                self._replies.pop(mid, None)
-                continue
-            if rc == -11:  # EAGAIN: that mon has no leader yet; try next
-                last = (rc, out)
-                continue
-            # affinity hint only: concurrent command() calls may each
-            # stick a different answering mon and ANY of them is a
-            # valid next-attempt start -- no invariant to clobber
-            self._active = rank  # cephlint: disable=async-rmw-across-await
-            return rc, out
-        return last
+        self._id += 1
+        mid = self._id
+        reqid = [self.name, self.incarnation, mid]
+        loop = asyncio.get_event_loop()
+        fut = self._replies[mid] = loop.create_future()
+        try:
+            for attempt in range(self.n_mons):
+                rank = (self._active + attempt) % self.n_mons
+                if self.messenger.is_down(f"mon.{rank}"):
+                    continue  # don't burn a timeout on a known-dead mon
+                await self.messenger.send_message(
+                    self.name,
+                    f"mon.{rank}",
+                    {"type": "mon_command", "cmd": cmd, "id": mid,
+                     "reqid": reqid},
+                )
+                done, _ = await asyncio.wait({fut}, timeout=timeout)
+                if not done:
+                    continue
+                rc, out = fut.result()
+                if rc == -11:  # EAGAIN: that mon has no leader yet
+                    last = (rc, out)
+                    fut = self._replies[mid] = loop.create_future()
+                    continue
+                # affinity hint only: concurrent command() calls may each
+                # stick a different answering mon and ANY of them is a
+                # valid next-attempt start -- no invariant to clobber
+                self._active = rank  # cephlint: disable=async-rmw-across-await
+                return rc, out
+            return last
+        finally:
+            self._replies.pop(mid, None)
 
     async def subscribe(self) -> None:
         for r in range(self.n_mons):

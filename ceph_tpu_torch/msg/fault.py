@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import asyncio
 import random
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 
 class FaultInjector:
@@ -49,6 +49,11 @@ class FaultInjector:
         #: nothing further (None = disarmed)
         self._ring_tear_countdown: Optional[int] = None
         self.ring_tears = 0
+        #: one-shot per-sender holds: sender entity -> (seconds, message
+        #: type or None); the port's addition, which the mon tests use to
+        #: make one mon's reply arrive after the client's wait
+        self._send_holds: Dict[str, Tuple[float, Optional[str]]] = {}
+        self.send_holds = 0
 
     @classmethod
     def from_config(cls) -> "FaultInjector":
@@ -105,6 +110,27 @@ class FaultInjector:
         if self.delay_probability and \
                 self._rng.random() < self.delay_probability:
             await asyncio.sleep(self._rng.random() * self.max_delay)
+
+    def schedule_send_hold(self, src: str, seconds: float,
+                           kind: Optional[str] = None) -> None:
+        """Arm a one-shot hold: the next message ``src`` sends (of dict
+        ``type`` ``kind``, or any message when None) waits ``seconds``
+        before the messenger delivers it."""
+        self._send_holds[src] = (float(seconds), kind)
+
+    def send_hold(self, src: str, msg: object) -> float:
+        """Seconds to hold the message ``src`` is sending: the armed
+        hold when it matches (firing disarms), else 0."""
+        armed = self._send_holds.get(src)
+        if armed is None:
+            return 0.0
+        seconds, kind = armed
+        if kind is not None and not (
+                isinstance(msg, dict) and msg.get("type") == kind):
+            return 0.0
+        del self._send_holds[src]
+        self.send_holds += 1
+        return seconds
 
     # -- apply/reply-window injection (dup-detection manufacture) ----------
 

@@ -238,18 +238,6 @@ class _Harness:
         }
 
 
-#: seconds a mon command may take to answer.  The JAX package's bench
-#: uses the mon client's 2 s default; a map change makes every subscriber
-#: recompute its PGs' acting sets in its dispatch loop, which can hold the
-#: reply past 2 s, and the client then resends a non-idempotent ``osd
-#: add`` to the next mon, which answers EEXIST and fails the gate
-MON_COMMAND_TIMEOUT_S = 30.0
-
-
-async def _mon_command(cluster, cmd: dict):
-    return await cluster.monc.command(cmd, timeout=MON_COMMAND_TIMEOUT_S)
-
-
 def _gate(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(f"elastic-path: {msg}")
@@ -257,8 +245,12 @@ def _gate(ok: bool, msg: str) -> None:
 
 def warm_codec(ec, nbytes: int = 4096) -> None:
     """One encode and one decode (the first data chunk erased) through
-    ``ec``, so its kernel library is built or loaded before a timed
-    stage: a build takes seconds and would land in a client's latency."""
+    ``ec`` and one crc32c, so its kernel library and the crc library are
+    built or loaded before a timed stage: a build takes seconds and would
+    land in a client's latency."""
+    from ceph_tpu_torch.native.gf_native import crc32c
+
+    crc32c(b"warm")
     km = ec.get_chunk_count()
     data = np.arange(nbytes, dtype=np.uint32).astype(np.uint8).tobytes()
     chunks = ec.encode(set(range(km)), data)
@@ -323,8 +315,8 @@ async def _run(*, n_objects: int, obj_bytes: int, n_hot: int,
             osd_id = cluster.add_osd(update_placement=False)
             h.pgmap.expected.add(f"osd.{osd_id}")
             new_ids.append(osd_id)
-            rc, out = await _mon_command(
-                cluster, {"prefix": "osd add", "osd": osd_id})
+            rc, out = await cluster.mon_command(
+                {"prefix": "osd add", "osd": osd_id})
             _gate(rc == 0, f"osd add {osd_id} failed: {out}")
         for osd_id in new_ids:
             await wait_weight(osd_id, True)
@@ -364,8 +356,8 @@ async def _run(*, n_objects: int, obj_bytes: int, n_hot: int,
         # ---- stage 2: chaos -- kill the backfill target mid-migration ---
         target = cluster.add_osd(update_placement=False)
         h.pgmap.expected.add(f"osd.{target}")
-        rc, out = await _mon_command(
-            cluster, {"prefix": "osd add", "osd": target})
+        rc, out = await cluster.mon_command(
+            {"prefix": "osd add", "osd": target})
         _gate(rc == 0, f"osd add {target} failed: {out}")
         await wait_weight(target, True)
         killed = {}
@@ -386,8 +378,8 @@ async def _run(*, n_objects: int, obj_bytes: int, n_hot: int,
         chaos_a = await h.converge(max_rounds=2,
                                    mid_round_hook=kill_target)
         # the mon outs the dead target: movement re-plans off it
-        rc, out = await _mon_command(
-            cluster, {"prefix": "osd out", "osd": target})
+        rc, out = await cluster.mon_command(
+            {"prefix": "osd out", "osd": target})
         _gate(rc == 0, f"osd out {target} failed: {out}")
         await wait_weight(target, False)
         # back up but still OUT (weight 0): its engine rejoins peering
@@ -409,8 +401,8 @@ async def _run(*, n_objects: int, obj_bytes: int, n_hot: int,
         # ---- stage 3: chaos -- osd rm of a live primary under load ------
         victim = cluster.placement.acting(hot[0])[0]
         _gate(victim is not None, "hot primary unmapped")
-        rc, out = await _mon_command(
-            cluster, {"prefix": "osd rm", "osd": victim})
+        rc, out = await cluster.mon_command(
+            {"prefix": "osd rm", "osd": victim})
         _gate(rc == 0, f"osd rm {victim} failed: {out}")
         await wait_weight(victim, False)
         chaos_b = await h.converge()
@@ -430,11 +422,11 @@ async def _run(*, n_objects: int, obj_bytes: int, n_hot: int,
         # ---- stage 4: chaos -- add-then-immediately-rm flap -------------
         flap = cluster.add_osd(update_placement=False)
         h.pgmap.expected.add(f"osd.{flap}")
-        rc, out = await _mon_command(
-            cluster, {"prefix": "osd add", "osd": flap})
+        rc, out = await cluster.mon_command(
+            {"prefix": "osd add", "osd": flap})
         _gate(rc == 0, f"osd add {flap} failed: {out}")
-        rc, out = await _mon_command(
-            cluster, {"prefix": "osd rm", "osd": flap})
+        rc, out = await cluster.mon_command(
+            {"prefix": "osd rm", "osd": flap})
         _gate(rc == 0, f"osd rm {flap} failed: {out}")
         # both broadcasts (add epoch, then rm epoch) must land before
         # the residue check means anything; the epoch gate orders them

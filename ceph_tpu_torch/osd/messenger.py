@@ -69,6 +69,9 @@ class Messenger:
         if self.fault.maybe_drop():
             return
         await self.fault.maybe_delay()
+        hold = self.fault.send_hold(src, msg)
+        if hold:
+            await asyncio.sleep(hold)
         self._seq += 1
         await self._queues[dst].put((src, msg))
 

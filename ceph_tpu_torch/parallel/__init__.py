@@ -55,6 +55,12 @@ def configure_devices(devices: Optional[Sequence] = None) -> None:
                      if d.type == "cuda" else d for d in devs]
 
 
+def configured_devices() -> Optional[List[torch.device]]:
+    """The list :func:`configure_devices` set, or None (every card)."""
+    with _lock:
+        return None if _override is None else list(_override)
+
+
 def local_devices() -> List[torch.device]:
     """The devices a mesh spans (the counterpart of ``jax.devices()``):
     the list :func:`configure_devices` set, else every ``cuda:i`` the

@@ -2,8 +2,8 @@
 """ceph_erasure_code_benchmark-compatible CLI for the port's plugins.
 
 Port of the ``encode``, ``decode``, ``storage-path``, ``recovery-path``,
-``repair-path``, ``tier-path`` and ``elastic-path`` workloads of
-``tools/ec_benchmark.py``
+``repair-path``, ``tier-path``, ``elastic-path``, ``cluster-path`` and
+``mesh-path`` workloads of ``tools/ec_benchmark.py``
 (reference: src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137 setup,
 :150-188 encode, :253-327 decode): encode and decode print
 ``<elapsed_seconds>\\t<KiB>`` where KiB = iterations * size / 1024 (times
@@ -39,6 +39,20 @@ theoretical minimum, <= 2 misplaced upticks, client p99 <= 2000 ms,
 HEALTH_OK from the mgr's fold after each stage, bit-exact reads and an
 exactly-once audit) raise before anything is printed, and it prints one
 JSON line and a summary on stderr.
+``cluster-path`` runs ``msg/cluster_bench.py`` (k+m OSD daemons, each an
+``OSDShard`` on its own ``TCPMessenger`` on localhost, and a client
+``Objecter``: ``--objects`` objects of ``--size`` bytes with
+``--writers`` writers, per-message against corked frames, best of
+``--iterations``, then the messenger-level wire stage) and prints the JAX
+tool's JSON line, with ``"wire_codec": "python"`` and the transfer
+ledger of each pass besides.  ``mesh-path`` runs ``msg/mesh_bench.py``
+(the same TCP cluster with the mesh data plane off, then spanning each
+of ``--mesh-sizes`` device slots; k and m from ``-P``, default 2 and 2,
+other ``-P`` entries overlay the ``cuda`` profile) and prints one JSON
+line; its slots are every card present, or the first card named once
+per slot of the largest size where there are fewer.  Both run the
+Python wire codec (``osd_wire_codec_native=false``); the native one is
+ROADMAP.md queue 1 item 16b.
 
 Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark -p cuda -w encode \\
@@ -54,6 +68,10 @@ Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark -w tier-path \\
         --objects 64 -s 4194304 -i 2 -e 2 -P k=8 -P m=4
     python -m ceph_tpu_torch.tools.ec_benchmark -w elastic-path
+    python -m ceph_tpu_torch.tools.ec_benchmark -w cluster-path \
+        --objects 64 -s 4194304 -P k=8 -P m=4
+    python -m ceph_tpu_torch.tools.ec_benchmark -w mesh-path \
+        --objects 32 -s 4194304 -P k=8 -P m=4 --mesh-sizes 1,2,4,8
 
 The default plugin is ``cuda``, which runs on the card and raises where
 there is none; ``-P device=cpu`` runs it on the CPU, and ``-p jerasure``
@@ -85,7 +103,10 @@ def parse_args(argv):
     p.add_argument("-w", "--workload", default="encode",
                    choices=["encode", "decode", "storage-path",
                             "recovery-path", "repair-path", "tier-path",
-                            "elastic-path"])
+                            "elastic-path", "cluster-path", "mesh-path"])
+    p.add_argument("--mesh-sizes", default="1,2,4,8",
+                   help="mesh-path only: comma-separated mesh device "
+                        "counts to sweep")
     p.add_argument("-e", "--erasures", type=int, default=1,
                    help="number of erasures when decoding")
     p.add_argument("--erased", type=int, action="append", default=[],
@@ -179,6 +200,8 @@ def main(argv=None) -> int:
         return _repair_path(args, profile)
     if args.workload == "elastic-path":
         return _elastic_path(args, profile)
+    if args.workload == "mesh-path":
+        return _mesh_path(args, profile)
 
     k = int(profile.get("k", "0"))
     m = int(profile.get("m", "0"))
@@ -206,6 +229,8 @@ def main(argv=None) -> int:
         return _storage_path(args, ec)
     if args.workload == "tier-path":
         return _tier_path(args, ec)
+    if args.workload == "cluster-path":
+        return _cluster_path(args, ec)
 
     if args.payload == "random":
         payload = np.random.RandomState(42).randint(
@@ -434,6 +459,72 @@ def _elastic_path(args, overlay) -> int:
         file=sys.stderr,
     )
     return 0
+
+
+def _cluster_path(args, ec) -> int:
+    """Client Objecter -> primary OSD -> k+m sub-op fan-out over real
+    localhost TCP, per-message wire against corked/zero-copy wire
+    (piggybacked acks), bit-exactness gated before timing, plus the
+    messenger-level wire stage and its wire-shape counters."""
+    from ceph_tpu_torch.msg.cluster_bench import run_cluster_path_bench
+
+    result = run_cluster_path_bench(
+        ec, n_objects=args.objects, obj_bytes=args.size,
+        writers=args.writers, iters=max(1, args.iterations),
+    )
+    print(json.dumps(result))
+    wc = result["wire_corked"]["counters"]
+    print(
+        f"cluster-path k={result['k']} m={result['m']} "
+        f"{args.objects}x{args.size}B x{args.writers} writers over "
+        f"TCP: corked write {result['corked']['write_MiBs']:.3f} "
+        f"MiB/s ({result['write_speedup']}x per-message), wire "
+        f"stage {result['wire_write_speedup']}x "
+        f"({wc['frames_per_burst']} frames/burst, "
+        f"{wc['ack_piggyback_ratio']} acks piggybacked)",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _mesh_path(args, overlay) -> int:
+    """The full TCP cluster path and the PG-sliced encode dispatch swept
+    over mesh device counts (osd_mesh_data_plane on) against the
+    TCP-only baseline; bit-exact read-back, identical shards across
+    configurations, monotone wire-bytes-avoided and no library build in
+    the timed pass are gated inside the harness."""
+    import torch
+
+    from ceph_tpu_torch import parallel
+    from ceph_tpu_torch.msg.mesh_bench import run_mesh_path_bench
+
+    overlay = dict(overlay)
+    k = int(overlay.pop("k", "2"))
+    m = int(overlay.pop("m", "2"))
+    sizes = tuple(int(t) for t in args.mesh_sizes.split(",") if t) \
+        or (1, 2, 4, 8)
+    dev = torch.device(overlay.get("device", "cuda"))
+    prior = parallel.configured_devices()
+    if dev.type == "cpu":
+        parallel.configure_devices([dev] * max(sizes))
+    elif torch.cuda.device_count() < max(sizes):
+        parallel.configure_devices([torch.device("cuda", 0)] * max(sizes))
+    try:
+        result = run_mesh_path_bench(
+            n_objects=args.objects, obj_bytes=args.size,
+            writers=args.writers, iters=max(1, args.iterations),
+            mesh_sizes=sizes, k=k, m=m, profile=overlay)
+    finally:
+        parallel.configure_devices(prior)
+    print(json.dumps(result))
+    print(
+        f"mesh-path k={result['k']} m={result['m']} "
+        f"{args.objects}x{args.size}B over TCP: speedup vs mesh_1 "
+        f"{result['speedup_vs_mesh1']}, wire bytes avoided "
+        f"{result['wire_bytes_avoided']}, encode GiB/s "
+        f"{result['encode_GiBs']}", file=sys.stderr,
+    )
+    return 1 if result["steady_library_builds"] else 0
 
 
 if __name__ == "__main__":

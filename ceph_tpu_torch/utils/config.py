@@ -346,6 +346,53 @@ OPTIONS: Dict[str, Option] = {
              "max client ops gathered into one batched execution run "
              "(bounds per-batch reply latency and memory)",
              see_also=("osd_op_batch_exec",)),
+        _opt("osd_client_message_size_cap", int, 500 * 1024 * 1024,
+             LEVEL_ADVANCED,
+             "max bytes of in-flight inbound messages a daemon holds "
+             "before back-pressuring senders (dispatch throttle)"),
+        _opt("osd_msgr_cork", bool, True, LEVEL_ADVANCED,
+             "coalesce outgoing messenger frames per connection into "
+             "scatter-gather bursts (one writelines + one drain per "
+             "burst) and piggyback/batch acks instead of one ack frame "
+             "+ drain per message; off = one write/drain per message "
+             "(the pre-round-8 wire behavior, kept as the bench "
+             "baseline)"),
+        _opt("osd_msgr_cork_bytes", int, 256 * 1024, LEVEL_ADVANCED,
+             "corked send queue byte threshold: a queue reaching this "
+             "many pending frame bytes flushes immediately instead of "
+             "waiting for the end-of-tick flush",
+             see_also=("osd_msgr_cork",)),
+        _opt("osd_msgr_shm_ring", bool, False, LEVEL_ADVANCED,
+             "carry frame bursts between mesh-colocated daemons over "
+             "seqlock'd shared-memory byte rings (msg/shm_ring.py) "
+             "instead of the localhost TCP hop.  The protocol above "
+             "the byte transport -- banner, auth, session watermarks, "
+             "cumulative acks, frame crcs, torn-burst replay -- runs "
+             "unchanged; peers without a ring-registered accept "
+             "endpoint fall back to TCP per connection.  False "
+             "(default) keeps TCP everywhere, the A/B baseline",
+             see_also=("osd_shm_ring_bytes", "osd_msgr_cork")),
+        _opt("osd_shm_ring_bytes", int, 4 << 20, LEVEL_ADVANCED,
+             "per-direction byte capacity of each shared-memory frame "
+             "ring; a full ring back-pressures the producer's drain() "
+             "exactly like a full socket buffer",
+             see_also=("osd_msgr_shm_ring",)),
+        _opt("osd_wire_codec_native", bool, True, LEVEL_ADVANCED,
+             "batch-encode/decode v4 frame bodies through the "
+             "_wire_native C extension (ceph_tpu/native/wire_codec.py); "
+             "false runs the pure-Python codec in msg/wire.py -- wire "
+             "bytes are identical either way (the A/B baseline and the "
+             "no-toolchain degraded mode).  The port has only the "
+             "Python codec: with this and ``native`` both true, "
+             "msg/tcp.py refuses to start (ROADMAP.md queue 1 item 16b)",
+             see_also=("native", "osd_msgr_cork")),
+        _opt("native", bool, True, LEVEL_DEV,
+             "master toggle for the native C extensions on the wire "
+             "path (CEPH_TPU_NATIVE=0 forces every codec seam to pure "
+             "Python -- the no-toolchain degraded mode, log-once + "
+             "ceph_wire_codec_native gauge).  The port reads it as "
+             "CEPH_TPU_TORCH_NATIVE",
+             see_also=("osd_wire_codec_native",)),
     ]
 }
 

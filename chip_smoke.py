@@ -216,6 +216,32 @@ Phases (any failure raises and exits non-zero):
    ``gf2_matrix_w8``'s launches are
    zeroed before and read after every step and must rise in each step
    that encodes or decodes; the phase prints their sum.
+3j. The wire: the TCP messenger (``msg/tcp.py`` on the Python wire
+   codec, ``osd_wire_codec_native=false``), reed_sol_van k=8 m=4 w=8 on
+   the ``cuda`` plugin, 12 OSDs (k+m), each an ``OSDShard`` on its own
+   ``TCPMessenger`` on localhost, and a client ``Objecter``.  (a)
+   ``run_cluster_path_bench`` at 16 objects of 4 MiB (RBD's object
+   size), 8 writers, one iteration: per-message frames, then corked
+   bursts, then the messenger-level wire stage (64 fan-outs of 512 KiB
+   sub-ops to 12 peers, 32 in flight).  Its gates: every read back exact
+   in each cycle, the stored shards equal across the modes; besides,
+   every stored shard against the numpy ``jerasure`` encode of its
+   object, ``h2d_per_granule`` <= 1 in each write pass and 0 steady
+   library builds.  It prints each mode's write and read GiB/s, the wire
+   stage's speedup and the wire counters.  (b) One corked cycle of 16 x
+   4 MiB with a ``KeyRing`` holding every entity's key (cephx handshake
+   on every connection, every frame signed), and one with
+   ``osd_msgr_shm_ring=true`` (colocated daemons on shared-memory
+   rings): both store (a)'s shards.  (c) ``run_mesh_path_bench`` at
+   k=8 m=4, 8 x 4 MiB, 8 writers, mesh sizes 1, 2, 4 and 8 (every card
+   when the process sees 8, else ``cuda:0`` eight times): its gates
+   (read-back, shards equal across configurations, wire bytes avoided
+   monotone, 0 steady library builds) and the ``tcp_only`` shards
+   against numpy.  (d) ``gf2_matrix_w8``'s launches are zeroed before and
+   read after each of (a), (b) and (c) and must rise in each.  (e) The
+   mon repair on the card's cluster: ``create_with_mons`` (12 OSDs, 3
+   mons), mon.0's reply to ``osd add`` held past the client's wait: the
+   resend answers 0 and every mon's osdmap holds the OSD once.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased), one of ``-w storage-path --profile`` at the flagship profile
    (64 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
@@ -231,7 +257,9 @@ Phases (any failure raises and exits non-zero):
    mode the gather bytes, time to clean and helper symbols served, and
    ``gf2_matrix_w8`` must be launched in the fractional mode's rebuild),
    and one of ``-w tier-path`` with 8 objects of 4 MiB (its gates: every
-   object promoted, hot and cold reads bit-exact).
+   object promoted, hot and cold reads bit-exact), then ``-w
+   cluster-path`` (8 x 4 MiB, k=8 m=4) and ``-w mesh-path`` (8 x 4 MiB,
+   k=8 m=4, mesh sizes 1 and 2), each printing the JAX tool's JSON keys.
 5. The fourteen sweep kernels (``csrc/sweep_kernels.cu`` and
    ``csrc/xornet_kernel.cu``) against their plain versions at the sweep's
    shape, lanes [8, 2097152], and at a ragged one: ``sweep_xornet`` for
@@ -305,6 +333,8 @@ from ceph_tpu_torch.osd import (cluster_bench, durable_bench, ecutil,
 from ceph_tpu_torch.osd.cluster import ECCluster
 from ceph_tpu_torch.matrices.bitmatrix import (matrix_to_bitmatrix,
                                                survivor_decode_bitmatrix)
+from ceph_tpu_torch.msg import cluster_bench as wire_bench
+from ceph_tpu_torch.msg import mesh_bench
 from ceph_tpu_torch.ops import cpu_engine, cuda_gf, sweep_gf
 from ceph_tpu_torch.ops.gf import gf
 from ceph_tpu_torch.ops.pipeline import DeviceStream, granules_dispatched
@@ -467,6 +497,20 @@ ELASTIC_4M = {"n_objects": 16, "obj_bytes": OBJECT, "n_hot": 8,
               "n_clients": WRITERS, "moved_ratio_bound": 1.25,
               "uptick_bound": 2, "client_p99_bound_ms": 2000.0, "seed": 99}
 FAILOVER_4M = {"n_objects": 16, "obj_bytes": OBJECT}
+#: the wire (phase 3j): the cluster-path bench's objects (of OBJECT
+#: bytes, on k+m OSDs; cut from 64, whose bench alone took 50.6 s on the
+#: H100's host, then 32 and 24, with which the phase took 80.9-95.8 s)
+#: and its payload seed, the signed and ring cycles' objects (its first
+#: ones), the mesh-path sweep's objects (cut from 32, 16 and 12), sizes
+#: and payload seed, and the mon repair's wait and held reply
+WIRE_OBJECTS = 16
+WIRE_SEED = 4321
+WIRE_SIDE_OBJECTS = 16
+WIRE_MESH_OBJECTS = 8
+WIRE_MESH_SIZES = (1, 2, 4, 8)
+WIRE_MESH_SEED = 1717
+WIRE_MON_WAIT_S = 0.5
+WIRE_MON_HOLD_S = 1.5
 #: the repair path (phase 4): objects of RBD's default size on 8 OSDs,
 #: with a recovery batch budget that gives each object of a full batch
 #: (32) its k whole 1 MiB chunks: at the default 8 MiB a 4 MiB object's
@@ -2221,15 +2265,15 @@ def phase_durable(seed: int, card: str) -> dict:
     return {"profiles": out, "seconds": seconds}
 
 
-def _mesh_devices():
-    """Every card the process sees when it sees MESH_SLOTS or more, else
-    ``cuda:0`` MESH_SLOTS times (a stream each)."""
+def _mesh_devices(slots: int = MESH_SLOTS):
+    """Every card the process sees when it sees ``slots`` or more, else
+    ``cuda:0`` ``slots`` times (a stream each)."""
     n = torch.cuda.device_count()
-    if n >= MESH_SLOTS:
+    if n >= slots:
         return ([torch.device("cuda", i) for i in range(n)],
                 f"{n} distinct cards")
-    return ([torch.device("cuda", 0)] * MESH_SLOTS,
-            f"cuda:0 repeated {MESH_SLOTS} times")
+    return ([torch.device("cuda", 0)] * slots,
+            f"cuda:0 repeated {slots} times")
 
 
 def _shard_bytes(cluster) -> dict:
@@ -3008,6 +3052,249 @@ def phase_control_plane(seed: int, card: str) -> dict:
     return out
 
 
+def _wire_numpy_check(label: str, shards: dict, payloads: dict, ec,
+                      ref) -> str:
+    """Every stored shard of every object (``(osd, "<oid>@<s>")`` ->
+    bytes) against the numpy ``jerasure`` encode of its payload in the
+    pool's stripe layout, each shard present once."""
+    k, km = ec.get_data_chunk_count(), ec.get_chunk_count()
+    sinfo = ecutil.StripeInfo(k, k * ec.get_chunk_size(1))
+    by_name = {}
+    for (osd, soid), data in shards.items():
+        assert soid not in by_name, f"{label}: {soid} stored twice"
+        by_name[soid] = data
+    assert len(by_name) == len(payloads) * km, \
+        f"{label}: {len(by_name)} shards stored for {len(payloads)} objects"
+
+    def check(item):
+        oid, payload = item
+        buf = np.zeros(sinfo.logical_to_next_stripe_offset(len(payload)),
+                       np.uint8)
+        buf[:len(payload)] = np.frombuffer(payload, np.uint8)
+        want = ecutil.encode(sinfo, ref, buf, range(km))
+        for s in range(km):
+            assert by_name[f"{oid}@{s}"] == want[s].tobytes(), \
+                f"{label}: {oid}@{s} differs from the numpy jerasure plugin"
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(check, payloads.items()))
+    return f"{len(by_name)} shards bit-exact vs numpy jerasure"
+
+
+def _wire_counters(c: dict) -> str:
+    return (f"{c['frames_sent']} frames in {c['bursts']} bursts "
+            f"({c['frames_per_burst']} a burst), {c['drains']} drains "
+            f"({c['bytes_per_drain']} B a drain), acks piggybacked / "
+            f"standalone / elided {c['acks_piggybacked']} / "
+            f"{c['acks_standalone']} / {c['acks_elided']} (ratio "
+            f"{c['ack_piggyback_ratio']}), {c['bytes_sent']} B sent, tcp / "
+            f"ring conns {c['tcp_conns']} / {c['ring_conns']}")
+
+
+def _wire_cluster_path(ec, ref, card: str) -> dict:
+    """``run_cluster_path_bench`` at full width (docstring, phase 3j a)."""
+    cuda_gf.reset_launches()
+    t0 = time.perf_counter()
+    r = wire_bench.run_cluster_path_bench(
+        ec, n_objects=WIRE_OBJECTS, obj_bytes=OBJECT, writers=WRITERS,
+        iters=1, seed=WIRE_SEED, keep_shards=True)
+    launches = _w8_launches()
+    seconds = time.perf_counter() - t0
+    shards = r.pop("_shards")
+    assert r["bit_exact"] is True and r["wire_codec"] == "python", r
+    assert r["steady_library_builds"] == 0, r
+    assert launches > 0, "wire path: gf2_matrix_w8 not launched in (a)"
+    payloads = wire_bench.make_payloads(WIRE_OBJECTS, OBJECT, WIRE_SEED)
+    t0 = time.perf_counter()
+    check = _wire_numpy_check("wire path (a)", shards, payloads, ec, ref)
+    check_s = time.perf_counter() - t0
+    head = (f"[wire] (a) cluster-path: {r['n_osds']} OSDs on TCP, "
+            f"{WIRE_OBJECTS} x {OBJECT} B objects, {WRITERS} writers")
+    for mode in ("per_message", "corked"):
+        m = r[mode]
+        res = m["residency"]
+        assert res["write"]["h2d_per_granule"] is not None and \
+            res["write"]["h2d_per_granule"] <= 1, (mode, res)
+        print(f"{head}, {mode}: write {m['write_MiBs'] / 1024:.4f} GiB/s "
+              f"({m['wall_write_s']} s), read {m['read_MiBs'] / 1024:.4f} "
+              f"GiB/s ({m['wall_read_s']} s); h2d_per_granule "
+              f"{res['write']['h2d_per_granule']}, library builds "
+              f"{m['steady_library_builds']}; {_wire_counters(m['counters'])}"
+              f"; card {card}", flush=True)
+    for mode in ("wire_per_message", "wire_corked"):
+        w = r[mode]
+        print(f"[wire] (a) wire stage {mode[5:]}: {w['wall_write_s']} s, "
+              f"{w['msgs_per_s']} msgs/s, sub-ops of {w['sub_op_bytes']} B, "
+              f"{w['inflight']} in flight; {_wire_counters(w['counters'])}; "
+              f"card {card}", flush=True)
+    print(f"{head}: write speedup {r['write_speedup']}, read speedup "
+          f"{r['read_speedup']}, wire stage speedup "
+          f"{r['wire_write_speedup']}; {check} ({check_s:.1f} s); "
+          f"gf2_matrix_w8 launches {launches}; {seconds:.1f} s; card {card}",
+          flush=True)
+    r["launches"] = launches
+    r["seconds"] = seconds
+    r["_shards"] = shards
+    return r
+
+
+def _wire_side_cycles(ec, shards: dict, card: str) -> dict:
+    """A signed cycle and a ring cycle (docstring, phase 3j b); each must
+    store (a)'s shards of its objects."""
+    from ceph_tpu_torch.auth import KeyRing
+
+    payloads = wire_bench.make_payloads(WIRE_SIDE_OBJECTS, OBJECT,
+                                        WIRE_SEED)
+    km = ec.get_chunk_count()
+    ring = KeyRing()
+    for name in [f"osd.{i}" for i in range(km)] + ["client"]:
+        ring.add(name)
+    cfg = get_config()
+    out = {}
+    for label, keyring, shm in (("signed", ring, False),
+                                ("shm_ring", None, True)):
+        prior = cfg.get_val("osd_msgr_shm_ring")
+        cfg.set_val("osd_msgr_shm_ring", shm)
+        cuda_gf.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with wire_bench.python_wire_codec():
+                r = _in_new_loop(wire_bench._one_cycle(
+                    ec, km, payloads, WRITERS, cork=True, keyring=keyring))
+        finally:
+            cfg.set_val("osd_msgr_shm_ring", prior)
+        launches = _w8_launches()
+        seconds = time.perf_counter() - t0
+        got = r.pop("_shards")
+        assert launches > 0, f"wire path (b) {label}: gf2_matrix_w8 idle"
+        assert got == {key: shards[key] for key in got} and \
+            len(got) == WIRE_SIDE_OBJECTS * km, \
+            f"wire path (b) {label}: stored shards differ from (a)'s"
+        c = r["counters"]
+        if shm:
+            assert c["ring_conns"] > 0, c
+        print(f"[wire] (b) {label} corked cycle, {WIRE_SIDE_OBJECTS} x "
+              f"{OBJECT} B: write {r['write_MiBs'] / 1024:.4f} GiB/s, read "
+              f"{r['read_MiBs'] / 1024:.4f} GiB/s; {len(got)} shards equal "
+              f"(a)'s; {_wire_counters(c)}; gf2_matrix_w8 launches "
+              f"{launches}; {seconds:.1f} s; card {card}", flush=True)
+        out[label] = {key: r[key] for key in (
+            "wall_write_s", "wall_read_s", "write_MiBs", "read_MiBs",
+            "counters", "steady_library_builds")}
+        out[label].update(launches=launches, seconds=seconds)
+    return out
+
+
+def _wire_mesh_path(ec, ref, card: str) -> dict:
+    """``run_mesh_path_bench`` at k=8 m=4 (docstring, phase 3j c)."""
+    devices, layout = _mesh_devices(max(WIRE_MESH_SIZES))
+    parallel.configure_devices(devices)
+    cuda_gf.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        r = mesh_bench.run_mesh_path_bench(
+            n_objects=WIRE_MESH_OBJECTS, obj_bytes=OBJECT, writers=WRITERS,
+            mesh_sizes=WIRE_MESH_SIZES, iters=1, k=K, m=M,
+            seed=WIRE_MESH_SEED, keep_shards=True)
+    finally:
+        mesh_plane.reset()
+        parallel.configure_devices(None)
+    launches = _w8_launches()
+    seconds = time.perf_counter() - t0
+    shards = r.pop("_shards")
+    assert r["bit_exact"] is True and r["steady_library_builds"] == 0, r
+    assert launches > 0, "wire path: gf2_matrix_w8 not launched in (c)"
+    payloads = wire_bench.make_payloads(WIRE_MESH_OBJECTS, OBJECT,
+                                        WIRE_MESH_SEED)
+    t0 = time.perf_counter()
+    check = _wire_numpy_check("wire path (c)", shards, payloads, ec, ref)
+    check_s = time.perf_counter() - t0
+    for name, res in r["results"].items():
+        print(f"[wire] (c) mesh-path {name} ({layout}): write "
+              f"{res['write_MiBs'] / 1024:.4f} GiB/s "
+              f"({res['wall_write_s']} s), read {res['wall_read_s']} s, "
+              f"wire bytes sent {res['wire_bytes_sent']}, avoided "
+              f"{r['wire_bytes_avoided'][name]}, encode stage "
+              f"{r['encode_GiBs'].get(name)} GiB/s; card {card}",
+              flush=True)
+    print(f"[wire] (c) mesh-path k={K} m={M}, {WIRE_MESH_OBJECTS} x {OBJECT} "
+          f"B: speedup vs mesh_1 {json.dumps(r['speedup_vs_mesh1'])}, "
+          f"tcp_only / mesh_max {r['tcp_only_vs_mesh_max']}; tcp_only "
+          f"{check} ({check_s:.1f} s); gf2_matrix_w8 launches {launches}; "
+          f"{seconds:.1f} s; card {card}", flush=True)
+    r.update(launches=launches, seconds=seconds, layout=layout)
+    return r
+
+
+def _wire_mon_repair(card: str) -> dict:
+    """A late mon reply on the card's cluster (docstring, phase 3j e)."""
+    async def main():
+        c = await ECCluster.create_with_mons(
+            K + M, _profile({"technique": "reed_sol_van"}), n_mons=3,
+            plugin="cuda")
+        try:
+            leader = await c.mons.wait_for_leader()
+            epoch0 = leader.osdmap.epoch
+            new_id = c.add_osd(update_placement=False)
+            c.messenger.fault.schedule_send_hold(
+                f"mon.{leader.rank}", WIRE_MON_HOLD_S,
+                kind="mon_command_reply")
+            t0 = time.perf_counter()
+            rc, out = await c.monc.command(
+                {"prefix": "osd add", "osd": new_id},
+                timeout=WIRE_MON_WAIT_S)
+            answer_s = time.perf_counter() - t0
+            await asyncio.sleep(WIRE_MON_HOLD_S)
+            maps = [mon.osdmap for mon in c.mons.mons]
+            return {"rc": rc, "out": out, "osd": new_id,
+                    "answer_s": answer_s,
+                    "held": c.messenger.fault.send_holds,
+                    "epochs": [mp.epoch - epoch0 for mp in maps],
+                    "holds": [sorted(mp.up).count(new_id) for mp in maps],
+                    "epoch": leader.osdmap.epoch}
+        finally:
+            await c.shutdown()
+
+    r = _in_new_loop(main())
+    assert r["held"] == 1 and r["rc"] == 0 and \
+        r["out"] == {"epoch": r["epoch"]}, r
+    assert r["holds"] == [1, 1, 1] and r["epochs"] == [1, 1, 1], r
+    print(f"[wire] (e) mon repair: leader's reply to 'osd add "
+          f"{r['osd']}' held {WIRE_MON_HOLD_S} s past the client's "
+          f"{WIRE_MON_WAIT_S} s wait; the command answered rc {r['rc']} "
+          f"{json.dumps(r['out'])} after {r['answer_s']:.3f} s; every mon's "
+          f"osdmap holds osd.{r['osd']} once (epoch +1); card {card}",
+          flush=True)
+    return r
+
+
+def phase_wire(card: str) -> dict:
+    """The TCP messenger on the card (docstring, phase 3j)."""
+    t_phase = time.perf_counter()
+    ec = registry_mod.instance().factory(
+        "cuda", _profile({"technique": "reed_sol_van"}))
+    ref = registry_mod.instance().factory(
+        "jerasure", _profile({"technique": "reed_sol_van"}))
+    out = {}
+    a = _wire_cluster_path(ec, ref, card)
+    shards = a.pop("_shards")
+    out["cluster_path"] = a
+    out["side"] = _wire_side_cycles(ec, shards, card)
+    del shards
+    gc.collect()
+    out["mesh_path"] = _wire_mesh_path(ec, ref, card)
+    gc.collect()
+    out["mon_repair"] = _wire_mon_repair(card)
+    out["launches"] = {"cluster_path": a["launches"],
+                       **{f"{label}_cycle": r["launches"]
+                          for label, r in out["side"].items()},
+                       "mesh_path": out["mesh_path"]["launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[wire] phase {out['seconds']:.1f} s; gf2_matrix_w8 launches "
+          f"per step {json.dumps(out['launches'])}; card {card}", flush=True)
+    return out
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -3092,6 +3379,34 @@ def phase_ec_benchmark(card: str) -> None:
                          "read_speedup"}, tier
     print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]}; card {card}",
           flush=True)
+    # the wire workloads through the tool: the JAX tool's keys, with the
+    # port's wire_codec and library-build keys beside them
+    for argv, keys in (
+        (["-w", "cluster-path", "--objects", "8", "-s", str(OBJECT),
+          "-P", f"k={K}", "-P", f"m={M}"],
+         {"n_objects", "obj_bytes", "writers", "n_osds", "k", "m",
+          "bit_exact", "per_message", "corked", "write_speedup",
+          "read_speedup", "wire_per_message", "wire_corked",
+          "wire_write_speedup", "steady_library_builds", "wire_codec"}),
+        (["-w", "mesh-path", "--objects", "8", "-s", str(OBJECT),
+          "-P", f"k={K}", "-P", f"m={M}", "--mesh-sizes", "1,2"],
+         {"n_objects", "obj_bytes", "writers", "k", "m", "mesh_sizes",
+          "bit_exact", "results", "wire_bytes_avoided", "wire_bytes_sent",
+          "encode_GiBs", "write_MiBs", "speedup_vs_mesh1", "speedup_4x",
+          "speedup_max", "tcp_only_vs_mesh_max", "steady_library_builds",
+          "wire_codec"})):
+        buf = io.StringIO()
+        cuda_gf.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = ec_benchmark.main(argv)
+        launches = _w8_launches()
+        out = buf.getvalue().strip().splitlines()
+        assert rc == 0, f"ec_benchmark exited {rc}: {out}"
+        got = json.loads(out[-1])
+        assert set(got) == keys and got["bit_exact"] is True and \
+            got["wire_codec"] == "python" and launches > 0, got
+        print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]}; "
+              f"gf2_matrix_w8 launches {launches}; card {card}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -3145,6 +3460,7 @@ def main(argv=None) -> int:
     durable = phase_durable(args.seed, card)
     mesh = phase_mesh_plane(args.seed, card)
     control = phase_control_plane(args.seed, card)
+    wire = phase_wire(card)
     phase_ec_benchmark(card)
     launched.update(phase_sweep(card))
     launched.update(phase_probes(card))
@@ -3162,6 +3478,7 @@ def main(argv=None) -> int:
     print(json.dumps({"durable_path": durable}))
     print(json.dumps({"mesh_path": mesh}))
     print(json.dumps({"control_path": control}, default=str))
+    print(json.dumps({"wire_path": wire}, default=str))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

@@ -129,10 +129,19 @@ async def _converge(cluster, max_rounds: int = 20) -> int:
     return max_rounds
 
 
+#: seconds the tests' own mon commands, and the JAX package's elastic
+#: bench, wait for an answer.  On a loaded CPU a map that leaves 2 OSDs
+#: for 3 positions makes every subscriber's CRUSH retry each PG, and the
+#: lease ticks then call elections: at the client's 2 s default the JAX
+#: package's client can exhaust every mon (-11 'no leader') or resend a
+#: committed ``osd add`` (-17 EEXIST; the port's mon answers a resend
+#: from its reqid record).  The port's bench runs at the 2 s default.
+TEST_MON_WAIT_S = 30.0
+
+
 async def _cmd(cluster, cmd):
-    """A mon command with 30 s to answer (test_mon_osd_add_rm_negative_paths
-    says why)."""
-    return await cluster.monc.command(cmd, timeout=30.0)
+    """A mon command with ``TEST_MON_WAIT_S`` to answer."""
+    return await cluster.monc.command(cmd, timeout=TEST_MON_WAIT_S)
 
 
 async def _wait_weight(cluster, osd_id, nonzero=True):
@@ -201,11 +210,8 @@ def test_apply_map_view_grows_placement_for_new_osd():
 
 
 def test_mon_osd_add_rm_negative_paths():
-    """The JAX test's commands, each given 30 s to answer: a map that
-    leaves 2 OSDs for 3 positions makes every subscriber's CRUSH retry
-    each PG, which can hold the client's reply past the 2 s default in
-    either package (the command is then resent to the next mon, which
-    answers for the committed map: -2)."""
+    """The JAX test's commands, each given ``TEST_MON_WAIT_S`` to answer
+    (the constant says why)."""
     async def scenario(P, log):
         c = await P.with_mons(3)
         try:
@@ -317,14 +323,12 @@ TIMED = ("time_to_clean_s", "client_p99_during_expansion_ms",
 
 
 def test_elastic_path_bench_smoke(monkeypatch):
-    """Both packages' bench at its smoke shape.  The port's bench gives
-    each mon command 30 s to answer (``MON_COMMAND_TIMEOUT_S``); the JAX
-    package's cluster is given the same here, so that a reply held past
-    the 2 s default by the subscribers' remap cannot turn a resent ``osd
-    add`` into EEXIST in one package and not the other."""
+    """Both packages' bench at its smoke shape.  The port's bench waits
+    the mon client's 2 s default for each mon command; the JAX package's
+    cluster is given ``TEST_MON_WAIT_S`` here, so that a reply held past
+    2 s cannot turn its resent ``osd add`` into EEXIST."""
     async def mon_command(self, cmd):
-        return await self.monc.command(
-            cmd, timeout=elastic_bench.MON_COMMAND_TIMEOUT_S)
+        return await self.monc.command(cmd, timeout=TEST_MON_WAIT_S)
 
     monkeypatch.setattr(j_cluster.ECCluster, "mon_command", mon_command)
     moved, results = {}, {}

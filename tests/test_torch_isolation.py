@@ -12,8 +12,10 @@ the kernel sweep and its two probe tools on the CPU, a mon-backed cluster
 on blockstore with a replicated pool beside its EC pool, its crash
 remount, each persistent engine's round trip, an OSD cap check, the
 entry twin's fast dry run over four CPU slots, object-class ``exec``s
-through ``Rados``/``IoCtx``, a mgr scrape over HTTP and the elastic
-bench's smoke shape).  The native host
+through ``Rados``/``IoCtx``, a mgr scrape over HTTP, the elastic
+bench's smoke shape and one cluster cycle over localhost TCP: OSD
+daemons on ``TCPMessenger``s with the Python wire codec, corked and
+signed).  The native host
 libraries are held to the same rule: every source the port's build names
 lies in ``ceph_tpu_torch/native/``, no port module names a path under the
 JAX package, and every shared library a process of the port maps from
@@ -86,6 +88,13 @@ def test_port_files_import_no_jax_and_no_reference_package():
             if p.parent == PORT / "mgr" / "mgr_modules"}
     assert {PORT / "client.py", PORT / "osd" / "elastic_bench.py",
             PORT / "osd" / "failover_bench.py"} <= set(files)
+    # and the TCP messenger: wire codec, rings, transport, its benches,
+    # the dispatch throttle and cephx
+    assert {"__init__.py", "fault.py", "wire.py", "shm_ring.py", "tcp.py",
+            "cluster_bench.py", "mesh_bench.py"} \
+        <= {p.name for p in files if p.parent == PORT / "msg"}
+    assert {PORT / "utils" / "throttle.py",
+            PORT / "auth" / "cephx.py"} <= set(files)
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -288,6 +297,20 @@ from ceph_tpu_torch.osd import elastic_bench
 el = elastic_bench.run_elastic_path_bench(
     smoke=True, profile=dict(elastic_bench.PROFILE, device="cpu"))
 assert el["bit_exact"] and el["data_moved_ratio"] <= 1.25
+from ceph_tpu_torch.auth import KeyRing
+from ceph_tpu_torch.msg import cluster_bench as msg_bench
+ring = KeyRing()
+for ent in ("osd.0", "osd.1", "osd.2", "client"):
+    ring.add(ent)
+wire_payloads = msg_bench.make_payloads(6, 3000, seed=4)
+with msg_bench.python_wire_codec():
+    loop = asyncio.new_event_loop()
+    wc = loop.run_until_complete(msg_bench._one_cycle(
+        reg.factory("cuda", {"k": "2", "m": "1", "device": "cpu"}),
+        3, wire_payloads, 2, cork=True, keyring=ring))
+    loop.close()
+assert wc["counters"]["tcp_conns"] > 0 and wc["counters"]["frames_sent"] > 0
+assert len(wc["_shards"]) == 6 * 3
 assert not any(m in ("jax", "tools", "experiments")
                or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
                for m, mod in sys.modules.items() if mod is not None)

@@ -20,7 +20,7 @@ value, with these exceptions:
   ``ceph_jit_retraces_total`` is the port's ``ceph_library_builds_total``
   (its ledger counts kernel libraries, not XLA compilations), and the
   JAX package's ``ceph_wire_codec_native`` has no counterpart until the
-  port has the TCP messenger (ROADMAP.md queue 1 item 16);
+  port has the native wire codec (ROADMAP.md queue 1 item 16b);
 * the residency ledger's series (library builds, transfers, mesh bytes)
   hold each package's own process-wide transfer ledger, and the port's
   codec uploads where the JAX package's ``jerasure`` runs on the host, so
