@@ -1,14 +1,12 @@
 """Cluster state aggregation, health checks, prometheus exposition.
 
 Port of ``ceph_tpu/mgr/mgr.py``.  The exposition differs from the JAX
-package's in two series, both because the port's ledgers differ:
-
-* ``ceph_library_builds_total`` stands where the JAX package has
-  ``ceph_jit_retraces_total``: the port's residency ledger counts kernel
-  libraries built or first loaded (``analysis/residency.py``), where the
-  JAX package counts XLA compilations;
-* ``ceph_wire_codec_native`` is left out: it reports the native wire
-  codec, which the port does not have yet (ROADMAP.md queue 1 item 16b).
+package's in one series, because the port's ledger differs:
+``ceph_library_builds_total`` stands where the JAX package has
+``ceph_jit_retraces_total``: the port's residency ledger counts kernel
+libraries built or first loaded (``analysis/residency.py``), where the
+JAX package counts XLA compilations.  ``ceph_wire_codec_native`` reports
+the port's native wire codec (``native/wire_codec.py``).
 
 The JAX package guards each exposition section with ``except Exception:
 pass``.  Every section here reads a port module that is always present,
@@ -294,9 +292,21 @@ def prometheus_text(state: dict) -> str:
     # one device), so these carry no ceph_daemon label -- a rising
     # library_builds under steady traffic means a hot path builds or
     # loads a library; a rising d2h on the write path means residency
-    # broke.  (The JAX package also exposes ceph_wire_codec_native here,
-    # the native wire codec's gauge; the port gets that codec with
-    # ROADMAP.md queue 1 item 16b.)
+    # broke.
+    # native wire codec state: 1 when new messengers run the C codec, 0
+    # when a gate (``native``, ``osd_wire_codec_native``) is off or its
+    # build failed (the failure is in wire_codec.status()); wire bytes
+    # are identical either way
+    from ceph_tpu_torch.native import wire_codec as _wire_codec
+
+    on = _wire_codec.status()["enabled"]
+    lines += [
+        "# HELP ceph_wire_codec_native whether the batched native "
+        "wire codec (_wire_native) is serving the frame path",
+        "# TYPE ceph_wire_codec_native gauge",
+        f'ceph_wire_codec_native{{enabled="{"true" if on else "false"}"}} '
+        f'{1 if on else 0}',
+    ]
     from ceph_tpu_torch.analysis import residency as _residency
     from ceph_tpu_torch.parallel import mesh_plane as _mesh_mod
 

@@ -7,8 +7,9 @@ Port of ``ceph_tpu/msg``:
   TCP with framed, crc-guarded typed messages, cephx, lossless sessions
   and corked bursts), over ``msg/shm_ring.py`` between colocated daemons
   when ``osd_msgr_shm_ring`` is on;
-* wire codecs: ``ceph_tpu_torch.msg.wire`` (the pure-Python codec; the
-  JAX package's C codec is ROADMAP.md queue 1 item 16b);
+* wire codecs: ``ceph_tpu_torch.msg.wire`` (the Python codec) and the
+  batched C codec it registers its types with
+  (``ceph_tpu_torch.native.wire_codec``, ``native/wire_native.c``);
 * fault injection: ``ceph_tpu_torch.msg.fault``;
 * benches over real sockets: ``msg/cluster_bench.py`` (``-w
   cluster-path``) and ``msg/mesh_bench.py`` (``-w mesh-path``).

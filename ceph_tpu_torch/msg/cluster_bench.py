@@ -1,9 +1,10 @@
 """Cluster-path benchmark: the EC write/read cycle over REAL TCP sockets.
 
 Port of ``ceph_tpu/msg/cluster_bench.py`` over the port's ``OSDShard``,
-``Objecter`` and ``CrushPlacement``, on ``msg/tcp.py`` with the Python
-wire codec (the run sets ``osd_wire_codec_native=false`` for its length
-and says ``"wire_codec": "python"``).  Beyond the JAX package's result,
+``Objecter`` and ``CrushPlacement``, on ``msg/tcp.py`` with the wire
+codec the configuration gives (the native C codec by default; the result
+says which ran under ``"wire_codec"``, and :func:`python_wire_codec`
+runs the Python codec for an A/B).  Beyond the JAX package's result,
 each mode reports the transfer ledger of its write and read passes
 (``residency``: H2D ops per fused granule, library builds) and the
 result's ``steady_library_builds`` sums the builds of every timed pass
@@ -44,15 +45,20 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-#: the wire codec every run of this module uses (the native one is
-#: ROADMAP.md queue 1 item 16b)
-WIRE_CODEC = "python"
+
+def wire_codec_name() -> str:
+    """The wire codec messengers built now run: ``"native"`` or
+    ``"python"`` (raises where the native codec is asked for and cannot
+    be built)."""
+    from ceph_tpu_torch.native import wire_codec
+
+    return "python" if wire_codec.native() is None else "native"
 
 
 @contextlib.contextmanager
 def python_wire_codec():
     """``osd_wire_codec_native=false`` for the length of the block (the
-    port's TCP messenger refuses the native codec), restored after."""
+    Python codec, the A/B baseline of the native one), restored after."""
     from ceph_tpu_torch.utils.config import get_config
 
     cfg = get_config()
@@ -384,16 +390,9 @@ def run_cluster_path_bench(ec, *, n_objects: int = 64,
     order, under ``"_cycles"``: ``(wall_write_s, wall_read_s)`` for
     ``per_message`` and ``corked``, ``wall_write_s`` for
     ``wire_per_message`` and ``wire_corked``."""
-    with python_wire_codec():
-        return _run_cluster_path_bench(
-            ec, n_objects=n_objects, obj_bytes=obj_bytes, writers=writers,
-            iters=iters, seed=seed, n_osds=n_osds, keep_shards=keep_shards,
-            keep_cycles=keep_cycles)
-
-
-def _run_cluster_path_bench(ec, *, n_objects, obj_bytes, writers, iters,
-                            seed, n_osds, keep_shards, keep_cycles) -> dict:
     from ceph_tpu_torch.osd.elastic_bench import warm_codec
+
+    codec = wire_codec_name()
 
     if n_osds is None:
         n_osds = ec.get_chunk_count()
@@ -472,7 +471,7 @@ def _run_cluster_path_bench(ec, *, n_objects, obj_bytes, writers, iters,
         if wire["corked"]["wall_write_s"] else None,
         "steady_library_builds": (per_msg["steady_library_builds"]
                                   + corked["steady_library_builds"]),
-        "wire_codec": WIRE_CODEC,
+        "wire_codec": codec,
     }
     if keep_shards:
         out["_shards"] = shards["corked"]

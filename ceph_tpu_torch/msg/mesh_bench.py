@@ -3,9 +3,9 @@
 Port of ``ceph_tpu/msg/mesh_bench.py`` over the port's
 ``parallel/mesh_plane.py``, with the pool on the port's ``cuda`` plugin
 where the JAX package's names ``tpu`` (``profile`` overlays it:
-``{"device": "cpu"}`` on the CPU) and the Python wire codec
-(``"wire_codec": "python"``).  The plane's slots are the devices of
-``parallel.local_devices()``; the caller sets them
+``{"device": "cpu"}`` on the CPU), on the wire codec the configuration
+gives (``"wire_codec"``: ``"native"`` by default).  The plane's slots are
+the devices of ``parallel.local_devices()``; the caller sets them
 (``parallel.configure_devices``) where the process has fewer cards than
 the largest mesh size.  The JAX package's gate of zero steady retraces is
 the port's ``steady_library_builds == 0``: no kernel library (or the
@@ -49,9 +49,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ceph_tpu_torch.msg.cluster_bench import (WIRE_CODEC, ClusterHarness,
-                                              make_payloads,
-                                              python_wire_codec)
+from ceph_tpu_torch.msg.cluster_bench import (ClusterHarness, make_payloads,
+                                              wire_codec_name)
 
 
 def _warm_encode_buckets(plane, ec, chunk_bytes: int) -> None:
@@ -146,22 +145,13 @@ def run_mesh_path_bench(
     bytes, wire-avoided monotonicity, steady library builds).
     ``keep_shards`` adds the ``tcp_only`` stored shard bytes under
     ``"_shards"``."""
-    with python_wire_codec():
-        return _run_mesh_path_bench(
-            n_objects=n_objects, obj_bytes=obj_bytes, writers=writers,
-            mesh_sizes=mesh_sizes, iters=iters, k=k, m=m, seed=seed,
-            encode_stripes=encode_stripes, profile=profile or {},
-            keep_shards=keep_shards)
-
-
-def _run_mesh_path_bench(*, n_objects, obj_bytes, writers, mesh_sizes,
-                         iters, k, m, seed, encode_stripes, profile,
-                         keep_shards) -> dict:
     from ceph_tpu_torch.osd.elastic_bench import warm_codec
     from ceph_tpu_torch.parallel import mesh_plane
     from ceph_tpu_torch.plugins import registry as registry_mod
     from ceph_tpu_torch.utils.config import get_config
 
+    profile = profile or {}
+    codec = wire_codec_name()
     cfg = get_config()
     prior_gate = bool(cfg.get_val("osd_mesh_data_plane"))
     n_osds = k + m
@@ -281,7 +271,7 @@ def _run_mesh_path_bench(*, n_objects, obj_bytes, writers, mesh_sizes,
             walls["tcp_only"] / walls[biggest], 3)
         if walls.get(biggest) else None,
         "steady_library_builds": steady,
-        "wire_codec": WIRE_CODEC,
+        "wire_codec": codec,
     }
     if keep_shards:
         out["_shards"] = shards[base_key]

@@ -1,14 +1,16 @@
 """TCP messenger: the in-process bus semantics over real sockets.
 
-Port of ``ceph_tpu/msg/tcp.py`` on the pure-Python wire codec
-(``msg/wire.py``).  The frames on the socket are the JAX package's, byte
-for byte: banner, cephx handshake, signed frames, session watermarks,
-cumulative and piggybacked acks.  The JAX package's batched C codec
-(``native/wire_codec.py``) is not ported yet (ROADMAP.md queue 1 item
-16b): where the configuration asks for it (``native`` and
-``osd_wire_codec_native`` both true, the defaults) the constructor
-raises :class:`WireCodecNotPorted`; with ``osd_wire_codec_native=false``
-the Python codec runs, as the JAX package runs it under that setting.
+Port of ``ceph_tpu/msg/tcp.py``.  The frames on the socket are the JAX
+package's, byte for byte: banner, cephx handshake, signed frames, session
+watermarks, cumulative and piggybacked acks.  Each messenger resolves its
+wire codec once, at construction (``native/wire_codec.native()``): the
+batched C codec (``native/wire_native.c``) where ``native`` and
+``osd_wire_codec_native`` are both true (the defaults; a failed build
+raises), the Python codec (``msg/wire.py``) where either is off.  The C
+codec serves the frame reader (``parse_burst``), the envelope and body
+decode (``decode_msg``), the encode at enqueue (``encode_entry``; a value
+outside its model raises ``FallbackError`` and that message takes the
+Python encoder) and the seal of unsigned bursts (``seal_frames``).
 
 Reference: src/msg/async/AsyncMessenger.{h,cc} with the posix NetworkStack
 (src/msg/async/Stack.h:287, PosixStack.h) -- a listening socket per
@@ -80,6 +82,7 @@ from typing import Awaitable, Callable, Dict, Iterable, List, Optional, \
 from ceph_tpu_torch.msg import shm_ring as _shm
 from ceph_tpu_torch.msg.fault import FaultInjector
 from ceph_tpu_torch.msg.wire import decode_message, message_encoder
+from ceph_tpu_torch.native import wire_codec
 from ceph_tpu_torch.native.gf_native import crc32c
 from ceph_tpu_torch.profiling import ledger as _profiler
 from ceph_tpu_torch.utils.encoding import Decoder, Encoder, crc32c_parts, \
@@ -130,24 +133,6 @@ _JOIN_BELOW = 4096
 _UNDECODABLE = object()
 
 
-class WireCodecNotPorted(RuntimeError):
-    """The configuration asks for the native wire codec, which the port
-    does not have yet (ROADMAP.md queue 1 item 16b)."""
-
-
-def check_wire_codec(cfg) -> None:
-    """Refuse a configuration that asks for the native wire codec: the
-    JAX package would run its C extension there, and the port runs the
-    Python codec only where it is asked for by name."""
-    if bool(cfg.get_val("native")) and \
-            bool(cfg.get_val("osd_wire_codec_native")):
-        raise WireCodecNotPorted(
-            "TCPMessenger: the native wire codec (osd_wire_codec_native="
-            "true with native=true) is not ported yet -- ROADMAP.md queue "
-            "1 item 16b; set osd_wire_codec_native=false to run the "
-            "Python codec")
-
-
 def _varint_bytes(v: int) -> bytes:
     """LEB128 unsigned varint as standalone bytes (the piggyback-ack
     tail appended to queued MSG payloads at transmit time)."""
@@ -175,8 +160,9 @@ class _QueuedMsg:
                  nbytes: Optional[int] = None):
         self.seq = seq
         self.parts = parts
-        #: payload crc32c, computed lazily on first transmit
-        #: (_entry_frames) and extended over each transmission's tail
+        #: payload crc32c: the native encoder folds it in the same pass
+        #: that composes the parts; the Python path computes it lazily
+        #: on first transmit (_entry_frames)
         self.crc = crc
         self.nbytes = sum(len(p) for p in parts) if nbytes is None \
             else nbytes
@@ -243,13 +229,22 @@ class _FrameReader:
     cluster-path bench A/Bs the whole wire architecture, not just the
     send side."""
 
-    __slots__ = ("_reader", "_buf", "_pos", "_buffered")
+    __slots__ = ("_reader", "_buf", "_pos", "_buffered", "_native",
+                 "_pending", "_pending_idx", "_corrupt")
 
-    def __init__(self, reader: asyncio.StreamReader, buffered: bool = True):
+    def __init__(self, reader: asyncio.StreamReader, buffered: bool = True,
+                 native=None):
         self._reader = reader
         self._buf = b""
         self._pos = 0
         self._buffered = buffered
+        #: the loaded _wire_native extension (or None = Python codec): a
+        #: whole received burst is scanned + crc-validated in ONE
+        #: GIL-released pass and served frame by frame from _pending
+        self._native = native
+        self._pending: List[bytes] = []
+        self._pending_idx = 0
+        self._corrupt = False
 
     async def _next_frame_per_message(self) -> Optional[bytes]:
         try:
@@ -269,6 +264,8 @@ class _FrameReader:
         caller drops the connection either way)."""
         if not self._buffered:
             return await self._next_frame_per_message()
+        if self._native is not None:
+            return await self._next_frame_native()
         while True:
             buf, pos = self._buf, self._pos
             if len(buf) - pos >= 12:
@@ -285,6 +282,42 @@ class _FrameReader:
                         else:
                             self._pos = pos
                         return rec
+            try:
+                chunk = await self._reader.read(1 << 16)
+            except (ConnectionError, OSError):
+                return None
+            if not chunk:
+                return None
+            self._buf = buf[pos:] + chunk if pos < len(buf) else chunk
+            self._pos = 0
+
+    async def _next_frame_native(self) -> Optional[bytes]:
+        """Native burst parse: every complete frame buffered on the
+        socket is located and crc-validated in one GIL-released C pass
+        (_wire_native.parse_burst); frames are then served from the
+        pending list with no per-frame Python parsing."""
+        while True:
+            if self._pending_idx < len(self._pending):
+                rec = self._pending[self._pending_idx]
+                self._pending_idx += 1
+                return rec
+            if self._corrupt:
+                return None  # forged/torn frame: drop the conn
+            buf, pos = self._buf, self._pos
+            if len(buf) - pos >= 12:
+                with _PS_PARSE:
+                    frames, newpos, ok = self._native.parse_burst(buf, pos)
+                if frames:
+                    self._pending = frames
+                    self._pending_idx = 0
+                    self._corrupt = not ok
+                    if newpos >= len(buf):
+                        self._buf, self._pos = b"", 0
+                    else:
+                        self._pos = newpos
+                    continue
+                if not ok:
+                    return None
             try:
                 chunk = await self._reader.read(1 << 16)
             except (ConnectionError, OSError):
@@ -355,7 +388,6 @@ class TCPMessenger:
         from ceph_tpu_torch.utils.throttle import Throttle
 
         cfg = get_config()
-        check_wire_codec(cfg)
         try:
             cap = int(cfg.get_val("osd_client_message_size_cap"))
         except (KeyError, ValueError, TypeError):
@@ -381,6 +413,12 @@ class TCPMessenger:
             self.shm_ring = False
             self.ring_bytes = _shm.DEFAULT_RING_BYTES
         self._ring_registered = False
+        #: batched native wire codec (_wire_native via
+        #: native/wire_codec.py), resolved once per messenger: None = the
+        #: Python codec (``native`` or ``osd_wire_codec_native`` off --
+        #: the A/B baseline); a failed build raises here.  Every native
+        #: seam below emits and reads the Python codec's bytes.
+        self._native = wire_codec.native()
         self._cork_queues: Dict[str, _CorkQueue] = {}
         self._cork_seq = 0
         #: (src entity, dst entity) -> encoded kind|src|dst MSG head
@@ -594,7 +632,8 @@ class TCPMessenger:
     async def _serve_connection_inner(
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
     ) -> None:
-        framer = _FrameReader(reader, buffered=self.cork)
+        framer = _FrameReader(reader, buffered=self.cork,
+                              native=self._native)
         banner = await framer.next_frame()
         if banner is None:
             writer.close()
@@ -680,27 +719,42 @@ class TCPMessenger:
                     dst = dec.string()
                     heads.append((rec[:dec._pos], src, dst))
                     hlen = dec._pos
-            # envelope tail + typed body.  ``msg is _UNDECODABLE`` =
-            # unknown body kind: the watermark still advances and the
-            # frame is counted-and-dropped -- forward compat for newer
-            # peers' frame kinds.
-            with _PS_ENVELOPE:
-                dec = Decoder(rec, hlen)
-                seq = dec.varint()
-                body = dec.blob()
-                # v4 piggyback: a trailing cumulative ack for OUR
-                # reverse stream to this peer rides the data frame (v3
-                # senders never append it; v3 receivers never read this
-                # far)
-                back_ack = dec.varint() if dec.remaining() else None
-            try:
-                with _PS_DECODE:
-                    msg = decode_message(body)
-            except ValueError:
-                # a frame kind this build does not know (a NEWER peer's
-                # message type): ignore-and-count below, after the
-                # watermark bookkeeping
-                msg = _UNDECODABLE
+            # envelope tail + typed body: the native codec parses both
+            # in one C pass straight from the record buffer; a decode it
+            # cannot express (never a well-formed peer's frame) re-parses
+            # through the Python codec below, so behavior is identical
+            # either way.  ``msg is _UNDECODABLE`` = unknown body kind:
+            # the watermark still advances and the frame is
+            # counted-and-dropped -- forward compat for newer peers'
+            # frame kinds.
+            nat = self._native
+            seq = None
+            if nat is not None:
+                try:
+                    with _PS_DECODE:
+                        seq, msg, back_ack = nat.decode_msg(rec, hlen)
+                    if msg is nat.UNKNOWN:
+                        msg = _UNDECODABLE
+                except ValueError:
+                    seq = None
+            if seq is None:
+                with _PS_ENVELOPE:
+                    dec = Decoder(rec, hlen)
+                    seq = dec.varint()
+                    body = dec.blob()
+                    # v4 piggyback: a trailing cumulative ack for OUR
+                    # reverse stream to this peer rides the data frame
+                    # (v3 senders never append it; v3 receivers never
+                    # read this far)
+                    back_ack = dec.varint() if dec.remaining() else None
+                try:
+                    with _PS_DECODE:
+                        msg = decode_message(body)
+                except ValueError:
+                    # a frame kind this build does not know (a NEWER
+                    # peer's message type): ignore-and-count below,
+                    # after the watermark bookkeeping
+                    msg = _UNDECODABLE
             if back_ack:
                 sess = self._sessions.get(peer_node)
                 if sess is not None:
@@ -860,7 +914,8 @@ class TCPMessenger:
         else:
             reader, writer = await asyncio.open_connection(host, port)
             self.counters["tcp_conns"] += 1
-        framer = _FrameReader(reader, buffered=self.cork)
+        framer = _FrameReader(reader, buffered=self.cork,
+                              native=self._native)
         nonce = AuthHandshake.new_nonce() if self.keyring is not None else b""
         banner = (
             Encoder().string(_BANNER).varint(_PROTOCOL_VERSION)
@@ -1076,6 +1131,19 @@ class TCPMessenger:
             if head is None:
                 head = self._head_cache[(src, dst)] = (
                     Encoder().u8(_K_MSG).string(src).string(dst).bytes())
+            nat = self._native
+            if nat is not None:
+                try:
+                    # one C pass: head + seq/length varints + typed body
+                    # as a scatter part list, payload crc folded along
+                    # the way (the transmit-time seal only extends it)
+                    parts, nbytes, crc = nat.encode_entry(head, seq, msg)
+                except nat.FallbackError:
+                    pass  # a value outside the C model: python encodes
+                else:
+                    entry = _QueuedMsg(seq, parts, crc=crc, nbytes=nbytes)
+                    _PS_ENCODE.add_bytes(nbytes)
+                    return entry
             body_parts = message_encoder(msg)._parts
             body_len = sum(map(len, body_parts))
             pre = head + _varint_bytes(seq) + _varint_bytes(body_len)
@@ -1195,12 +1263,23 @@ class TCPMessenger:
             return
         prof_on = _profiler.enabled()
         t_burst = _time.perf_counter_ns() if prof_on else 0
-        for i, entry in enumerate(batch):
-            # the cumulative piggyback rides the LAST frame of the
-            # burst; the receiver processes in order, one watermark
-            # covers every earlier frame too
-            bufs.extend(self._entry_frames(
-                entry, skey, ack if i == last else 0))
+        nat = self._native
+        if nat is not None and skey is None:
+            # the whole batch sealed in one C call: frame headers +
+            # piggyback-ack tail composed natively, cached payload
+            # crcs extended (signed connections keep the Python seal:
+            # the hmac runs per transmission either way)
+            with _PS_SEAL:
+                bufs, nbytes = nat.seal_frames(batch, ack)
+                _PS_SEAL.add_bytes(nbytes)
+        else:
+            for i, entry in enumerate(batch):
+                # the cumulative piggyback rides the LAST frame of the
+                # burst; the receiver processes in order, one watermark
+                # covers every earlier frame too
+                bufs.extend(self._entry_frames(
+                    entry, skey, ack if i == last else 0))
+            nbytes = -1
         try:
             with _PS_WRITE:
                 writer.writelines(bufs)
@@ -1208,7 +1287,8 @@ class TCPMessenger:
             self._conn_failed(node, writer, lossless)
             self._requeue_lossy(node, q, batch, lossless)
             return
-        nbytes = sum(len(b) for b in bufs)
+        if nbytes < 0:
+            nbytes = sum(len(b) for b in bufs)
         if prof_on:
             # per-connection per-burst sub-accounting: frames/burst,
             # bytes/burst, ns/frame percentiles (the decomposition's
@@ -1325,9 +1405,15 @@ class TCPMessenger:
                         t_burst = _time.perf_counter_ns() if prof_on \
                             else 0
                         bufs: List = []
-                        for i, entry in enumerate(batch):
-                            bufs.extend(self._entry_frames(
-                                entry, skey, ack if i == last else 0))
+                        nat = self._native
+                        if nat is not None and skey is None:
+                            with _PS_SEAL:
+                                bufs, _nb = nat.seal_frames(batch, ack)
+                                _PS_SEAL.add_bytes(_nb)
+                        else:
+                            for i, entry in enumerate(batch):
+                                bufs.extend(self._entry_frames(
+                                    entry, skey, ack if i == last else 0))
                         with _PS_WRITE:
                             writer.writelines(bufs)
                         if prof_on:

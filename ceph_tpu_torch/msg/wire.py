@@ -2,10 +2,10 @@
 
 Port of ``ceph_tpu/msg/wire.py``: the same type codes and the same bytes
 for every message, over the port's ``osd/types.py`` and ``mgr/report.py``
-dataclasses.  Only the pure-Python codec is ported; the JAX package's
-batched C codec (``native/wire_codec.py``) is ROADMAP.md queue 1 item
-16b, and ``msg/tcp.py`` refuses to start where the configuration asks
-for it.
+dataclasses.  The batched C codec (``native/wire_native.c``, loaded by
+``native/wire_codec.py``) emits the same bytes; the functions here are
+the codec ``msg/tcp.py`` runs where ``native`` or
+``osd_wire_codec_native`` is off, and for a value the C encoder refuses.
 
 Reference: src/messages/* -- each message is a typed, versioned struct
 serialized through the encoding framework and carried in a crc-guarded
@@ -21,7 +21,10 @@ mgr telemetry frames, and arbitrary control values (str/dict/tuple/...
 
 from __future__ import annotations
 
+import numpy as np
+
 from ceph_tpu_torch.mgr.report import MgrBeacon, MgrReport
+from ceph_tpu_torch.native import wire_codec
 from ceph_tpu_torch.osd.types import (
     ECSubRead,
     ECSubReadReply,
@@ -32,6 +35,18 @@ from ceph_tpu_torch.osd.types import (
     TxnOp,
 )
 from ceph_tpu_torch.utils.encoding import Decoder, Encoder
+
+# hand the native batched codec (native/wire_native.c) the message
+# dataclasses it constructs: the C decode calls the SAME constructors
+# this module does, and the C encode emits the bytes of the functions
+# below (tests/test_torch_wire_native.py holds both against the JAX
+# package's Python codec).
+wire_codec.initialize(
+    ec_sub_write=ECSubWrite, ec_sub_write_reply=ECSubWriteReply,
+    ec_sub_read=ECSubRead, ec_sub_read_reply=ECSubReadReply,
+    transaction=Transaction, txn_op=TxnOp, log_entry=LogEntry,
+    mgr_beacon=MgrBeacon, mgr_report=MgrReport, np_integer=np.integer,
+)
 
 # message type codes (the reference's CEPH_MSG_* / MSG_OSD_EC_* ids)
 _MSG_VALUE = 0

@@ -5,7 +5,9 @@ Port of the targets of ``ceph_tpu/native/Makefile``: ``libec_kernels.so``
 ``libec_registry.so`` (the dlopen plugin registry), the plugins
 ``libec_xor_native.so`` and ``libec_regen_native.so``, the six broken-plugin
 fixtures (``plugin_fixtures.cpp`` under one ``-DFIXTURE_*`` flag each) and,
-on demand, the CPython extension ``_ec_native`` (``py_ext.c``).
+on demand, the CPython extensions ``_ec_native`` (``py_ext.c``) and
+``_wire_native`` (``wire_native.c``, the batched wire codec, with its
+ASan/UBSan twin for ``tools/wire_fuzz.py --san``).
 
 Everything is compiled with the host ``g++`` (``$CXX``, else ``g++`` or
 ``c++``) at first use into one directory, ``ceph_tpu_torch/build/
@@ -44,6 +46,11 @@ SOURCES = ("gf_kernels.cpp", "ec_plugin.h", "ec_registry.cpp",
            "plugin_xor.cpp", "plugin_regen.cpp", "plugin_fixtures.cpp",
            "py_ext.c")
 CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-march=native")
+#: the wire codec extension's sources (``wire_native.c`` calls
+#: ``ec_crc32c`` of ``gf_kernels.cpp``), and its sanitizer flags
+WIRE_SOURCES = ("wire_native.c", "gf_kernels.cpp")
+SAN_FLAGS = ("-fsanitize=address,undefined", "-fno-sanitize-recover=undefined",
+             "-fno-omit-frame-pointer", "-g")
 
 #: fixture plugin name -> the -D flag that selects it in plugin_fixtures.cpp
 FIXTURES = {
@@ -201,7 +208,43 @@ def py_ext() -> Path:
         return so
 
 
+def wire_ext(san: bool = False) -> Path:
+    """Build the CPython extension ``_wire_native`` (``wire_native.c``
+    with ``gf_kernels.cpp``) against this interpreter's headers and return
+    its path.  It lives in ``build/wire_native-<digest>/``, keyed like the
+    other libraries and by the interpreter's headers and extension suffix.
+    ``san=True`` builds the ASan/UBSan-instrumented twin
+    (``_wire_native_san<suffix>``; its module name stays ``_wire_native``,
+    and the interpreter must preload ``libasan``).  A missing compiler or a
+    failed build raises."""
+    cxx = compiler()
+    include = sysconfig.get_paths()["include"]
+    suffix = sysconfig.get_config_var("EXT_SUFFIX")
+    h = hashlib.sha256()
+    for name in WIRE_SOURCES:
+        h.update(name.encode() + b"\0" + (SOURCE_DIR / name).read_bytes())
+    h.update(" ".join(CXXFLAGS + SAN_FLAGS * san).encode() + b"\0"
+             + cxx.encode() + b"\0" + include.encode() + suffix.encode())
+    h.update(host_cpu().encode())
+    out = BUILD_DIR / f"wire_native-{h.hexdigest()[:16]}"
+    so = out / (f"_wire_native{'_san' if san else ''}{suffix}")
+    with _lock:
+        if so.exists():
+            return so
+        out.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f".{so.name}.{os.getpid()}."
+                           f"{threading.get_ident()}.tmp")
+        _run([cxx, *CXXFLAGS, *(SAN_FLAGS * san), "-shared",
+              "-Wl,-Bsymbolic", "-o", str(tmp),
+              *(str(SOURCE_DIR / name) for name in WIRE_SOURCES),
+              f"-I{include}"], out)
+        os.replace(tmp, so)
+        return so
+
+
 if __name__ == "__main__":
     print(native_dir())
     if "--py-ext" in sys.argv[1:]:
         print(py_ext())
+    if "--wire-ext" in sys.argv[1:]:
+        print(wire_ext())

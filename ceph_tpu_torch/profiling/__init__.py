@@ -1,15 +1,16 @@
 """Wire-tax profiler: hot-path cost attribution for the Python wire loop.
 
-Port of ``ceph_tpu/profiling`` (its ledger and loop/GC arm, and the
-mgr's two views of them, :func:`report_slice` and
-:func:`prometheus_text`; the reference's stack sampler, its ``full`` mode
-and its admin-socket views wait for a port path that uses them, and the
-wire-tax benchmark for the port's wire path).  The port keeps its
-own module state, so a process that imports both packages does not
-cross-feed them; its stage markers are the Python ones (the reference
-swaps in C markers from its native wire codec, which the port has not).
+Port of ``ceph_tpu/profiling``: the ledger, the loop/GC arm, the stack
+sampler, the mgr's two views (:func:`report_slice`,
+:func:`prometheus_text`), the sampler's speedscope and collapsed exports
+(:func:`asok_dump`; the other admin-socket views come with the admin
+socket) and the wire-tax benchmark (:mod:`wire_tax_bench`).  The port
+keeps its own module state, so a process that imports both packages does
+not cross-feed them; its stage markers are the C ones of its native wire
+codec where that codec's gates are on (``ledger.marker_class()``), else
+the Python ones.
 
-Two arms, one ledger (docs/observability.md "Wire-tax profiling"):
+Three arms, one ledger:
 
 * **stage cost ledger** (:mod:`ledger`): zero-alloc ``with
   prof.stage(name)`` markers on the real wire-loop seams (encoder
@@ -20,12 +21,17 @@ Two arms, one ledger (docs/observability.md "Wire-tax profiling"):
   duration + timer scheduling latency (subsuming ``LoopLagProbe`` --
   the probe's sleeper task is the sampled fallback when this arm is
   off) and ``gc.callbacks`` pause accounting, GC pauses credited OUT of
-  the stage they interrupted so nothing double counts.
+  the stage they interrupted so nothing double counts;
+* **sampling profiler** (:mod:`sampler`): a thread sampler attributing
+  stacks to the declared stages, exporting speedscope + collapsed
+  flamegraph JSON.
 
 Modes (``profile_mode``): ``off`` (default -- the instrumented seams
-run one global-bool branch and allocate nothing) and ``on`` (ledger +
-loop/GC arms).  ``tools/trace_main_path.py --storage-path`` turns it on
-to read the coalescer's dispatch time.
+run one global-bool branch and allocate nothing), ``on`` (ledger +
+loop/GC arms; the <=3%-overhead configuration the wire-tax bench
+gates), ``full`` (``on`` plus the continuous stack sampler).
+``tools/trace_main_path.py --storage-path`` turns it on to read the
+coalescer's dispatch time.
 """
 
 from __future__ import annotations
@@ -42,9 +48,10 @@ stage_exit = _ledger.stage_exit
 note_burst = _ledger.note_burst
 enabled = _ledger.enabled
 
-_MODES = ("off", "on")
+_MODES = ("off", "on", "full")
 _mode = "off"
 _monitor: Optional["_loopmon.LoopMonitor"] = None
+_sampler = None
 
 
 def mode() -> str:
@@ -62,7 +69,7 @@ def configure(mode: Optional[str] = None) -> str:
     """Apply ``profile_mode`` (argument overrides + persists to the
     config, the trace.configure() discipline); installs/uninstalls the
     arms.  Returns the effective mode."""
-    global _mode, _monitor
+    global _mode, _monitor, _sampler
     from ceph_tpu_torch.utils.config import get_config
 
     cfg = get_config()
@@ -75,6 +82,10 @@ def configure(mode: Optional[str] = None) -> str:
         eff = "off"
     if eff == _mode:
         return _mode
+    # tear down what the old mode had up
+    if _sampler is not None:
+        _sampler.stop()
+        _sampler = None
     if _monitor is not None and eff == "off":
         _monitor.uninstall()
     if eff == "off":
@@ -85,8 +96,18 @@ def configure(mode: Optional[str] = None) -> str:
     if _monitor is None:
         _monitor = _loopmon.LoopMonitor()
     _monitor.install()
+    if eff == "full":
+        from ceph_tpu_torch.profiling.sampler import StackSampler
+
+        hz = float(cfg.get_val("profile_sample_hz"))
+        _sampler = StackSampler(hz=hz)
+        _sampler.start()
     _mode = eff
     return _mode
+
+
+def current_sampler():
+    return _sampler
 
 
 def reset() -> None:
@@ -106,6 +127,11 @@ def snapshot() -> dict:
     mon = _loopmon.active()
     if mon is not None:
         out["loop"] = mon.snapshot()
+    if _sampler is not None:
+        out["sampler"] = {
+            "samples": _sampler.samples,
+            "stage_shares": _sampler.stage_shares(),
+        }
     return out
 
 
@@ -198,3 +224,15 @@ def prometheus_text() -> str:
             f"{mon.callback_ns / 1e9:.6f}",
         ]
     return "\n".join(lines)
+
+
+# -- admin views -------------------------------------------------------------
+
+def asok_dump(cmd=None) -> dict:
+    out = snapshot()
+    fmt = (cmd or {}).get("format")
+    if fmt == "speedscope" and _sampler is not None:
+        out["speedscope"] = _sampler.speedscope()
+    elif fmt == "collapsed" and _sampler is not None:
+        out["collapsed"] = _sampler.collapsed()
+    return out

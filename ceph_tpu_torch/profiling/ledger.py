@@ -2,13 +2,10 @@
 
 Port of ``ceph_tpu/profiling/ledger.py``; the port keeps its own copy (its
 own globals), so a process that imports both packages does not cross-feed
-them. The reference swaps in C stage markers from its native wire codec
-when that build is present; the port has no wire codec yet, so its markers
-are always the Python :class:`StageMarker`.
+them.
 
-ROADMAP item 2 (the native/zero-copy transport) needs the 99%-CPU
-Python wire loop decomposed into NAMED costs before the FFI rewrite can
-be aimed; this ledger is the attribution substrate.  The discipline is
+The wire loop's host cost is decomposed into NAMED costs here; this
+ledger is the attribution substrate.  The discipline is
 the one PAPERS "Accelerating XOR-based Erasure Coding using Program
 Optimization Techniques" applied to the coding loop: measure the loop's
 schedule first, then re-arrange it.
@@ -19,12 +16,16 @@ Design constraints (all load-bearing):
   marker per name for the process lifetime; instrumented modules fetch
   their markers at import time, so the per-frame cost is the ``with``
   protocol on a preallocated object -- no dict lookup, no allocation
-  on the hot path.
+  on the hot path.  The marker is ``_wire_native.Stage`` (C: two
+  ``clock_gettime`` reads + struct-field math) when the native wire codec
+  is loaded (both its gates on at import; a failed build raises), and
+  the pure-Python :class:`StageMarker` twin otherwise -- identical
+  semantics, selected once at import.
 * **Off is (allocation-)free.**  Disabled markers take one global-bool
   branch in ``__enter__``/``__exit__`` and allocate NOTHING -- the
-  off-mode pin in tests/test_profiling.py asserts a zero
-  ``sys.getallocatedblocks`` delta across thousands of enter/exit
-  cycles, and the bench stage re-asserts it per run.
+  wire-tax bench's off-mode pin (``profiling/wire_tax_bench.py``)
+  asserts a zero ``sys.getallocatedblocks`` delta across thousands of
+  enter/exit cycles on every run.
 * **Exclusive time.**  Stages nest (``wire.crc32c`` runs inside
   ``wire.crc_seal``); on child entry the parent's elapsed-so-far is
   banked and its clock pauses, so every nanosecond lands in exactly one
@@ -59,7 +60,7 @@ _now_ns = time.perf_counter_ns
 _enabled = False
 
 #: innermost active stage marker of the event-loop thread (exclusive
-#: accounting; None between stages)
+#: accounting + the sampler's attribution read; None between stages)
 _current: Optional["StageMarker"] = None
 
 #: name -> StageMarker (process-wide; markers live forever)
@@ -127,13 +128,33 @@ class StageMarker:
             self.nbytes += n
 
 
+#: the marker hot path in C with the native wire extension
+#: (_wire_native.Stage -- identical exclusive-time semantics at
+#: clock_gettime cost).  Selected ONCE at profiler import: against the
+#: native codec's wire wall the Python markers' ~0.6us/pair is a >3%
+#: enabled overhead, failing the wire-tax stage's own gate.  Python
+#: markers carry the ledger where a gate (``native``,
+#: ``osd_wire_codec_native``) is off at import; reset()/snapshot()/
+#: gc_credit speak to both through the same attribute surface.
+from ceph_tpu_torch.native import wire_codec as _wire_codec  # noqa: E402
+
+_native_stages = _wire_codec.native()
+
+
 def stage(name: str) -> StageMarker:
     """The process-wide marker for ``name`` (created on first use;
     instrumented modules call this once at import)."""
     m = _markers.get(name)
     if m is None:
-        m = _markers[name] = StageMarker(name)
+        impl = StageMarker if _native_stages is None \
+            else _native_stages.Stage
+        m = _markers[name] = impl(name)
     return m
+
+
+def marker_class() -> type:
+    """The class of this process's markers (C or Python)."""
+    return StageMarker if _native_stages is None else _native_stages.Stage
 
 
 # -- the paired-call form ----------------------------------------------------
@@ -158,9 +179,21 @@ def gc_credit(ns: int) -> None:
     clock ran through the collector, so pushing its start stamp forward
     by the pause keeps stage time and gc time disjoint (the
     decomposition sums without double counting)."""
+    if _native_stages is not None:
+        _native_stages.stage_gc_credit(ns)
+        return
     cur = _current
     if cur is not None:
         cur._t0 += ns
+
+
+def current_stage_name() -> Optional[str]:
+    """The innermost active stage (the sampler's attribution read;
+    racy by design -- a sample is a sample)."""
+    if _native_stages is not None:
+        return _native_stages.stage_current_name()
+    cur = _current
+    return cur.name if cur is not None else None
 
 
 # -- burst sub-accounting ----------------------------------------------------
@@ -214,6 +247,8 @@ def set_enabled(on: bool) -> None:
     _enabled = bool(on)
     if not on:
         _current = None
+    if _native_stages is not None:
+        _native_stages.stage_set_enabled(_enabled)
 
 
 def stages_snapshot() -> Dict[str, dict]:

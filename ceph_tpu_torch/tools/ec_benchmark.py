@@ -2,8 +2,9 @@
 """ceph_erasure_code_benchmark-compatible CLI for the port's plugins.
 
 Port of the ``encode``, ``decode``, ``storage-path``, ``recovery-path``,
-``repair-path``, ``tier-path``, ``elastic-path``, ``cluster-path`` and
-``mesh-path`` workloads of ``tools/ec_benchmark.py``
+``repair-path``, ``tier-path``, ``elastic-path``, ``cluster-path``,
+``mesh-path``, ``wire-tax`` and ``trace-path`` workloads of
+``tools/ec_benchmark.py``
 (reference: src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137 setup,
 :150-188 encode, :253-327 decode): encode and decode print
 ``<elapsed_seconds>\\t<KiB>`` where KiB = iterations * size / 1024 (times
@@ -44,15 +45,25 @@ JSON line and a summary on stderr.
 ``Objecter``: ``--objects`` objects of ``--size`` bytes with
 ``--writers`` writers, per-message against corked frames, best of
 ``--iterations``, then the messenger-level wire stage) and prints the JAX
-tool's JSON line, with ``"wire_codec": "python"`` and the transfer
-ledger of each pass besides.  ``mesh-path`` runs ``msg/mesh_bench.py``
-(the same TCP cluster with the mesh data plane off, then spanning each
-of ``--mesh-sizes`` device slots; k and m from ``-P``, default 2 and 2,
-other ``-P`` entries overlay the ``cuda`` profile) and prints one JSON
-line; its slots are every card present, or the first card named once
-per slot of the largest size where there are fewer.  Both run the
-Python wire codec (``osd_wire_codec_native=false``); the native one is
-ROADMAP.md queue 1 item 16b.
+tool's JSON line, with ``"wire_codec"`` (the codec that ran: ``"native"``
+by default) and the transfer ledger of each pass besides.  ``mesh-path``
+runs ``msg/mesh_bench.py`` (the same TCP cluster with the mesh data plane
+off, then spanning each of ``--mesh-sizes`` device slots; k and m from
+``-P``, default 2 and 2, other ``-P`` entries overlay the ``cuda``
+profile) and prints one JSON line; its slots are every card present, or
+the first card named once per slot of the largest size where there are
+fewer.  ``wire-tax`` runs ``profiling/wire_tax_bench.py`` (the saturated
+TCP cluster path under the wire-tax profiler: decomposition coverage >=
+90%, enabled overhead <= 3%, 0 allocated blocks off, the speedscope
+export, the codec, OSD-exec and ring-vs-TCP A/Bs; ``--objects`` objects
+of ``--size`` bytes with ``--writers`` writers, or the JAX tool's smoke
+shape and limits with ``--smoke``); its pool is the ``cuda`` plugin at
+reed_sol_van k=4 m=2, which ``-P`` entries overlay.  ``trace-path`` runs
+``osd/trace_bench.py`` (the storage path and the TCP cluster path under
+``trace_mode`` off / sampled / full: a stitched trace, timeline sums,
+slow ops detected, no unfinished span, sampled overhead <= 3%) on the
+``-p``/``-P`` pool (k and m required).  Every gate raises before
+anything is printed.
 
 Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark -p cuda -w encode \\
@@ -72,6 +83,10 @@ Examples:
         --objects 64 -s 4194304 -P k=8 -P m=4
     python -m ceph_tpu_torch.tools.ec_benchmark -w mesh-path \
         --objects 32 -s 4194304 -P k=8 -P m=4 --mesh-sizes 1,2,4,8
+    python -m ceph_tpu_torch.tools.ec_benchmark -w wire-tax \
+        --objects 48 -s 16384 --writers 12 -i 2
+    python -m ceph_tpu_torch.tools.ec_benchmark -w trace-path \
+        --objects 48 -s 16384 -i 2 -P k=4 -P m=2
 
 The default plugin is ``cuda``, which runs on the card and raises where
 there is none; ``-P device=cpu`` runs it on the CPU, and ``-p jerasure``
@@ -103,7 +118,8 @@ def parse_args(argv):
     p.add_argument("-w", "--workload", default="encode",
                    choices=["encode", "decode", "storage-path",
                             "recovery-path", "repair-path", "tier-path",
-                            "elastic-path", "cluster-path", "mesh-path"])
+                            "elastic-path", "cluster-path", "mesh-path",
+                            "wire-tax", "trace-path"])
     p.add_argument("--mesh-sizes", default="1,2,4,8",
                    help="mesh-path only: comma-separated mesh device "
                         "counts to sweep")
@@ -132,9 +148,11 @@ def parse_args(argv):
                         "instead of the full result.  Exits nonzero on any "
                         "steady-state library build (the harness gate)")
     p.add_argument("--smoke", action="store_true",
-                   help="repair-path and elastic-path only: the tiny CI "
-                        "shape (repair: 8 OSDs, 8 objects of 6 KiB; "
-                        "elastic: 24 + 8 objects of 4 KiB, 8 clients)")
+                   help="repair-path, elastic-path and wire-tax only: the "
+                        "tiny CI shape (repair: 8 OSDs, 8 objects of 6 "
+                        "KiB; elastic: 24 + 8 objects of 4 KiB, 8 "
+                        "clients; wire-tax: 8 objects of 4 KiB, 4 writers, "
+                        "the JAX tool's smoke limits)")
     p.add_argument("--payload", default="X", choices=["X", "random"],
                    help="payload contents: 'X' matches the reference tool "
                         "(ceph_erasure_code_benchmark.cc:173); 'random' "
@@ -202,6 +220,8 @@ def main(argv=None) -> int:
         return _elastic_path(args, profile)
     if args.workload == "mesh-path":
         return _mesh_path(args, profile)
+    if args.workload == "wire-tax":
+        return _wire_tax(args, profile)
 
     k = int(profile.get("k", "0"))
     m = int(profile.get("m", "0"))
@@ -231,6 +251,8 @@ def main(argv=None) -> int:
         return _tier_path(args, ec)
     if args.workload == "cluster-path":
         return _cluster_path(args, ec)
+    if args.workload == "trace-path":
+        return _trace_path(args, ec)
 
     if args.payload == "random":
         payload = np.random.RandomState(42).randint(
@@ -482,6 +504,66 @@ def _cluster_path(args, ec) -> int:
         f"stage {result['wire_write_speedup']}x "
         f"({wc['frames_per_burst']} frames/burst, "
         f"{wc['ack_piggyback_ratio']} acks piggybacked)",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _wire_tax(args, overlay) -> int:
+    """Wire-tax attribution: the saturated cluster path under the
+    hot-path profiler (``profiling/``) -- decomposition coverage >= 90%,
+    enabled overhead <= 3%, off-mode allocations exactly zero, the
+    speedscope export, and the codec, OSD-exec and ring-vs-TCP A/Bs.
+    Any gate violation raises before anything is printed."""
+    from ceph_tpu_torch.profiling.wire_tax_bench import run_wire_tax_bench
+
+    if args.smoke:
+        result = run_wire_tax_bench(
+            n_objects=8, obj_bytes=4096, writers=4, iters=1,
+            coverage_min_pct=50.0, overhead_limit_pct=50.0,
+            codec_gain_min=0.5, codec_share_ratio_max=0.95,
+            profile=overlay)
+    else:
+        result = run_wire_tax_bench(
+            n_objects=args.objects, obj_bytes=args.size,
+            writers=args.writers, iters=max(1, args.iterations),
+            profile=overlay)
+    print(json.dumps(result))
+    top = ", ".join(
+        f"{r['stage']} {r['pct']}%" for r in result["wire_tax_top"])
+    print(
+        f"wire-tax: {result['wire_tax_ops_per_sec']} ops/s "
+        f"decomposed at {result['wire_tax_coverage_pct']}% "
+        f"coverage (enabled overhead "
+        f"{result['wire_tax_overhead_pct_enabled']}%, off allocs "
+        f"{result['wire_tax_alloc_blocks_off']}, native-codec "
+        f"gain {result.get('wire_codec_gain')}x at share ratio "
+        f"{result.get('wire_codec_share_ratio')}); top: {top}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _trace_path(args, ec) -> int:
+    """The storage-path + cluster-path workload under trace_mode
+    off / sampled / full, correctness-gated (stitched cross-daemon
+    trace, timeline segments summing to end-to-end, slow-op detection,
+    zero unfinished spans) and FAILING if sampled-mode overhead exceeds
+    the gate."""
+    from ceph_tpu_torch.osd.trace_bench import run_trace_overhead_bench
+
+    result = run_trace_overhead_bench(
+        ec, n_objects=args.objects, obj_bytes=args.size,
+        writers=args.writers, iters=max(1, args.iterations),
+    )
+    print(json.dumps(result))
+    print(
+        f"trace-path {args.objects}x{args.size}B x{args.writers} "
+        f"writers: sampled overhead "
+        f"{result['trace_overhead_pct_sampled']}% / full "
+        f"{result['trace_overhead_pct_full']}% vs off, "
+        f"{result['stitched']['spans']} spans stitched, "
+        f"{result['slow_ops_detected']} slow ops detected",
         file=sys.stderr,
     )
     return 0

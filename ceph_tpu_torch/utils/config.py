@@ -65,9 +65,18 @@ OPTIONS: Dict[str, Option] = {
              "(the optracker historic-slow discipline)",
              see_also=("trace_keep",)),
         _opt("profile_mode", str, "off", LEVEL_ADVANCED,
-             "stage profiler (profiling/): 'off' (default -- "
-             "instrumented seams cost one branch, allocate nothing) or "
-             "'on' (stage cost ledger + event-loop/GC arms)"),
+             "wire-tax profiler (profiling/): 'off' (default -- "
+             "instrumented seams cost one branch, allocate nothing), "
+             "'on' (stage cost ledger + event-loop/GC arms; the <=3%-"
+             "overhead configuration the wire-tax bench gates), 'full' "
+             "('on' plus the continuous stack sampler for "
+             "speedscope/flamegraph export)",
+             see_also=("profile_sample_hz",)),
+        _opt("profile_sample_hz", float, 87.0, LEVEL_ADVANCED,
+             "stack-sampler frequency in profile_mode=full (off the "
+             "round numbers so it cannot phase-lock with periodic "
+             "work)",
+             see_also=("profile_mode",)),
         _opt("ms_inject_socket_failures", int, 0, LEVEL_DEV,
              "inject a message drop roughly every N messages"),
         _opt("ms_inject_internal_delays", float, 0.0, LEVEL_DEV,
@@ -379,19 +388,15 @@ OPTIONS: Dict[str, Option] = {
              see_also=("osd_msgr_shm_ring",)),
         _opt("osd_wire_codec_native", bool, True, LEVEL_ADVANCED,
              "batch-encode/decode v4 frame bodies through the "
-             "_wire_native C extension (ceph_tpu/native/wire_codec.py); "
-             "false runs the pure-Python codec in msg/wire.py -- wire "
-             "bytes are identical either way (the A/B baseline and the "
-             "no-toolchain degraded mode).  The port has only the "
-             "Python codec: with this and ``native`` both true, "
-             "msg/tcp.py refuses to start (ROADMAP.md queue 1 item 16b)",
+             "_wire_native C extension (native/wire_codec.py, built at "
+             "first use; a failed build raises); false runs the "
+             "Python codec in msg/wire.py -- wire bytes are identical "
+             "either way (the A/B baseline)",
              see_also=("native", "osd_msgr_cork")),
         _opt("native", bool, True, LEVEL_DEV,
              "master toggle for the native C extensions on the wire "
-             "path (CEPH_TPU_NATIVE=0 forces every codec seam to pure "
-             "Python -- the no-toolchain degraded mode, log-once + "
-             "ceph_wire_codec_native gauge).  The port reads it as "
-             "CEPH_TPU_TORCH_NATIVE",
+             "path (CEPH_TPU_TORCH_NATIVE=0 runs every codec seam in "
+             "Python; the ceph_wire_codec_native gauge reads 0)",
              see_also=("osd_wire_codec_native",)),
     ]
 }

@@ -137,7 +137,7 @@ def test_cluster_path_bit_exact(run):
     k, m = SHAPES[shape][:2]
     assert result["bit_exact"]
     assert result["k"] == k and result["m"] == m and result["n_osds"] == k + m
-    assert result["wire_codec"] == "python"
+    assert result["wire_codec"] == "native"
     assert result["steady_library_builds"] == 0
     # every stored shard, object for object, is the JAX package's
     assert shards and set(shards) == set(jax)
@@ -256,7 +256,7 @@ def test_cluster_path_tool_prints_the_jax_keys():
     # the JAX tool's keys, two levels down, plus the port's additions
     extra = {"wire_codec", "steady_library_builds"}
     assert set(mine) == set(theirs) | extra
-    assert mine["wire_codec"] == "python"
+    assert mine["wire_codec"] == "native"
     for key, sub in _keys(theirs).items():
         if isinstance(sub, dict):
             mode_extra = {"residency", "steady_library_builds"} \
@@ -284,7 +284,7 @@ def test_mesh_path_shards_equal_jax_and_avoided_monotone(cpu_slots):
             keep_shards=True, **MESH)
     shards = result.pop("_shards")
     assert result["bit_exact"] and result["steady_library_builds"] == 0
-    assert result["wire_codec"] == "python"
+    assert result["wire_codec"] == "native"
     avoided = result["wire_bytes_avoided"]
     assert avoided["tcp_only"] == 0
     assert avoided["mesh_1"] <= avoided["mesh_2"] <= avoided["mesh_4"]

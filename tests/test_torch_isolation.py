@@ -13,9 +13,10 @@ on blockstore with a replicated pool beside its EC pool, its crash
 remount, each persistent engine's round trip, an OSD cap check, the
 entry twin's fast dry run over four CPU slots, object-class ``exec``s
 through ``Rados``/``IoCtx``, a mgr scrape over HTTP, the elastic
-bench's smoke shape and one cluster cycle over localhost TCP: OSD
-daemons on ``TCPMessenger``s with the Python wire codec, corked and
-signed).  The native host
+bench's smoke shape, one cluster cycle over localhost TCP: OSD daemons
+on ``TCPMessenger``s with the native wire codec, corked and signed, the
+codec fuzzer and the client libraries of ``osdc/``).  The
+native host
 libraries are held to the same rule: every source the port's build names
 lies in ``ceph_tpu_torch/native/``, no port module names a path under the
 JAX package, and every shared library a process of the port maps from
@@ -95,6 +96,16 @@ def test_port_files_import_no_jax_and_no_reference_package():
         <= {p.name for p in files if p.parent == PORT / "msg"}
     assert {PORT / "utils" / "throttle.py",
             PORT / "auth" / "cephx.py"} <= set(files)
+    # and the native wire codec, the profiler's sampler, the benches over
+    # the wire, the codec fuzzer and the client libraries
+    assert {PORT / "native" / "wire_codec.py",
+            PORT / "profiling" / "sampler.py",
+            PORT / "profiling" / "wire_tax_bench.py",
+            PORT / "osd" / "trace_bench.py",
+            PORT / "tools" / "wire_fuzz.py"} <= set(files)
+    assert {"__init__.py", "striper.py", "object_cacher.py", "journaler.py",
+            "kv_store.py", "rados_striper.py"} \
+        <= {p.name for p in files if p.parent == PORT / "osdc"}
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -302,15 +313,36 @@ from ceph_tpu_torch.msg import cluster_bench as msg_bench
 ring = KeyRing()
 for ent in ("osd.0", "osd.1", "osd.2", "client"):
     ring.add(ent)
+from ceph_tpu_torch.native import wire_codec
+from ceph_tpu_torch.profiling import ledger
+assert msg_bench.wire_codec_name() == "native"
+assert ledger.marker_class() is wire_codec.native().Stage
 wire_payloads = msg_bench.make_payloads(6, 3000, seed=4)
-with msg_bench.python_wire_codec():
-    loop = asyncio.new_event_loop()
-    wc = loop.run_until_complete(msg_bench._one_cycle(
-        reg.factory("cuda", {"k": "2", "m": "1", "device": "cpu"}),
-        3, wire_payloads, 2, cork=True, keyring=ring))
-    loop.close()
+loop = asyncio.new_event_loop()
+wc = loop.run_until_complete(msg_bench._one_cycle(
+    reg.factory("cuda", {"k": "2", "m": "1", "device": "cpu"}),
+    3, wire_payloads, 2, cork=True, keyring=ring))
+loop.close()
 assert wc["counters"]["tcp_conns"] > 0 and wc["counters"]["frames_sent"] > 0
 assert len(wc["_shards"]) == 6 * 3
+from ceph_tpu_torch.tools import wire_fuzz
+assert wire_fuzz.run_fuzz(cases=20, ring_cases=5)["ok"]
+from ceph_tpu_torch.osdc.rados_striper import RadosStriper
+from ceph_tpu_torch.osdc.journaler import Journaler
+async def osdc():
+    c = ECCluster(4, {"k": "2", "m": "1", "device": "cpu"})
+    rs = RadosStriper(c.backend, object_size=64 << 10, stripe_unit=16 << 10,
+                      stripe_count=2)
+    await rs.write("f", b"s" * 100000)
+    assert await rs.read("f") == b"s" * 100000
+    j = Journaler(c.backend, "j", object_size=4096)
+    await j.open()
+    await j.append({"n": 1})
+    assert [e for _p, e in await j.replay()] == [{"n": 1}]
+    await c.shutdown()
+loop = asyncio.new_event_loop()
+loop.run_until_complete(osdc())
+loop.close()
 assert not any(m in ("jax", "tools", "experiments")
                or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
                for m, mod in sys.modules.items() if mod is not None)
@@ -341,7 +373,7 @@ def test_native_layer_names_no_path_of_the_jax_package():
 
     assert build.SOURCE_DIR == PORT / "native"
     assert build.BUILD_DIR == PORT / "build"
-    for name in build.SOURCES:
+    for name in build.SOURCES + build.WIRE_SOURCES:
         assert (PORT / "native" / name).is_file(), name
     cxx = "g++"
     for stage in build.commands(cxx):

@@ -16,11 +16,10 @@ sum, a latency histogram's buckets and sum, and a daemon's random
 The ``prometheus_text`` series are compared name for name and value for
 value, with these exceptions:
 
-* the two named differences: the JAX package's
-  ``ceph_jit_retraces_total`` is the port's ``ceph_library_builds_total``
-  (its ledger counts kernel libraries, not XLA compilations), and the
-  JAX package's ``ceph_wire_codec_native`` has no counterpart until the
-  port has the native wire codec (ROADMAP.md queue 1 item 16b);
+* the named difference: the JAX package's ``ceph_jit_retraces_total`` is
+  the port's ``ceph_library_builds_total`` (its ledger counts kernel
+  libraries, not XLA compilations); ``ceph_wire_codec_native``, each
+  package's native wire codec gauge, is compared like the rest;
 * the residency ledger's series (library builds, transfers, mesh bytes)
   hold each package's own process-wide transfer ledger, and the port's
   codec uploads where the JAX package's ``jerasure`` runs on the host, so
@@ -70,10 +69,9 @@ JAX = types.SimpleNamespace(
 BOTH = (PORT, JAX)
 PROFILE = {"k": "2", "m": "1"}
 
-#: the two exposition series that differ by design: the JAX package's
-#: name -> the port's (None: the port has no counterpart yet)
-RENAMED = {"ceph_jit_retraces_total": "ceph_library_builds_total",
-           "ceph_wire_codec_native": None}
+#: the exposition series that differs by design: the JAX package's
+#: name -> the port's (None: the port has no counterpart)
+RENAMED = {"ceph_jit_retraces_total": "ceph_library_builds_total"}
 #: the residency ledger's families: process-wide, compared with each
 #: package's own ledger
 LEDGER_FAMILIES = ("ceph_library_builds_total", "ceph_transfer_bytes_total",
@@ -272,11 +270,12 @@ def test_prometheus_text_shape():
     assert 'ceph_osd_up{ceph_daemon="osd.0"} 1' in text
     assert "ceph_pool_objects 2" in text
     assert 'counter="sub_write"' in text
-    # the two named differences, and nothing else renamed or dropped
+    # the named difference, and nothing else renamed or dropped; the
+    # native wire codec serves the port's default configuration
     assert "ceph_library_builds_total " in text
+    assert 'ceph_wire_codec_native{enabled="true"} 1' in text
     samples = [ln for ln in text.splitlines() if not ln.startswith("#")]
-    assert not any(ln.startswith(("ceph_jit_retraces_total",
-                                  "ceph_wire_codec_native"))
+    assert not any(ln.startswith("ceph_jit_retraces_total")
                    for ln in samples)
     assert "\nceph_jit_retraces_total " in j_text
     names = {ln.split()[2] for ln in text.splitlines()
@@ -284,8 +283,7 @@ def test_prometheus_text_shape():
     j_names = {ln.split()[2] for ln in j_text.splitlines()
                if ln.startswith("# TYPE")}
     assert names ^ j_names == {"ceph_library_builds_total",
-                               "ceph_jit_retraces_total",
-                               "ceph_wire_codec_native"}
+                               "ceph_jit_retraces_total"}
 
 
 async def _http_get(port, path):

@@ -15,8 +15,11 @@ piggyback ack and the signature, the banner, the ack and session frames
 -- the port's bytes are compared with the JAX package's, and a port
 messenger and a JAX package messenger exchange lossless, signed streams
 over one socket.  The throttle runs the same script in both packages.
-Every case runs the Python wire codec (``osd_wire_codec_native=false``);
-a default configuration raises, naming ROADMAP.md queue 1 item 16b.
+Every case runs the Python wire codec (``osd_wire_codec_native=false``)
+but the codec-gate case: a default configuration runs the native C codec
+and puts the Python codec's bytes on the wire
+(``tests/test_torch_wire_native.py`` drives that codec through every
+seam).
 """
 
 import asyncio
@@ -35,6 +38,7 @@ from ceph_tpu_torch import parallel
 from ceph_tpu_torch.auth.cephx import KeyRing, sign, sign_parts, verify
 from ceph_tpu_torch.msg import FaultInjector, TCPMessenger
 from ceph_tpu_torch.msg import tcp
+from ceph_tpu_torch.native import wire_codec
 from ceph_tpu_torch.native.gf_native import crc32c
 from ceph_tpu_torch.utils import throttle
 from ceph_tpu_torch.utils.config import get_config
@@ -124,19 +128,48 @@ async def _until(pred, rounds=100, step=0.05):
 
 
 def test_default_config_refuses_naming_16b():
+    """The codec gate (the name is the one the case had while the port
+    refused the native codec): a default-config messenger runs the native
+    codec, and its frames -- per entry with and without the piggyback
+    ack, and a burst sealed in one C call -- equal the Python codec's
+    byte for byte.  ``native`` off alone, or the option off, runs the
+    Python codec, as the JAX package does."""
     cfg = get_config()
+    addr = {"osd.0": ("127.0.0.1", 1)}
     cfg.set_val("osd_wire_codec_native", True)
     assert cfg.get_val("native") is True
-    with pytest.raises(tcp.WireCodecNotPorted, match="16b"):
-        TCPMessenger("osd.0", {"osd.0": ("127.0.0.1", 1)})
-    # native off alone runs the Python codec too, as the JAX package does
+    nat = TCPMessenger("osd.0", addr)
+    assert nat._native is not None and nat._native is wire_codec.native()
     cfg.set_val("native", False)
     try:
-        TCPMessenger("osd.0", {"osd.0": ("127.0.0.1", 1)})
+        assert TCPMessenger("osd.0", addr)._native is None
     finally:
         cfg.set_val("native", True)
     cfg.set_val("osd_wire_codec_native", False)
-    TCPMessenger("osd.0", {"osd.0": ("127.0.0.1", 1)})
+    py = TCPMessenger("osd.0", addr)
+    assert py._native is None
+    rs = np.random.RandomState(16)
+    msgs = ["heartbeat", ("committed", 17), {"k": [1, 2], "n": None},
+            {"op": "client_op", "tid": 5,
+             "data": rs.randint(0, 256, 70000, dtype=np.uint8).tobytes()},
+            rs.randint(0, 256, 300, dtype=np.uint8).tobytes()]
+    n_entries = [nat._msg_entry("osd.0", "osd.1", i + 1, m)
+                 for i, m in enumerate(msgs)]
+    p_entries = [py._msg_entry("osd.0", "osd.1", i + 1, m)
+                 for i, m in enumerate(msgs)]
+    assert all(e.crc is not None for e in n_entries)  # folded at encode
+    for ack in (0, 77):
+        for ne, pe in zip(n_entries, p_entries):
+            assert b"".join(bytes(b) for b in nat._entry_frames(
+                ne, None, ack)) == b"".join(bytes(b) for b in py._entry_frames(
+                    pe, None, ack))
+        bufs, nbytes = nat._native.seal_frames(n_entries, ack)
+        want = b"".join(
+            bytes(b) for i, e in enumerate(p_entries)
+            for b in py._entry_frames(
+                e, None, ack if i == len(p_entries) - 1 else 0))
+        assert b"".join(bytes(b) for b in bufs) == want
+        assert nbytes == len(want)
 
 
 # -- tests/test_messenger.py -------------------------------------------------
