@@ -220,7 +220,13 @@ def load(source: str, signatures: Dict[str, tuple],
         key = (source, digest)
         lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source, generated)))
+            path = build(source, generated)
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                # not an OSError: up the stack an IOError reads as a
+                # missing object, and a read would carry on with zeros
+                raise RuntimeError(f"cannot load {path}: {e}") from None
             residency.note_library_build()
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

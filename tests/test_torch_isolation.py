@@ -15,7 +15,10 @@ entry twin's fast dry run over four CPU slots, object-class ``exec``s
 through ``Rados``/``IoCtx``, a mgr scrape over HTTP, the elastic
 bench's smoke shape, one cluster cycle over localhost TCP: OSD daemons
 on ``TCPMessenger``s with the native wire codec, corked and signed, the
-codec fuzzer and the client libraries of ``osdc/``).  The
+codec fuzzer, the client libraries of ``osdc/``, and the services on
+RADOS: an RBD image's write and read, served over NBD, the ``rbd_cli``
+import and export, an S3 PUT and GET over the gateway and a CephFS
+file's write and read, beside two MDS ranks).  The
 native host
 libraries are held to the same rule: every source the port's build names
 lies in ``ceph_tpu_torch/native/``, no port module names a path under the
@@ -106,6 +109,15 @@ def test_port_files_import_no_jax_and_no_reference_package():
     assert {"__init__.py", "striper.py", "object_cacher.py", "journaler.py",
             "kv_store.py", "rados_striper.py"} \
         <= {p.name for p in files if p.parent == PORT / "osdc"}
+    # and the services on RADOS with their command-line tool
+    assert {"__init__.py", "objectmap.py", "journal.py", "image.py",
+            "mirror.py", "replay.py", "nbd.py"} \
+        <= {p.name for p in files if p.parent == PORT / "rbd"}
+    assert {"__init__.py", "mds.py", "cephfs.py", "multimds.py"} \
+        <= {p.name for p in files if p.parent == PORT / "mds"}
+    assert {"__init__.py", "gateway.py", "sync.py"} \
+        <= {p.name for p in files if p.parent == PORT / "rgw"}
+    assert PORT / "tools" / "rbd_cli.py" in files
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -342,6 +354,75 @@ async def osdc():
     await c.shutdown()
 loop = asyncio.new_event_loop()
 loop.run_until_complete(osdc())
+loop.close()
+import os
+import struct
+import tempfile
+from ceph_tpu_torch.mds import CephFS, MultiMDS
+from ceph_tpu_torch.rbd.nbd import NBDServer
+from ceph_tpu_torch.tools import rbd_cli
+from ceph_tpu_torch.rbd import RBD, Image
+from ceph_tpu_torch.rgw import RGWGateway, sign_v2
+async def services():
+    c = ECCluster(4, {"k": "2", "m": "1", "device": "cpu"})
+    await RBD(c.backend).create("img", 1 << 20, order=16)
+    img = await Image.open(c.backend, "img")
+    await img.write(70000, b"r" * 5000)
+    assert await img.read(69999, 5002) == b"\0" + b"r" * 5000 + b"\0"
+    gw = RGWGateway(c.backend)
+    await gw.create_user("a", "s")
+    port = await gw.start()
+    async def s3(method, target, body=b""):
+        date = "Thu, 01 Jan 2026 00:00:00 GMT"
+        sig = sign_v2("s", method, target, date)
+        r, w = await asyncio.open_connection("127.0.0.1", port)
+        w.write(f"{method} {target} HTTP/1.1\r\nDate: {date}\r\n"
+                f"Content-Length: {len(body)}\r\n"
+                f"Authorization: AWS a:{sig}\r\n\r\n".encode() + body)
+        raw = await r.read()
+        w.close()
+        head, _, payload = raw.partition(b"\r\n\r\n")
+        return int(head.split()[1]), payload
+    assert (await s3("PUT", "/b"))[0] == 200
+    assert (await s3("PUT", "/b/k", b"g" * 9000))[0] == 200
+    assert await s3("GET", "/b/k") == (200, b"g" * 9000)
+    await gw.stop()
+    nbd = NBDServer(c.backend)
+    port = await nbd.start()
+    r, w = await asyncio.open_connection("127.0.0.1", port)
+    await r.readexactly(18)
+    w.write(struct.pack(">I", 2) + struct.pack(">QII", 0x49484156454F5054,
+                                               1, 3) + b"img")
+    assert struct.unpack(">QH", await r.readexactly(10))[0] == 1 << 20
+    w.write(struct.pack(">IHHQQI", 0x25609513, 0, 0, 1, 70000, 8))
+    assert (await r.readexactly(24))[16:] == b"r" * 8
+    w.close()
+    await nbd.stop()
+    fs = await CephFS.mount(c.backend)
+    await fs.mkdirs("/d/e")
+    await fs.write_file("/d/e/f", b"c" * 3000)
+    assert await fs.read_file("/d/e/f") == b"c" * 3000
+    assert await fs.readdir("/d") == ["e"]
+    multi = MultiMDS(c.backend, n_ranks=2)
+    await multi.start()
+    await multi.mkdir("/m")
+    await multi.export_subtree("/m", 1)
+    await multi.create("/m/x")
+    assert multi.rank_of("/m/x") == 1
+    await c.shutdown()
+loop = asyncio.new_event_loop()
+loop.run_until_complete(services())
+loop.close()
+with tempfile.TemporaryDirectory() as tmp:
+    src, dst = os.path.join(tmp, "src"), os.path.join(tmp, "dst")
+    with open(src, "wb") as f:
+        f.write(b"cli" * 30000)
+    base = ["--data-path", os.path.join(tmp, "data"), "--osds", "4",
+            "--device", "cpu"]
+    assert rbd_cli.main(["import", src, "disk", "--order", "16", *base]) == 0
+    assert rbd_cli.main(["export", "disk", dst, *base]) == 0
+    with open(dst, "rb") as f:
+        assert f.read() == b"cli" * 30000
 loop.close()
 assert not any(m in ("jax", "tools", "experiments")
                or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
