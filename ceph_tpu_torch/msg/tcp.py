@@ -1414,6 +1414,12 @@ class TCPMessenger:
                             for i, entry in enumerate(batch):
                                 bufs.extend(self._entry_frames(
                                     entry, skey, ack if i == last else 0))
+                        if writer.is_closing():
+                            # closed under the burst (a kill tore the
+                            # socket): the transport's writelines would
+                            # call a released write callback
+                            raise ConnectionResetError(
+                                "connection closed under the burst")
                         with _PS_WRITE:
                             writer.writelines(bufs)
                         if prof_on:

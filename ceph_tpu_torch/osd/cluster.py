@@ -21,6 +21,7 @@ it.
 from __future__ import annotations
 
 import asyncio
+import os
 from typing import Dict, List, Optional
 
 from ceph_tpu_torch.device import codec_device
@@ -371,6 +372,10 @@ class ECCluster:
         osd.tier.clear()
         osd._store_nonempty = False
         osd._scrub_bases = None
+        # a replaced disk is a new incarnation: a peering pass already in
+        # flight stores its watermark for this OSD after the pops below,
+        # and only the boot_id change makes its next pass backfill
+        osd.boot_id = os.urandom(8).hex()
         for other in self.osds:
             for backend in other.pools.values():
                 backend._peer_seq.pop(osd.name, None)

@@ -1784,6 +1784,7 @@ class PG:
 
         if max_active is None:
             max_active = int(get_config().get_val("osd_recovery_max_active"))
+        since = self.pg_stats.events
         n_osds = len(self.osds)
         up_osds = [
             f"osd.{i}" for i in range(n_osds)
@@ -1876,7 +1877,8 @@ class PG:
                 self.perf.inc("peering_delta_entries", len(rep["entries"]))
 
         if need_backfill:
-            n = await self._peering_backfill(up_osds, max_active, pre_heads)
+            n = await self._peering_backfill(up_osds, max_active, pre_heads,
+                                             since)
             # the scan covered the re-placed objects for THIS epoch;
             # advance only after it completes so a failed pass rescans.
             # Deliberately the CAPTURED epoch, not the live one: remaps
@@ -1913,7 +1915,7 @@ class PG:
             have.setdefault(base, {})
         return await self._peering_apply(
             have, meta, set(replies), max_active,
-            tracked=candidates, tracked_meta=meta_candidates,
+            tracked=candidates, tracked_meta=meta_candidates, since=since,
         )
 
     async def _sync_dups(self, infos: Dict[str, dict]) -> int:
@@ -1966,7 +1968,8 @@ class PG:
         return merged
 
     async def _peering_backfill(self, up_osds, max_active,
-                                pre_heads: Dict[str, int]) -> int:
+                                pre_heads: Dict[str, int],
+                                since: int) -> int:
         """Full-scan peering (the backfill path): every up OSD serializes
         its holdings via ``pg_list``.  Needed when the log cannot prove
         completeness -- primary restart, revived peer, trimmed log.  On
@@ -1995,7 +1998,7 @@ class PG:
             n = await self._peering_apply(
                 have, meta, set(replies), max_active,
                 tracked=set(have) | self._dirty,
-                tracked_meta=set(meta) | self._dirty_meta,
+                tracked_meta=set(meta) | self._dirty_meta, since=since,
             )
         finally:
             self.pg_stats.backfilling = False
@@ -2010,7 +2013,8 @@ class PG:
 
     async def _peering_apply(self, have, meta, reporting, max_active,
                              tracked=frozenset(),
-                             tracked_meta=frozenset()) -> int:
+                             tracked_meta=frozenset(), *,
+                             since: int) -> int:
         """Authoritative-version election + recovery execution over the
         gathered shard/meta version maps; maintains the engine's dirty
         sets (objects in ``tracked``/``tracked_meta`` that end the pass
@@ -2221,7 +2225,7 @@ class PG:
         # markings (liveness victims included); unfinished ones stay
         self.pg_stats.end_pass(
             set(tracked) | set(tracked_meta) | action_oids,
-            unfinished | unfinished_meta | failed,
+            unfinished | unfinished_meta | failed, since,
         )
         self.perf.inc("peering_pass")
         return len(actions) + len(reloc_actions) + len(meta_actions)

@@ -33,7 +33,7 @@ state-bit string for the report frame.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Set
+from typing import Dict, Iterable, Optional, Set
 
 
 class PGStats:
@@ -45,6 +45,11 @@ class PGStats:
         #: degraded; cleared per-reason on revive, per-oid on a clean
         #: peering pass
         self._down_victims: Dict[str, Set[str]] = {}
+        #: liveness events noted so far, and oid -> the event that last
+        #: marked it: a peering pass clears only what was marked before
+        #: it began (its view of the stores predates later events)
+        self.events = 0
+        self._victim_event: Dict[str, int] = {}
         #: objects a running peering pass is actively rebuilding
         self._recovering: Set[str] = set()
         #: objects whose data exists but (at least partly) on
@@ -57,8 +62,10 @@ class PGStats:
 
     def note_down_victims(self, reason: str, oids: Iterable[str]) -> None:
         """A liveness event (kill/wipe/out) cost these objects a copy."""
+        self.events += 1
         for oid in oids:
             self._down_victims.setdefault(oid, set()).add(reason)
+            self._victim_event[oid] = self.events
 
     def clear_down_reason(self, reason: str) -> None:
         """The event was undone (revive): drop exactly its markings."""
@@ -67,6 +74,7 @@ class PGStats:
             reasons.discard(reason)
             if not reasons:
                 del self._down_victims[oid]
+                self._victim_event.pop(oid, None)
 
     def note_recovering(self, oids: Iterable[str]) -> None:
         self._recovering.update(oids)
@@ -75,17 +83,23 @@ class PGStats:
         """One object's rebuild completed: the draining tick."""
         self._recovering.discard(oid)
         self._down_victims.pop(oid, None)
+        self._victim_event.pop(oid, None)
         self.misplaced.discard(oid)
 
     def end_pass(self, tracked: Iterable[str],
-                 still_dirty: Iterable[str]) -> None:
+                 still_dirty: Iterable[str],
+                 since: Optional[int] = None) -> None:
         """Peering-pass epilogue, mirroring the engine's dirty-set
         maintenance: tracked objects that ended the pass clean drop
-        every degraded marking; unfinished ones stay."""
+        every degraded marking; unfinished ones stay.  ``since`` is
+        ``events`` when the pass began: a victim marked by a later event
+        stays, because the pass saw the stores before that event."""
         dirty = set(still_dirty)
         for oid in tracked:
             if oid not in dirty:
-                self._down_victims.pop(oid, None)
+                if since is None or self._victim_event.get(oid, 0) <= since:
+                    self._down_victims.pop(oid, None)
+                    self._victim_event.pop(oid, None)
                 self.misplaced.discard(oid)
             self._recovering.discard(oid)
 

@@ -226,7 +226,24 @@ def prometheus_text() -> str:
     return "\n".join(lines)
 
 
-# -- admin views -------------------------------------------------------------
+# -- admin-socket hooks (daemon/osd.py registers these) ----------------------
+
+def asok_status(cmd=None) -> dict:
+    out = {"mode": _mode}
+    mon = _loopmon.active()
+    if mon is not None:
+        out.update({
+            "callback_ns": mon.callback_ns,
+            "callbacks": mon.callbacks,
+            "lag_ms": round(mon.lag_ms, 3),
+            "gc_ns": mon.gc_ns,
+            "gc_collections": mon.gc_collections,
+        })
+    stages = _ledger.stages_snapshot()
+    out["stages_active"] = len(stages)
+    out["stage_ns_total"] = sum(s["ns"] for s in stages.values())
+    return out
+
 
 def asok_dump(cmd=None) -> dict:
     out = snapshot()
@@ -236,3 +253,8 @@ def asok_dump(cmd=None) -> dict:
     elif fmt == "collapsed" and _sampler is not None:
         out["collapsed"] = _sampler.collapsed()
     return out
+
+
+def asok_reset(cmd=None) -> dict:
+    reset()
+    return {"reset": True, "mode": _mode}

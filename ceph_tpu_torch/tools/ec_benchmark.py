@@ -3,8 +3,8 @@
 
 Port of the ``encode``, ``decode``, ``storage-path``, ``recovery-path``,
 ``repair-path``, ``tier-path``, ``elastic-path``, ``cluster-path``,
-``mesh-path``, ``wire-tax`` and ``trace-path`` workloads of
-``tools/ec_benchmark.py``
+``mesh-path``, ``wire-tax``, ``trace-path``, ``qos-path`` and
+``telemetry-path`` workloads of ``tools/ec_benchmark.py``
 (reference: src/test/erasure-code/ceph_erasure_code_benchmark.cc:39-137 setup,
 :150-188 encode, :253-327 decode): encode and decode print
 ``<elapsed_seconds>\\t<KiB>`` where KiB = iterations * size / 1024 (times
@@ -62,8 +62,17 @@ reed_sol_van k=4 m=2, which ``-P`` entries overlay.  ``trace-path`` runs
 ``osd/trace_bench.py`` (the storage path and the TCP cluster path under
 ``trace_mode`` off / sampled / full: a stitched trace, timeline sums,
 slow ops detected, no unfinished span, sampled overhead <= 3%) on the
-``-p``/``-P`` pool (k and m required).  Every gate raises before
-anything is printed.
+``-p``/``-P`` pool (k and m required).  ``qos-path`` runs
+``osd/qos_bench.py`` (the load generator over localhost TCP: a gold
+reservation floor under a 10x bulk storm, thrash/rebuild/promote chaos
+with the exactly-once audit, 1,000 and 10,000 hub-multiplexed clients;
+``--smoke`` shrinks every stage, ``--stages`` runs one) and
+``telemetry-path`` runs ``mgr/telemetry_bench.py`` (the report loop's
+overhead against reports off at ``--objects`` objects of ``--size``
+bytes, the scrape round trip and the wipe-to-HEALTH_OK chaos gate;
+``--smoke`` is the JAX tool's smoke shape and limit); both pools are
+reed_sol_van k=2 m=1 on the ``cuda`` plugin, which ``-P`` entries
+overlay.  Every gate raises before anything is printed.
 
 Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark -p cuda -w encode \\
@@ -87,6 +96,9 @@ Examples:
         --objects 48 -s 16384 --writers 12 -i 2
     python -m ceph_tpu_torch.tools.ec_benchmark -w trace-path \
         --objects 48 -s 16384 -i 2 -P k=4 -P m=2
+    python -m ceph_tpu_torch.tools.ec_benchmark -w qos-path --smoke
+    python -m ceph_tpu_torch.tools.ec_benchmark -w telemetry-path \
+        --objects 48 -s 16384 -i 2
 
 The default plugin is ``cuda``, which runs on the card and raises where
 there is none; ``-P device=cpu`` runs it on the CPU, and ``-p jerasure``
@@ -119,7 +131,11 @@ def parse_args(argv):
                    choices=["encode", "decode", "storage-path",
                             "recovery-path", "repair-path", "tier-path",
                             "elastic-path", "cluster-path", "mesh-path",
-                            "wire-tax", "trace-path"])
+                            "wire-tax", "trace-path", "qos-path",
+                            "telemetry-path"])
+    p.add_argument("--stages", default=None,
+                   choices=["overload", "chaos", "scale"],
+                   help="qos-path only: run a single sub-stage")
     p.add_argument("--mesh-sizes", default="1,2,4,8",
                    help="mesh-path only: comma-separated mesh device "
                         "counts to sweep")
@@ -148,11 +164,14 @@ def parse_args(argv):
                         "instead of the full result.  Exits nonzero on any "
                         "steady-state library build (the harness gate)")
     p.add_argument("--smoke", action="store_true",
-                   help="repair-path, elastic-path and wire-tax only: the "
-                        "tiny CI shape (repair: 8 OSDs, 8 objects of 6 "
-                        "KiB; elastic: 24 + 8 objects of 4 KiB, 8 "
-                        "clients; wire-tax: 8 objects of 4 KiB, 4 writers, "
-                        "the JAX tool's smoke limits)")
+                   help="repair-path, elastic-path, wire-tax, qos-path and "
+                        "telemetry-path only: the tiny CI shape (repair: 8 "
+                        "OSDs, 8 objects of 6 KiB; elastic: 24 + 8 objects "
+                        "of 4 KiB, 8 clients; wire-tax: 8 objects of 4 "
+                        "KiB, 4 writers, the JAX tool's smoke limits; qos: "
+                        "a few hundred clients for a few seconds; "
+                        "telemetry: 16 objects of 8 KiB, overhead limit "
+                        "25%%)")
     p.add_argument("--payload", default="X", choices=["X", "random"],
                    help="payload contents: 'X' matches the reference tool "
                         "(ceph_erasure_code_benchmark.cc:173); 'random' "
@@ -222,6 +241,10 @@ def main(argv=None) -> int:
         return _mesh_path(args, profile)
     if args.workload == "wire-tax":
         return _wire_tax(args, profile)
+    if args.workload == "qos-path":
+        return _qos_path(args, profile)
+    if args.workload == "telemetry-path":
+        return _telemetry_path(args, profile)
 
     k = int(profile.get("k", "0"))
     m = int(profile.get("m", "0"))
@@ -539,6 +562,56 @@ def _wire_tax(args, overlay) -> int:
         f"{result['wire_tax_alloc_blocks_off']}, native-codec "
         f"gain {result.get('wire_codec_gain')}x at share ratio "
         f"{result.get('wire_codec_share_ratio')}); top: {top}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _qos_path(args, overlay) -> int:
+    """Unified QoS at scale: the load generator over localhost TCP --
+    the reservation-floor overload proof, thrash/rebuild/promote chaos
+    with the exactly-once audit, and the 1,000- and 10,000-client
+    saturation runs.  Any gate violation raises before anything is
+    printed."""
+    from ceph_tpu_torch.osd.qos_bench import run_qos_path_bench
+
+    result = run_qos_path_bench(smoke=args.smoke, stages=args.stages,
+                                profile=overlay)
+    print(json.dumps(result))
+    print(
+        f"qos-path{' (smoke)' if args.smoke else ''}: "
+        f"{result.get('qos_path_clients', '?')} clients, saturation "
+        f"p99 {result.get('qos_path_saturation_p99_ms', '?')}ms, "
+        f"reservation ratio "
+        f"{result.get('qos_path_reservation_ratio', '?')}, fairness "
+        f"spread {result.get('qos_path_fairness_spread_max', '?')}, "
+        f"cas exact {result.get('qos_path_cas_exact', '?')}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _telemetry_path(args, overlay) -> int:
+    """Wire-fed telemetry: the MgrClient report loop's overhead against
+    reports off on the storage-path workload, the exposition's
+    scrape-parse round trip, and the chaos health gate (a mid-run OSD
+    wipe -> PG_DEGRADED draining to HEALTH_OK over localhost TCP).  Any
+    gate violation raises before anything is printed."""
+    from ceph_tpu_torch.mgr.telemetry_bench import run_telemetry_bench
+
+    result = run_telemetry_bench(
+        n_objects=args.objects, obj_bytes=args.size,
+        writers=args.writers, iters=max(1, args.iterations),
+        smoke=args.smoke, profile=overlay,
+    )
+    print(json.dumps(result))
+    print(
+        f"telemetry-path: report-loop overhead "
+        f"{result['telemetry_overhead_pct']}% "
+        f"(limit {result['overhead_limit_pct']}%), "
+        f"{result['reports_folded']} reports folded, chaos "
+        f"degraded peak {result['chaos']['degraded_max']} -> "
+        f"{result['chaos']['health_final']}",
         file=sys.stderr,
     )
     return 0

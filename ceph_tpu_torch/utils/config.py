@@ -182,6 +182,13 @@ OPTIONS: Dict[str, Option] = {
              "qos_class instead of semaphore FIFO.  Matches the "
              "legacy _cop_sem width by default",
              see_also=("osd_qos_unified", "osd_qos_slots")),
+        _opt("loadgen_client_inflight", int, 4, LEVEL_ADVANCED,
+             "per-client in-flight op budget in the load generator "
+             "(ceph_tpu_torch/loadgen/): an open-loop client whose "
+             "arrivals outrun completions parks on this semaphore "
+             "instead of accumulating unbounded tasks, so a "
+             "million-client run cannot OOM the harness; the high-water "
+             "mark is surfaced as client_inflight_hwm"),
         _opt("osd_pg_log_dups_tracked", int, 3000, LEVEL_ADVANCED,
              "reqid dup entries retained per OSD PG log for client-op "
              "replay detection; kept past trim() like the reference's "
@@ -238,6 +245,9 @@ OPTIONS: Dict[str, Option] = {
              "promotes an object's shards into device memory (and "
              "writeback-mode writes refresh the resident copy, "
              "promote-on-write)"),
+        _opt("osd_heartbeat_interval", float, 1.0, LEVEL_ADVANCED,
+             "seconds between OSD peer heartbeat rounds (reference "
+             "osd_heartbeat_interval, src/osd/OSD.cc heartbeat())"),
         _opt("osd_heartbeat_grace", float, 4.0, LEVEL_ADVANCED,
              "seconds of heartbeat silence before an OSD reports a peer "
              "failed to the mon (reference osd_heartbeat_grace; shrunk "
@@ -393,6 +403,13 @@ OPTIONS: Dict[str, Option] = {
              "Python codec in msg/wire.py -- wire bytes are identical "
              "either way (the A/B baseline)",
              see_also=("native", "osd_msgr_cork")),
+        _opt("gc_freeze_on_start", bool, True, LEVEL_ADVANCED,
+             "after daemon startup warm-up, gc.freeze() the boot-time "
+             "heap into the permanent generation and raise the gen0 "
+             "threshold (utils/gcopt.py): the startup object graph "
+             "(codecs, maps, config, kernel tables) never becomes "
+             "garbage while the daemon lives, and a full collection "
+             "would otherwise re-trace it on every pause"),
         _opt("native", bool, True, LEVEL_DEV,
              "master toggle for the native C extensions on the wire "
              "path (CEPH_TPU_TORCH_NATIVE=0 runs every codec seam in "

@@ -278,7 +278,7 @@ Phases (any failure raises and exits non-zero):
    replays them, commit and trim drop the first object; ``ObjectCacher``
    write-back at librbd's 32 MiB budget takes 64 MiB of 64 KiB writes to
    16 objects of 4 MiB, flushes, invalidates and reads through;
-   ``KvStore`` sets 10,000 keys, scans them sorted and reads 256 back.
+   ``KvStore`` sets 2,000 keys, scans them sorted and reads 256 back.
    Every data object's stored shards against the numpy ``jerasure``
    encode of its bytes; ``gf2_matrix_w8``'s launches per step, which must
    rise in the writes and the degraded read.
@@ -323,6 +323,48 @@ Phases (any failure raises and exits non-zero):
    before and read after each write step and degraded read, rise (read-only
    steps that decode nothing print theirs).  The phase prints its seconds
    beside its 120 s budget.
+3n. Daemons in processes of their own and the load generator.  (a) The
+   port's ``vstart.start_cluster`` boots 3 mons, 1 mgr and 8 OSD processes
+   (``python -m ceph_tpu_torch.daemon.*``; each OSD makes its own CUDA
+   context and loads the kernel library at boot), the pool reed_sol_van
+   k=4 m=2 w=8 on the ``cuda`` plugin, the OSDs on ``blockstore`` under a
+   short run directory (``tempfile.mkdtemp``).  A ``RemoteClient`` writes
+   32 x 4 MiB of seeded bytes with 8 writers and reads them back; every
+   OSD's ``residency status`` is read over its admin socket before and
+   after, and the H2D and D2H ops must rise summed over the OSDs and on
+   each OSD that led a written object's placement group.  One OSD (data
+   shard 0 of the first object) is SIGKILLed and the mon marks it down
+   from peer heartbeats alone; every object reads back degraded,
+   bit-exact (the summed H2D and D2H ops rise again); the OSD is revived
+   and the mgr's ``pg stat`` degraded count, sampled over its admin
+   socket from the kill on, rises and then drains with at most one uptick
+   to HEALTH_OK.  ``ceph_daemon`` runs ``perf dump``, ``config show``,
+   ``residency status`` and ``cpu_profiler`` start and stop against the
+   revived OSD, each a process.  ``rbd_nbd`` runs as a process over the
+   cluster and exports a 64 MiB image (order 22), which phase 3m's NBD
+   client writes and reads in 128 KiB requests against its model (FLUSH,
+   TRIM, DISC); the image read back through a new client equals the
+   model.  After ``stop_cluster`` (SIGTERM; each OSD unmounts its store)
+   every OSD's blockstore is mounted in this process and every stored
+   shard of the 32 objects and the image's 16 data objects is compared
+   with the port's numpy ``jerasure`` encode of its bytes.  Each daemon's
+   card memory from ``nvidia-smi --query-compute-apps`` is printed
+   (information only).  (b) ``run_telemetry_bench()`` at its defaults (6
+   OSDs, k=2 m=1, 48 x 16 KiB, 8 writers, 2 iterations, chaos 24 clients
+   for 6 s) on ``cuda``, its report-loop overhead run at the JAX smoke
+   arm's 25% and printed beside its 3% default gate, then
+   ``run_vstart_smoke()`` (4 OSD processes, 30 x 16 KiB, k=2 m=1 on
+   ``cuda``).  (c) ``qos_bench``'s four stages at the JAX package's
+   acceptance shape on ``cuda``: overload (8 gold, 80 bulk clients), chaos
+   (300 clients), scale (1,000) and scale10x (10,000), every correctness
+   gate armed (the exactly-once audit, client counts, ops moved, admission
+   waits, bulk ops, chaos fired) and the three host-timing gates
+   (reservation ratio >= 0.9, closed-loop clients at zero ops <= max(2,
+   closed / 50), scale10x p99 <= the scale stage's p99) run open and
+   printed beside their defaults.  The OSDs of (b)'s bench and of every
+   (c) stage run in this process: ``gf2_matrix_w8``'s launches, zeroed
+   before and read after each, must rise in each.  The phase prints its
+   seconds beside its 240 s budget.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased), one of ``-w storage-path --profile`` at the flagship profile
    (64 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
@@ -388,7 +430,8 @@ once per bitmatrix that phase 5 runs).  Every phase prints ``[phase]
 of host wall times (a bench's overhead, share or speed ratio, a client
 p99) runs at the limit the JAX package's own smoke arm or test gives the
 same bench and is printed beside its default gate as ``held`` or
-``MISSED``.  It prints the ``kernels`` JSON line and, last, the device
+``MISSED``; where the JAX package has no looser value, the gate runs
+open.  It prints the ``kernels`` JSON line and, last, the device
 line.
 """
 
@@ -652,7 +695,10 @@ OSDC_JOURNAL_ENTRY = 4 << 10
 OSDC_CACHE_BYTES = 32 << 20
 OSDC_CACHE_WRITTEN = 64 << 20
 OSDC_CACHE_WRITE = 64 << 10
-OSDC_KV_KEYS = 10_000
+#: cut from 10,000 (66-94 s of host-bound omap round trips on the H100
+#: machine) to make room for phase 3n; 2,000 keys still split the store
+#: into dozens of 64-key buckets
+OSDC_KV_KEYS = 2_000
 OSDC_DOWN = 2
 #: the services on RADOS (phase 3m): OSDs of the primary cluster (the
 #: flagship profile) and of the mirror's and the second zone's cluster,
@@ -702,6 +748,49 @@ SVC_CLI_BYTES = 64 << 20
 SVC_CLI_STORE = "blockstore"
 SVC_DOWN = (1, 6)
 SVC_BUDGET_S = 120.0
+#: phase 3n (a): a cluster of processes booted by the port's vstart: 3
+#: mons, 1 mgr and 8 OSD daemons (each its own process and CUDA context),
+#: reed_sol_van k=4 m=2 w=8 on the cuda plugin, blockstore under a short
+#: run directory (an admin socket's path must fit in 107 bytes)
+DAEMON_OSDS = 8
+DAEMON_MONS = 3
+DAEMON_PROFILE = {"plugin": "cuda", "technique": "reed_sol_van", "k": "4",
+                  "m": "2", "w": "8"}
+DAEMON_OBJECTS = 32
+DAEMON_WRITERS = 8
+DAEMON_STORE = "blockstore"
+#: seconds the daemons get to boot (each loads torch, makes its CUDA
+#: context and loads the kernel library) and to mark down and drain
+DAEMON_WAIT_S = 120.0
+DAEMON_DEADLINE_S = 90.0
+#: the daemons' settings (their environment layer): the vstart telemetry
+#: smoke's chaos time scale, so the mgr's degraded series is observable
+DAEMON_ENV = {
+    "CEPH_TPU_TORCH_MGR_BEACON_INTERVAL": "0.1",
+    "CEPH_TPU_TORCH_MGR_REPORT_INTERVAL": "0.2",
+    "CEPH_TPU_TORCH_MGR_DAEMON_BEACON_GRACE": "1.5",
+    "CEPH_TPU_TORCH_MGR_PG_STALE_GRACE": "3.0",
+}
+DAEMON_IMAGE = "nbd0"
+DAEMON_CEPH_DAEMON = (("perf", "dump"), ("config", "show"),
+                      ("residency", "status"),
+                      ("cpu_profiler", "action=start"),
+                      ("cpu_profiler", "action=stop"))
+DAEMON_BUDGET_S = 240.0
+#: phase 3n (b) and (c): the host-timing gates at their defaults (the JAX
+#: package's) and the limits the smoke runs them at: the telemetry report
+#: loop's overhead at the JAX smoke arm's 25%
+#: (``ceph_tpu/mgr/telemetry_bench.py:218-221``); the QoS gates, for which
+#: the JAX package has no looser value (its smoke arm skips the two scale
+#: gates), open
+TELEMETRY_OVERHEAD_GATE_PCT = 3.0
+TELEMETRY_OVERHEAD_LIMIT_PCT = 25.0
+QOS_RESERVATION_GATE = 0.9
+QOS_STARVED_DIVISOR = 50
+QOS_P99_VS_1K_GATE = 1.0
+#: scale10x at the JAX package's acceptance shape (10^4 clients); True
+#: runs its smoke shape (500 clients)
+QOS_SCALE10X_SMOKE = False
 #: the repair path (phase 4): objects of RBD's default size on 8 OSDs,
 #: with a recovery batch budget that gives each object of a full batch
 #: (32) its k whole 1 MiB chunks: at the default 8 MiB a 4 MiB object's
@@ -4807,6 +4896,431 @@ def phase_services(seed: int, card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _environ(values: dict):
+    """``values`` in this process's environment for the block (the
+    daemons spawned in it inherit them)."""
+    prior = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, val in prior.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+
+
+async def _asok(run_dir: str, who: str, prefix: str, **fields):
+    from ceph_tpu_torch.utils.admin_socket import admin_command
+
+    return await admin_command(
+        os.path.join(run_dir, "data", f"{who}.asok"), prefix, **fields)
+
+
+async def _residency_by_osd(run_dir: str, osds) -> dict:
+    """Each OSD daemon's transfer ledger, read over its admin socket."""
+    return {i: (await _asok(run_dir, f"osd.{i}", "residency status"))[
+        "counters"] for i in osds}
+
+
+def _transfers(before: dict, after: dict, label: str, leaders=()) -> dict:
+    """The H2D and D2H ops each OSD daemon issued between two ledger
+    reads: their sums must rise, and so must each ``leaders`` OSD's."""
+    delta = {i: {key: after[i][key] - before[i][key]
+                 for key in ("h2d_ops", "d2h_ops", "h2d_bytes")}
+             for i in after}
+    for key in ("h2d_ops", "d2h_ops"):
+        assert sum(d[key] for d in delta.values()) > 0, \
+            f"daemons {label}: no {key} on the card in any OSD daemon"
+    idle = sorted(i for i in leaders
+                  if delta[i]["h2d_ops"] <= 0 or delta[i]["d2h_ops"] <= 0)
+    assert not idle, f"daemons {label}: osd(s) {idle} led a written " \
+        f"object's placement group and moved nothing through the card"
+    return delta
+
+
+def _daemon_memory(pids: dict) -> dict:
+    """Each daemon's card memory from ``nvidia-smi --query-compute-apps``
+    (information only: a PID namespace may hide the daemons)."""
+    rows = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout
+    used = {}
+    for row in rows.splitlines():
+        pid, _, mem = row.partition(",")
+        if pid.strip().isdigit():
+            used[int(pid)] = mem.strip()
+    return {who: used.get(pid, "not listed") for who, pid in pids.items()}
+
+
+def _daemon_pids(run_dir: str) -> dict:
+    pids = {}
+    for name, prefix in (("pids", "osd"), ("mon_pids", "mon"),
+                         ("mgr_pids", "mgr")):
+        with open(os.path.join(run_dir, name)) as f:
+            pids.update({f"{prefix}.{k}": v for k, v in json.load(f).items()})
+    return pids
+
+
+def _mounted_shards(run_dir: str, final: dict) -> dict:
+    """Every OSD's store mounted in this process after a clean stop: the
+    stored shards of the objects of ``final`` ((osd, "<oid>@<s>") ->
+    bytes)."""
+    from ceph_tpu_torch import objectstore
+
+    shards = {}
+    for i in range(DAEMON_OSDS):
+        store = objectstore.create(
+            DAEMON_STORE, os.path.join(run_dir, "data", f"osd.{i}"))
+        try:
+            for soid in store.list_objects():
+                base, _, tag = soid.rpartition("@")
+                if base in final and tag.isdigit():
+                    shards[(i, soid)] = store.read(soid)
+        finally:
+            store.umount()
+    return shards
+
+
+def _health_series(series: list) -> tuple:
+    """(peak, upticks after the peak) of a degraded-count series."""
+    peak = max(series)
+    at = series.index(peak)
+    return peak, sum(1 for a, b in zip(series[at:], series[at + 1:])
+                     if b > a)
+
+
+def _daemons_cluster(seed: int, card: str) -> dict:
+    """(a) A cluster of processes on the card (docstring, phase 3n)."""
+    from ceph_tpu_torch.daemon.client import RemoteClient
+    from ceph_tpu_torch.rbd import RBD, Image
+    from ceph_tpu_torch.tools import vstart
+
+    rs = np.random.RandomState(seed + 2500)
+    payloads = {f"d{i}": rs.randint(0, 256, OBJECT, np.uint8).tobytes()
+                for i in range(DAEMON_OBJECTS)}
+    run_dir = tempfile.mkdtemp(prefix="ct-3n-")
+    addr_map = os.path.join(run_dir, "addr_map.json")
+    seconds, out = {}, {}
+    model = bytearray(SVC_NBD_BYTES)
+
+    async def sampler(series, stop):
+        """The mgr's ``pg stat`` degraded count and health, every 0.2 s."""
+        while not stop.is_set():
+            stat = await _asok(run_dir, "mgr.0", "pg stat")
+            health = await _asok(run_dir, "mgr.0", "health")
+            series.append((int(stat["degraded"]), health["status"]))
+            await asyncio.sleep(0.2)
+
+    async def drive():
+        c = await RemoteClient.connect(addr_map, DAEMON_PROFILE)
+        osds = range(DAEMON_OSDS)
+        before = await _residency_by_osd(run_dir, osds)
+        t0 = time.perf_counter()
+        sem = asyncio.Semaphore(DAEMON_WRITERS)
+
+        async def put(oid, data):
+            async with sem:
+                await c.write(oid, data)
+
+        async def get(oid):
+            async with sem:
+                return oid, await c.read(oid)
+
+        await asyncio.gather(*(put(o, d) for o, d in payloads.items()))
+        seconds["write"] = time.perf_counter() - t0
+        leaders = {int(c.backend.primary_of(oid).split(".")[1])
+                   for oid in payloads}
+        out["write_transfers"] = _transfers(
+            before, await _residency_by_osd(run_dir, osds), "write",
+            leaders)
+        t0 = time.perf_counter()
+        got = dict(await asyncio.gather(*(get(o) for o in payloads)))
+        seconds["read"] = time.perf_counter() - t0
+        assert got == payloads, "daemons: a read differs from its write"
+        # SIGKILL one OSD: the mon marks it down from peer heartbeats
+        victim = c.backend.acting_set("d0")[0]
+        out["victim"] = victim
+        series, stop = [], asyncio.Event()
+        watch = asyncio.get_running_loop().create_task(
+            sampler(series, stop))
+        assert vstart.kill_osd(run_dir, victim)
+        t0 = time.perf_counter()
+        while True:
+            rc, st = await c.monc.command({"prefix": "status"}, timeout=5.0)
+            if rc == 0 and victim not in st["up_osds"]:
+                break
+            assert time.perf_counter() - t0 < DAEMON_DEADLINE_S, \
+                f"daemons: the mon never marked osd.{victim} down: {st}"
+            await asyncio.sleep(0.25)
+        seconds["mark_down"] = time.perf_counter() - t0
+        live = [i for i in osds if i != victim]
+        before = await _residency_by_osd(run_dir, live)
+        t0 = time.perf_counter()
+        got = dict(await asyncio.gather(*(get(o) for o in payloads)))
+        seconds["degraded_read"] = time.perf_counter() - t0
+        assert got == payloads, "daemons: a degraded read differs"
+        out["degraded_read_transfers"] = _transfers(
+            before, await _residency_by_osd(run_dir, live), "degraded read")
+        # revive: the degraded count drains to HEALTH_OK
+        t0 = time.perf_counter()
+        await asyncio.get_running_loop().run_in_executor(
+            None, vstart.revive_osd, run_dir, victim, DAEMON_WAIT_S)
+        seconds["revive"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        while True:
+            await asyncio.sleep(0.2)
+            if series and series[-1] == (0, "HEALTH_OK") and \
+                    max(d for d, _ in series) > 0:
+                break
+            assert time.perf_counter() - t0 < DAEMON_DEADLINE_S, \
+                f"daemons: never HEALTH_OK: {series[-10:]}"
+        seconds["drain"] = time.perf_counter() - t0
+        stop.set()
+        await watch
+        degraded = [d for d, _ in series]
+        peak, upticks = _health_series(degraded)
+        assert peak > 0 and upticks <= 1, \
+            f"daemons: degraded {degraded} (peak {peak}, upticks {upticks})"
+        out["degraded_series"] = degraded
+        out["health"] = sorted({h for _, h in series})
+        await RBD(c.backend).create(DAEMON_IMAGE, SVC_NBD_BYTES,
+                                    order=SVC_ORDER)
+        await c.close()
+
+    async def image_bytes():
+        c = await RemoteClient.connect(addr_map, DAEMON_PROFILE)
+        try:
+            img = await Image.open(c.backend, DAEMON_IMAGE)
+            return await _read_image(img, SVC_NBD_BYTES)
+        finally:
+            await c.close()
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    stopped = False
+    t_boot = time.perf_counter()
+    try:
+        with _environ(DAEMON_ENV):
+            vstart.start_cluster(run_dir, DAEMON_OSDS, DAEMON_PROFILE,
+                                 objectstore=DAEMON_STORE,
+                                 wait=DAEMON_WAIT_S, n_mons=DAEMON_MONS,
+                                 n_mgrs=1)
+            seconds["boot"] = time.perf_counter() - t_boot
+            out["card_memory"] = _daemon_memory(_daemon_pids(run_dir))
+            _in_new_loop(drive())
+        # the admin-socket tool, a process against one OSD
+        asok = os.path.join(run_dir, "data", f"osd.{out['victim']}.asok")
+        t0 = time.perf_counter()
+        for words in DAEMON_CEPH_DAEMON:
+            proc = subprocess.run(
+                [sys.executable, "-m", "ceph_tpu_torch.tools.ceph_daemon",
+                 asok, *words], env=env, capture_output=True, text=True,
+                timeout=120)
+            assert proc.returncode == 0, (words, proc.stderr)
+            reply = json.loads(proc.stdout)
+            assert "error" not in reply, (words, reply)
+        assert reply["status"] == "stopped" and reply["report"]
+        seconds["ceph_daemon"] = time.perf_counter() - t0
+        # rbd_nbd, a process exporting the image over NBD
+        t0 = time.perf_counter()
+        nbd = subprocess.Popen(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.rbd_nbd", "--dir",
+             run_dir], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            line = nbd.stdout.readline()
+            assert line.startswith("nbd server up on 127.0.0.1:"), \
+                (line, nbd.stderr.read() if nbd.poll() is not None else "")
+            out["nbd_s"] = _in_new_loop(_nbd_client(
+                int(line.rsplit(":", 1)[1]), DAEMON_IMAGE, model, rs))
+        finally:
+            nbd.terminate()
+            rc = nbd.wait(timeout=60)
+        assert rc == 0, f"rbd_nbd exited {rc}: {nbd.stderr.read()}"
+        seconds["rbd_nbd"] = time.perf_counter() - t0
+        assert _in_new_loop(image_bytes()) == model, \
+            "daemons: the image differs from the NBD client's model"
+        t0 = time.perf_counter()
+        vstart.stop_cluster(run_dir)
+        stopped = True
+        seconds["stop"] = time.perf_counter() - t0
+        # every stored shard, each store mounted here after the clean stop
+        t0 = time.perf_counter()
+        image_object = 1 << SVC_ORDER
+        final = dict(payloads, **_objects_of(
+            model, f"rbd_data.{DAEMON_IMAGE}.", image_object,
+            range(SVC_NBD_BYTES // image_object)))
+        profile = {key: val for key, val in DAEMON_PROFILE.items()
+                   if key != "plugin"}
+        out["check"] = _wire_numpy_check(
+            "daemons", _mounted_shards(run_dir, final), final,
+            registry_mod.instance().factory("cuda", profile),
+            registry_mod.instance().factory("jerasure", profile))
+        seconds["check"] = time.perf_counter() - t0
+    finally:
+        if not stopped:
+            vstart.stop_cluster(run_dir)
+        shutil.rmtree(run_dir, ignore_errors=True)
+    out["seconds"] = seconds
+    wt = out["write_transfers"]
+    print(f"[daemons] (a) {DAEMON_MONS} mons, 1 mgr, {DAEMON_OSDS} OSD "
+          f"processes on {DAEMON_STORE}, reed_sol_van k=4 m=2 w=8 on cuda: "
+          f"boot {seconds['boot']:.1f} s; {DAEMON_OBJECTS} x "
+          f"{OBJECT >> 20} MiB written "
+          f"{_rate(DAEMON_OBJECTS * OBJECT, seconds['write'])}, read "
+          f"{_rate(DAEMON_OBJECTS * OBJECT, seconds['read'])}; residency "
+          f"h2d/d2h ops per OSD in the write "
+          f"{json.dumps({i: [d['h2d_ops'], d['d2h_ops']] for i, d in wt.items()})}"
+          f"; card {card}", flush=True)
+    dt = out["degraded_read_transfers"]
+    print(f"[daemons] (a) osd.{out['victim']} SIGKILLed, marked down by "
+          f"the mon in {seconds['mark_down']:.1f} s; degraded read "
+          f"{_rate(DAEMON_OBJECTS * OBJECT, seconds['degraded_read'])}, "
+          f"bit-exact, residency h2d/d2h ops per OSD "
+          f"{json.dumps({i: [d['h2d_ops'], d['d2h_ops']] for i, d in dt.items()})}"
+          f"; revive {seconds['revive']:.1f} s, degraded series "
+          f"{out['degraded_series']} -> HEALTH_OK in "
+          f"{seconds['drain']:.1f} s (health seen {out['health']}); "
+          f"card {card}", flush=True)
+    ns = out["nbd_s"]
+    print(f"[daemons] (a) ceph_daemon {len(DAEMON_CEPH_DAEMON)} commands "
+          f"in {seconds['ceph_daemon']:.1f} s; rbd_nbd process: "
+          f"{SVC_NBD_BYTES >> 20} MiB in {SVC_NBD_REQUEST >> 10} KiB "
+          f"requests written {_rate(SVC_NBD_BYTES, ns['write'])}, read "
+          f"{_rate(SVC_NBD_BYTES, ns['read'])}, image == model; clean stop "
+          f"{seconds['stop']:.1f} s; {out['check']} "
+          f"({seconds['check']:.1f} s, stores mounted here); card memory "
+          f"{json.dumps(out['card_memory'])}; card {card}", flush=True)
+    return out
+
+
+def _held(ok: bool) -> str:
+    return "held" if ok else "MISSED"
+
+
+def _daemons_telemetry(card: str) -> dict:
+    """(b) Telemetry on the card (docstring, phase 3n)."""
+    from ceph_tpu_torch.mgr import telemetry_bench
+
+    out, launches, seconds = {}, {}, {}
+    for name, call in (
+            ("telemetry_bench", lambda: telemetry_bench.run_telemetry_bench(
+                overhead_limit_pct=TELEMETRY_OVERHEAD_LIMIT_PCT)),
+            ("vstart_smoke", lambda: telemetry_bench.run_vstart_smoke(
+                wait=DAEMON_WAIT_S))):
+        cuda_gf.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = call()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = _w8_launches()
+    assert launches["telemetry_bench"] > 0, \
+        "daemons (b): gf2_matrix_w8 idle in the telemetry bench"
+    tel, vs = out["telemetry_bench"], out["vstart_smoke"]
+    pct = tel["telemetry_overhead_pct"]
+    print(f"[daemons] (b) run_telemetry_bench (6 OSDs, k=2 m=1 on cuda, "
+          f"{tel['n_objects']} x {tel['obj_bytes'] >> 10} KiB): report-loop "
+          f"overhead {pct}% (gate {TELEMETRY_OVERHEAD_GATE_PCT}% "
+          f"{_held(pct <= TELEMETRY_OVERHEAD_GATE_PCT)}; run at "
+          f"{TELEMETRY_OVERHEAD_LIMIT_PCT}%), reports off / on "
+          f"{tel['reports_off_GiBs']} / {tel['reports_on_GiBs']} GiB/s, "
+          f"{tel['reports_folded']} reports folded, scrape "
+          f"{tel['scrape']['series_parsed']} series, chaos "
+          f"{tel['chaos']['clients']} clients degraded peak "
+          f"{tel['chaos']['degraded_max']} -> "
+          f"{tel['chaos']['health_final']} "
+          f"({seconds['telemetry_bench']:.1f} s); run_vstart_smoke (4 OSD "
+          f"processes, k=2 m=1 on cuda): degraded {vs['degraded_series']} "
+          f"-> {vs['health_final']} ({seconds['vstart_smoke']:.1f} s); "
+          f"gf2_matrix_w8 launches {json.dumps(launches)}; card {card}",
+          flush=True)
+    out.update(launches=launches, seconds=seconds)
+    return out
+
+
+def _daemons_qos(card: str) -> dict:
+    """(c) QoS at scale on the card (docstring, phase 3n)."""
+    from ceph_tpu_torch.osd import qos_bench
+
+    out, launches, seconds = {}, {}, {}
+    stages = (
+        ("overload", lambda: qos_bench._overload_stage(
+            False, reservation_ratio_min=None)),
+        ("chaos", lambda: qos_bench._chaos_stage(False)),
+        ("scale", lambda: qos_bench._scale_stage(
+            False, starved_divisor=None)),
+        ("scale10x", lambda: qos_bench._scale10x_stage(
+            QOS_SCALE10X_SMOKE, out["scale"], starved_divisor=None,
+            p99_vs_1k_max=None)))
+    for name, stage in stages:
+        cuda_gf.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = _in_new_loop(stage())
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = _w8_launches()
+        assert launches[name] > 0, \
+            f"daemons (c): gf2_matrix_w8 idle in the {name} stage"
+    over, chaos = out["overload"], out["chaos"]
+    ratio = over["reservation_ratio"]
+    gates = [f"reservation ratio {ratio} (gate >= {QOS_RESERVATION_GATE} "
+             f"{_held(ratio >= QOS_RESERVATION_GATE)})"]
+    for name in ("scale", "scale10x"):
+        starved, closed = qos_bench._starved(out[name])
+        bound = max(2, closed // QOS_STARVED_DIVISOR)
+        gates.append(f"{name} closed-loop clients at zero ops {starved}/"
+                     f"{closed} (gate <= {bound} "
+                     f"{_held(starved <= bound)})")
+    p99, ref = out["scale10x"]["p99_ms"], out["scale"]["p99_ms"]
+    gates.append(f"scale10x p99 {p99} ms vs the 1k stage's {ref} ms (gate "
+                 f"<= {QOS_P99_VS_1K_GATE}x "
+                 f"{_held(p99 <= ref * QOS_P99_VS_1K_GATE)})")
+    print(f"[daemons] (c) run_qos_path_bench stages on cuda: overload "
+          f"{over['gold_clients']} gold + {over['bulk_clients']} bulk, "
+          f"throttle waits {over['throttle_waits']}, bulk ops "
+          f"{over['bulk_ops']}; chaos {chaos['n_clients']} clients, kills "
+          f"{chaos['kills']}, wipes {chaos['wipes']}, ops {chaos['ops']}, "
+          f"cas exact {chaos['cas_exact']}; scale "
+          f"{out['scale']['n_clients']} clients {out['scale']['ops_per_s']} "
+          f"ops/s p99 {ref} ms; scale10x {out['scale10x']['n_clients']} "
+          f"clients {out['scale10x']['ops_per_s']} ops/s, cas exact "
+          f"{out['scale10x']['cas_exact']}; host-timing gates run open: "
+          f"{'; '.join(gates)}; seconds "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+          f"gf2_matrix_w8 launches {json.dumps(launches)}; card {card}",
+          flush=True)
+    return {"launches": launches, "seconds": seconds, "gates": gates,
+            **{name: {key: out[name].get(key) for key in (
+                "n_clients", "ops", "errors", "ops_per_s", "p50_ms",
+                "p99_ms", "cas_exact", "kills", "wipes",
+                "reservation_ratio", "throttle_waits", "bulk_ops")
+                if key in out[name]} for name, _ in stages}}
+
+
+def phase_daemons(seed: int, card: str) -> dict:
+    """Daemons in processes of their own and the load generator on the
+    card (docstring, phase 3n)."""
+    t_phase = time.perf_counter()
+    out = {"cluster": _daemons_cluster(seed, card)}
+    gc.collect()
+    out["telemetry"] = _daemons_telemetry(card)
+    gc.collect()
+    out["qos"] = _daemons_qos(card)
+    gc.collect()
+    out["launches"] = dict(out["telemetry"]["launches"],
+                           **out["qos"]["launches"])
+    out["seconds"] = time.perf_counter() - t_phase
+    held = "held" if out["seconds"] <= DAEMON_BUDGET_S else "MISSED"
+    print(f"[daemons] phase {out['seconds']:.1f} s (budget "
+          f"{DAEMON_BUDGET_S:.0f} s {held}); gf2_matrix_w8 launches in "
+          f"this process {json.dumps(out['launches'])}, "
+          f"{sum(out['launches'].values())} in all; card {card}",
+          flush=True)
+    return out
+
+
 def phase_ec_benchmark(card: str) -> None:
     argv = ["-p", "cuda", "-s", str(STRIPE), "-i", "3", "-b", "8",
             "-w", "decode", "--erased", "1", "--erased", "6",
@@ -4998,6 +5512,7 @@ def main(argv=None) -> int:
     native_wire = timed("3k native_wire", phase_native_wire, card)
     osdc = timed("3l osdc", phase_osdc, args.seed, card)
     services = timed("3m services", phase_services, args.seed, card)
+    daemons = timed("3n daemons", phase_daemons, args.seed, card)
     timed("4 ec_benchmark", phase_ec_benchmark, card)
     launched.update(timed("5 sweep", phase_sweep, card))
     launched.update(timed("6 probes", phase_probes, card))
@@ -5019,6 +5534,7 @@ def main(argv=None) -> int:
     print(json.dumps({"native_wire_path": native_wire}, default=str))
     print(json.dumps({"osdc_path": osdc}, default=str))
     print(json.dumps({"services_path": services}, default=str))
+    print(json.dumps({"daemons_path": daemons}, default=str))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

@@ -18,7 +18,8 @@ on ``TCPMessenger``s with the native wire codec, corked and signed, the
 codec fuzzer, the client libraries of ``osdc/``, and the services on
 RADOS: an RBD image's write and read, served over NBD, the ``rbd_cli``
 import and export, an S3 PUT and GET over the gateway and a CephFS
-file's write and read, beside two MDS ranks).  The
+file's write and read, beside two MDS ranks); and ``python -m ... --help``
+of the three daemons, ``vstart`` and ``rbd_nbd`` the same way.  The
 native host
 libraries are held to the same rule: every source the port's build names
 lies in ``ceph_tpu_torch/native/``, no port module names a path under the
@@ -30,6 +31,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "ceph_tpu_torch"
@@ -118,6 +121,19 @@ def test_port_files_import_no_jax_and_no_reference_package():
     assert {"__init__.py", "gateway.py", "sync.py"} \
         <= {p.name for p in files if p.parent == PORT / "rgw"}
     assert PORT / "tools" / "rbd_cli.py" in files
+    # and the daemons in processes of their own, the load generator, the
+    # utilities around them, the QoS and telemetry benches and the tools
+    # that start and talk to the daemons
+    assert {"__init__.py", "client.py", "osd.py", "mon.py", "mgr.py"} \
+        <= {p.name for p in files if p.parent == PORT / "daemon"}
+    assert {"__init__.py", "profiles.py", "arrival.py", "clients.py",
+            "scenario.py"} \
+        <= {p.name for p in files if p.parent == PORT / "loadgen"}
+    assert {PORT / "utils" / "gcopt.py", PORT / "utils" / "admin_socket.py",
+            PORT / "utils" / "perfglue.py", PORT / "osd" / "qos_bench.py",
+            PORT / "mgr" / "telemetry_bench.py",
+            PORT / "tools" / "vstart.py", PORT / "tools" / "ceph_daemon.py",
+            PORT / "tools" / "rbd_nbd.py"} <= set(files)
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -437,6 +453,38 @@ def test_port_runs_where_jax_and_the_reference_cannot_import():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) > 15
+
+
+_MAIN_PROBE = r"""
+import runpy, sys
+for name in ("jax", "jaxlib", "ceph_tpu", "tools", "experiments"):
+    sys.modules[name] = None
+module = sys.argv[1]
+sys.argv = [module, "--help"]
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+assert not any(m in ("jax", "tools", "experiments")
+               or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
+               for m, mod in sys.modules.items() if mod is not None)
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "ceph_tpu_torch.daemon.osd", "ceph_tpu_torch.daemon.mon",
+    "ceph_tpu_torch.daemon.mgr", "ceph_tpu_torch.tools.vstart",
+    "ceph_tpu_torch.tools.rbd_nbd"])
+def test_daemon_and_vstart_entry_points_run_without_jax(module):
+    """``python -m <module> --help`` of the daemons and the tools that
+    start them, in an interpreter where ``jax`` and the JAX package cannot
+    be imported."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _MAIN_PROBE, module],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout
 
 
 def _string_constants(tree):

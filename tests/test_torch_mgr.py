@@ -120,13 +120,16 @@ def _run(coro):
 
 
 def _fresh(P):
-    """Cleared counters, histograms and trace ring, and the trace
-    sampler's roll back at its start (``clear`` keeps the roll, so the
-    root ops other tests ran in this process would otherwise decide
-    which ops each package samples here)."""
+    """Cleared counters, histograms and trace ring, the trace sampler's
+    roll back at its start (``clear`` keeps the roll, so the root ops
+    other tests ran in this process would otherwise decide which ops
+    each package samples here), and no mesh axes in the transfer ledger
+    (a mesh-plane run of another file on this worker would otherwise add
+    series to one package's exposition and not the other's)."""
     P.PerfCounters.reset_all()
     P.trace.clear()
     P.trace._sample_tick = 0
+    P.residency.counters().mesh_axes.clear()
 
 
 def _both(scenario, n_osds=6, profile=PROFILE):
