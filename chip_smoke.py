@@ -30,7 +30,7 @@ Phases (any failure raises and exits non-zero):
    rise during its profile.
 3b. The storage path (``osd/storage_bench.py``, the OSD write and degraded
    read cycles over ``ecutil``, the batch coalescer and crc32c) on the
-   card: reed_sol_van k=8 m=4 w=8 with 64 objects of 4 MiB (RBD's default
+   card: reed_sol_van k=8 m=4 w=8 with 32 objects of 4 MiB (RBD's default
    object size, RGW's stripe), 8 writers, 2 erasures, best of 2 timed
    cycles; w=16 and cauchy_good packetsize=2048 with 16 objects each.
    The harness gates bit-exactness (per-op against coalesced, and the
@@ -50,7 +50,7 @@ Phases (any failure raises and exits non-zero):
    degraded, read everything (reads that lost a data shard decode),
    revive, auto-recover until ``degraded_report()`` is empty (120 s
    deadline), read everything again -- for reed_sol_van k=8 m=4 w=8 with
-   64 objects of 4 MiB, and w=16 and cauchy_good packetsize=2048 with 16
+   32 objects of 4 MiB, and w=16 and cauchy_good packetsize=2048 with 16
    each.  Every read is checked against its payload; after recovery every
    stored shard in every OSD's store is compared with the port's numpy
    ``jerasure`` encode of the object's final payload and every shard's
@@ -69,7 +69,7 @@ Phases (any failure raises and exits non-zero):
    rise), a third with ``CEPH_TPU_TORCH_NO_H2D_CACHE=1``, which uploads
    again, and two through ``encode_batch``, whose persistent write lane
    uploads its fresh granules every time and caches none; then the cost
-   of the cache's blake2b: phase 3b's write pass of 64 objects, per-op
+   of the cache's blake2b: phase 3b's write pass of 32 objects, per-op
    and coalesced, with the cache on and off in turns.
    Then ``cluster_bench.run_tier_cycle`` on ``ECCluster(16, ...,
    plugin="cuda")`` with 8 client tasks: in writeback mode with 64 objects
@@ -84,8 +84,8 @@ Phases (any failure raises and exits non-zero):
    ``tier`` + ``h2d`` bytes equal the change of the caching allocator's
    requested bytes (``memory_stats``) over the cycle, up to the small
    device tables the codec makes (``memory_allocated`` is printed beside,
-   with the allocator's rounding).  Last, ``run_tier_path_bench`` at 64 x
-   4 MiB with 2 erasures on a private ledger (384 MiB resident): hot and
+   with the allocator's rounding).  Last, ``run_tier_path_bench`` at 32 x
+   4 MiB with 2 erasures on a private ledger (192 MiB resident): hot and
    cold read GiB/s.  The codec kernels' launches on the tier path are
    zeroed just before each cycle and read just after it (per step too);
    ``tier_bench``'s are counted apart.
@@ -140,8 +140,8 @@ Phases (any failure raises and exits non-zero):
    ``ECCluster.create_with_mons`` with 16 OSDs and 3 mons, reed_sol_van
    k=8 m=4 w=8 on the ``cuda`` plugin, ``objectstore="blockstore"``: the
    pool and its profile are paxos-committed, then ``osd/durable_bench.py``'s
-   cycle -- 8 client tasks write 64 objects of 4 MiB (RBD's object size;
-   384 MiB stored over 16 block files), one OSD is killed and every object
+   cycle -- 8 client tasks write 32 objects of 4 MiB (RBD's object size;
+   192 MiB stored over 16 block files), one OSD is killed and every object
    read degraded, the mon leader is killed and, once the lease has failed
    over (a new leader answers ``status``), 8 more objects are written; then
    the cluster is abandoned without unmounting its stores (a crash), a new
@@ -163,7 +163,7 @@ Phases (any failure raises and exits non-zero):
 3h. The mesh data plane (``parallel/``) over 4 slots: every card the
    process sees when it sees 4 or more, else ``cuda:0`` four times (one
    stream a slot; ``parallel.configure_devices``).  (a) ``ECCluster(16,
-   reed_sol_van k=8 m=4 w=8, plugin="cuda")`` runs phase 3c's cycle at 64
+   reed_sol_van k=8 m=4 w=8, plugin="cuda")`` runs phase 3c's cycle at 32
    x 4 MiB with ``osd_mesh_data_plane`` on (osd.0-3 bound to the slots;
    ``osd_mesh_scatter`` auto, on for CUDA: encodes reduce-scattered over
    the slots, decodes on the primary's slot, chunks to bound OSDs through
@@ -184,7 +184,7 @@ Phases (any failure raises and exits non-zero):
 3i. The control plane, reed_sol_van k=8 m=4 w=8 on the ``cuda`` plugin,
    16 OSDs, objects of 4 MiB (RBD's object size).  (a) Object classes
    through librados: ``Rados(16)`` and ``pool_create`` with that profile,
-   64 objects by ``IoCtx.write_full``, an ``rbd`` header lifecycle on
+   32 objects by ``IoCtx.write_full``, an ``rbd`` header lifecycle on
    ``rbd_header.img`` (create, set_size, snap_add, snap_protect,
    add_child, set_features, metadata_set / get, a refused unprotect), a
    ``lock`` contended between two ``IoCtx``s, ``version`` inc / check, a
@@ -193,7 +193,7 @@ Phases (any failure raises and exits non-zero):
    OSD killed: ``exec`` and the omap still answer and every object reads
    back exact; every stored shard against the numpy ``jerasure`` encode
    and its crc.  It prints the ``exec`` p50 and p99.  (b) The manager: a
-   ``MgrDaemon`` over a cycle of 64 x 4 MiB writes, an OSD killed, a
+   ``MgrDaemon`` over a cycle of 32 x 4 MiB writes, an OSD killed, a
    quarter overwritten and everything read degraded, revive and
    recovery; ``/health``, ``/status`` and ``/metrics`` scraped over
    HTTP (127.0.0.1, port 0) before the kill, while the OSD is down,
@@ -220,7 +220,7 @@ Phases (any failure raises and exits non-zero):
    codec, ``osd_wire_codec_native=false`` for (a)-(c)), reed_sol_van k=8 m=4 w=8 on
    the ``cuda`` plugin, 12 OSDs (k+m), each an ``OSDShard`` on its own
    ``TCPMessenger`` on localhost, and a client ``Objecter``.  (a)
-   ``run_cluster_path_bench`` at 16 objects of 4 MiB (RBD's object
+   ``run_cluster_path_bench`` at 8 objects of 4 MiB (RBD's object
    size), 8 writers, one iteration: per-message frames, then corked
    bursts, then the messenger-level wire stage (64 fan-outs of 512 KiB
    sub-ops to 12 peers, 32 in flight).  Its gates: every read back exact
@@ -228,7 +228,7 @@ Phases (any failure raises and exits non-zero):
    every stored shard against the numpy ``jerasure`` encode of its
    object, ``h2d_per_granule`` <= 1 in each write pass and 0 steady
    library builds.  It prints each mode's write and read GiB/s, the wire
-   stage's speedup and the wire counters.  (b) One corked cycle of 16 x
+   stage's speedup and the wire counters.  (b) One corked cycle of 8 x
    4 MiB with a ``KeyRing`` holding every entity's key (cephx handshake
    on every connection, every frame signed), and one with
    ``osd_msgr_shm_ring=true`` (colocated daemons on shared-memory
@@ -251,7 +251,7 @@ Phases (any failure raises and exits non-zero):
    bodies byte-identical and decodes equal; 256 messages sealed in bursts
    of 16 by ``seal_frames`` byte-identical to the Python codec's entry
    frames.  (b) ``run_cluster_path_bench`` at 3j (a)'s shape (12 OSDs on
-   localhost TCP, 16 x 4 MiB, 8 writers, per-message and corked, the wire
+   localhost TCP, 8 x 4 MiB, 8 writers, per-message and corked, the wire
    stage) on the Python codec, then on the native one: the stored shards
    equal across the codecs and against the numpy ``jerasure`` encode;
    both codecs' write and read GiB/s side by side, ``h2d_per_granule``
@@ -278,20 +278,20 @@ Phases (any failure raises and exits non-zero):
    replays them, commit and trim drop the first object; ``ObjectCacher``
    write-back at librbd's 32 MiB budget takes 64 MiB of 64 KiB writes to
    16 objects of 4 MiB, flushes, invalidates and reads through;
-   ``KvStore`` sets 2,000 keys, scans them sorted and reads 256 back.
+   ``KvStore`` sets 1,000 keys, scans them sorted and reads 256 back.
    Every data object's stored shards against the numpy ``jerasure``
    encode of its bytes; ``gf2_matrix_w8``'s launches per step, which must
    rise in the writes and the degraded read.
 3m. The services on RADOS, each step on ``ECCluster(16, reed_sol_van k=8
    m=4, plugin="cuda")`` (and a second cluster of 8 OSDs at k=4 m=2 where
-   it names one).  (a) RBD: a 1 GiB image at order 22 (4 MiB objects) with
-   the object map and fast-diff; 256 MiB filled in 4 MiB writes, 1,024
+   it names one).  (a) RBD: a 512 MiB image at order 22 (4 MiB objects) with
+   the object map and fast-diff; 128 MiB filled in 4 MiB writes, 512
    writes of 4 KiB at seeded random offsets (read-modify-write encodes),
    snapshot ``s1``, 128 more (copy-on-write), ``s1`` protected and cloned,
    16 writes of 4 KiB to the clone (each copies up a 4 MiB parent block);
    the head, ``s1`` and the clone read whole against a numpy model,
    ``fast_diff(s1)`` and the object map against the objects the model
-   touched, the head's written 256 MiB read again with the OSDs of data
+   touched, the head's written 128 MiB read again with the OSDs of data
    shards 1 and 6 of its first object down (decodes).  (b) A journaled 64
    MiB image (16 writes of 4 MiB, 64 of 4 KiB), mirrored by
    ``MirrorDaemon`` into the k=4 m=2 cluster (bootstrap, then a replay of
@@ -300,7 +300,7 @@ Phases (any failure raises and exits non-zero):
    checked.  (c) ``NBDServer`` on a localhost socket, driven by a
    fixed-newstyle client of its own: 64 MiB written and read in 128 KiB
    requests, FLUSH, TRIM, DISC, every reply's error 0, the image equal to
-   the client's model.  (d) ``CephFS``: a tree of 1,000 dentries (100
+   the client's model.  (d) ``CephFS``: a tree of 500 dentries (48
    directories nested 4 deep, files spread over them, one file in 8 with 4
    KiB), a 64 MiB file at CephFS's documented default layout (4 MiB stripe
    unit, count 1, 4 MiB objects) written in 4 MiB writes and read whole; an
@@ -336,18 +336,22 @@ Phases (any failure raises and exits non-zero):
    shard 0 of the first object) is SIGKILLed and the mon marks it down
    from peer heartbeats alone; every object reads back degraded,
    bit-exact (the summed H2D and D2H ops rise again); the OSD is revived
-   and the mgr's ``pg stat`` degraded count, sampled over its admin
+   through ``ceph_volume prepare`` and ``activate`` (phase 3o (c)) and
+   the mgr's ``pg stat`` degraded count, sampled over its admin
    socket from the kill on, rises and then drains with at most one uptick
    to HEALTH_OK.  ``ceph_daemon`` runs ``perf dump``, ``config show``,
    ``residency status`` and ``cpu_profiler`` start and stop against the
-   revived OSD, each a process.  ``rbd_nbd`` runs as a process over the
-   cluster and exports a 64 MiB image (order 22), which phase 3m's NBD
+   revived OSD, each a process; then phase 3o (b) runs ``rados_cli``
+   against the cluster.  ``rbd_nbd`` runs as a process over the
+   cluster and exports a 16 MiB image (order 22), which phase 3m's NBD
    client writes and reads in 128 KiB requests against its model (FLUSH,
    TRIM, DISC); the image read back through a new client equals the
    model.  After ``stop_cluster`` (SIGTERM; each OSD unmounts its store)
    every OSD's blockstore is mounted in this process and every stored
-   shard of the 32 objects and the image's 16 data objects is compared
-   with the port's numpy ``jerasure`` encode of its bytes.  Each daemon's
+   shard of the 32 objects, the objects ``rados_cli`` left and the
+   image's 4 data objects is compared with the port's numpy ``jerasure``
+   encode of its bytes; then phase 3o (d) runs the offline tools on what
+   the cluster left.  Each daemon's
    card memory from ``nvidia-smi --query-compute-apps`` is printed
    (information only).  (b) ``run_telemetry_bench()`` at its defaults (6
    OSDs, k=2 m=1, 48 x 16 KiB, 8 writers, 2 iterations, chaos 24 clients
@@ -364,10 +368,47 @@ Phases (any failure raises and exits non-zero):
    printed beside their defaults.  The OSDs of (b)'s bench and of every
    (c) stage run in this process: ``gf2_matrix_w8``'s launches, zeroed
    before and read after each, must rise in each.  The phase prints its
-   seconds beside its 240 s budget.
+   seconds, less those of phase 3o's steps inside (a), beside its 240 s
+   budget.
+3o. The operator's command-line tools (``ceph_tpu_torch/tools/``), each
+   called through its ``main(argv)`` with its output checked line by
+   line.  (a) ``rados_bench`` at its own defaults (20 OSDs of an
+   in-process ``ECCluster``, 16 x 4 MiB) with ``--profile
+   "plugin=cuda technique=reed_sol_van k=8 m=4 w=8"``: its two JSON
+   lines, ``gf2_matrix_w8``'s launches (zeroed before, must rise), and
+   every stored shard against the numpy ``jerasure`` encode of its
+   payload with its HashInfo crc against the plain crc32c, before the
+   cluster shuts down; then ``rados_bench`` with no arguments (its
+   default lrc profile, whose layers are ``jerasure``'s: the host, no
+   kernel launch).  (b) Inside 3n (a), between ``ceph_daemon`` and
+   ``rbd_nbd``: every ``rados_cli`` subcommand against the 8 OSD
+   processes: ``put`` of 3 x 4 MiB (the first a process of its own; the
+   OSDs' summed H2D and D2H ops must rise), ``get`` to stdout (a process)
+   and to a file, ``stat``, ``setomapval`` and ``listomapvals``, ``rm``
+   of one, ``ls``, ``df``, ``health [detail]``, ``pg stat``, ``status``,
+   ``log last``, ``tier status``, ``recovery status``, ``ops`` (in
+   flight, historic, slow), ``trace`` (status and one trace id from an
+   OSD's ring), ``profile`` (status, dump, reset) and ``residency
+   status``; the objects it leaves join 3n (a)'s shard check.  (c)
+   ``ceph_volume prepare`` and ``activate`` revive 3n (a)'s SIGKILLed
+   OSD on its blockstore (a daemon that builds its codec on the card
+   before it listens); ``prepare``, a refused second ``prepare``, an
+   ``activate`` without a cluster and ``list`` on a fresh run directory.
+   (d) After 3n (a)'s clean stop: ``monstore_tool`` (``show-versions``,
+   ``dump-paxos``, ``dump-keys``, ``get-osdmap``) on ``mon.0``'s store;
+   ``osdmaptool`` on that map (``--print``, ``--test-map-pgs`` summing
+   to pg_num x 6 with no holes, ``--test-map-object d0`` equal to the
+   client's acting set, ``--mark-out`` of the victim, whose count goes
+   to 0); ``objectstore_tool`` ``list``, ``info``, ``export``, ``import``
+   into a fresh store (bytes and attributes equal) and ``remove`` on a
+   filestore and a kstore of 3 x 4 MiB written here; ``ceph_cli`` with
+   the flagship ``cuda`` profile (a pool on it, a refused ``rm``).  Any
+   wrong byte, missing line or exit code fails the smoke; the phase
+   prints its seconds, (a) and the steps inside 3n (a), beside its 90 s
+   budget.
 4. One run of the port's ``ec_benchmark`` (batched decode, chunks 1 and 6
    erased), one of ``-w storage-path --profile`` at the flagship profile
-   (64 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
+   (32 objects of 4 MiB), one of ``-w recovery-path`` with 32 objects
    of 4 MiB (its bench called directly; its gates: bit-exact rebuild,
    identical rebuilt stores in both modes, the batched lane used, client
    p99 under the JAX test's 10,000 ms, printed beside its 2000 ms default
@@ -503,9 +544,11 @@ PROFILES = (
 
 #: the storage path's configurations: (label, profile, objects, the kernel
 #: the profile runs).  4 MiB is RBD's default object (rbd_default_order 22)
-#: and RGW's stripe (rgw_obj_stripe_size)
+#: and RGW's stripe (rgw_obj_stripe_size); the flagship's 32 objects were
+#: 64 until phase 3o needed the room (so were 3g's, 3h's, 3i's, the tier
+#: bench's and phase 4's storage path)
 STORAGE_PROFILES = (
-    ("reed_sol_van w=8", {"technique": "reed_sol_van"}, 64, "gf2_matrix_w8"),
+    ("reed_sol_van w=8", {"technique": "reed_sol_van"}, 32, "gf2_matrix_w8"),
     ("reed_sol_van w=16", {"technique": "reed_sol_van", "w": "16"}, 16,
      "gf2_matrix_w16"),
     ("cauchy_good packetsize=2048",
@@ -529,7 +572,7 @@ CRC_PREFIX = 64 << 10
 #: cycles, the tier bench's objects, and turns of the hash-cost passes
 TIER_OBJECTS = 64
 TIER_READPROXY_OBJECTS = 16
-TIER_BENCH_OBJECTS = 64
+TIER_BENCH_OBJECTS = 32
 HASH_TURNS = 2
 #: device bytes the codec itself keeps during a cycle, outside the ledger:
 #: the nibble tables of the encode and decode streams (1 KiB each at k=8
@@ -591,7 +634,7 @@ DURABLE_OSDS = 16
 DURABLE_MONS = 3
 DURABLE_PROFILES = (
     ("reed_sol_van w=8 on blockstore, 3 mons", {"technique": "reed_sol_van"},
-     "blockstore", True, 64, 8, "gf2_matrix_w8"),
+     "blockstore", True, 32, 8, "gf2_matrix_w8"),
     ("reed_sol_van w=16 on filestore",
      {"technique": "reed_sol_van", "w": "16"}, "filestore", False, 16, 4,
      "gf2_matrix_w16"),
@@ -613,7 +656,7 @@ DURABLE_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 #: OSDs and objects, the grids of the codec step, and the mesh_shard pool
 MESH_SLOTS = 4
 MESH_OSDS = 16
-MESH_OBJECTS = 64
+MESH_OBJECTS = 32
 MESH_GRIDS = ((1, 4, 1), (2, 2, 1))
 MESH_STRIPES = 8
 MESH_SHARD_PROFILE = {"technique": "reed_sol_van", "k": "4", "m": "2",
@@ -626,7 +669,7 @@ MESH_SHARD_OBJECTS = 16
 #: 8, which took 52.8 s of a 103.8 s phase on the H100) and the failover
 #: bench's second run
 CONTROL_OSDS = 16
-CONTROL_OBJECTS = 64
+CONTROL_OBJECTS = 32
 CONTROL_DEADLINE_S = 120.0
 ELASTIC_4M = {"n_objects": 16, "obj_bytes": OBJECT, "n_hot": 8,
               "n_clients": WRITERS, "moved_ratio_bound": 1.25,
@@ -634,13 +677,14 @@ ELASTIC_4M = {"n_objects": 16, "obj_bytes": OBJECT, "n_hot": 8,
 FAILOVER_4M = {"n_objects": 16, "obj_bytes": OBJECT}
 #: the wire (phase 3j): the cluster-path bench's objects (of OBJECT
 #: bytes, on k+m OSDs; cut from 64, whose bench alone took 50.6 s on the
-#: H100's host, then 32 and 24, with which the phase took 80.9-95.8 s)
-#: and its payload seed, the signed and ring cycles' objects (its first
-#: ones), the mesh-path sweep's objects (cut from 32, 16 and 12), sizes
-#: and payload seed, and the mon repair's wait and held reply
-WIRE_OBJECTS = 16
+#: H100's host, then 32, 24 and 16, with which the phase took 51-82 s;
+#: 8 since phase 3o needed the room) and its payload seed, the signed and
+#: ring cycles' objects (16 until phase 3o), the mesh-path sweep's
+#: objects (cut from 32, 16 and 12), sizes and payload seed, and the mon
+#: repair's wait and held reply
+WIRE_OBJECTS = 8
 WIRE_SEED = 4321
-WIRE_SIDE_OBJECTS = 16
+WIRE_SIDE_OBJECTS = 8
 WIRE_MESH_OBJECTS = 8
 WIRE_MESH_SIZES = (1, 2, 4, 8)
 WIRE_MESH_SEED = 1717
@@ -696,14 +740,17 @@ OSDC_CACHE_BYTES = 32 << 20
 OSDC_CACHE_WRITTEN = 64 << 20
 OSDC_CACHE_WRITE = 64 << 10
 #: cut from 10,000 (66-94 s of host-bound omap round trips on the H100
-#: machine) to make room for phase 3n; 2,000 keys still split the store
-#: into dozens of 64-key buckets
-OSDC_KV_KEYS = 2_000
+#: machine) to make room for phase 3n, then from 2,000 for phase 3o;
+#: 1,000 keys still split the store into a dozen or more 64-key buckets
+OSDC_KV_KEYS = 1_000
 OSDC_DOWN = 2
 #: the services on RADOS (phase 3m): OSDs of the primary cluster (the
 #: flagship profile) and of the mirror's and the second zone's cluster,
-#: whose profile is k=4 m=2; RBD: a 1 GiB image at librbd's default order
-#: 22 (4 MiB objects), the bytes filled in 4 MiB writes, ``rbd bench``'s
+#: whose profile is k=4 m=2; RBD: a 512 MiB image (1 GiB until the tools'
+#: phase 3o needed the room, which also halved the bytes filled, the
+#: random writes before the snapshot and CephFS's dentries and
+#: directories) at librbd's default order 22 (4 MiB objects), the bytes
+#: filled in 4 MiB writes, ``rbd bench``'s
 #: default 4 KiB io size, the random 4 KiB writes before the snapshot,
 #: after it and to the clone (each of the last copies up a parent block);
 #: the journaled image, its 4 KiB writes and those on the promoted copy;
@@ -719,11 +766,11 @@ OSDC_DOWN = 2
 SVC_OSDS = 16
 SVC_PEER_OSDS = 8
 SVC_PEER_PROFILE = {"k": "4", "m": "2"}
-SVC_IMAGE = 1 << 30
+SVC_IMAGE = 512 << 20
 SVC_ORDER = 22
-SVC_FILLED = 256 << 20
+SVC_FILLED = 128 << 20
 SVC_IO = 4 << 10
-SVC_RANDOM_WRITES = 1024
+SVC_RANDOM_WRITES = 512
 SVC_SNAP_WRITES = 128
 SVC_CHILD_WRITES = 16
 SVC_JOURNAL_IMAGE = 64 << 20
@@ -737,8 +784,8 @@ SVC_RGW_MULTIPART = 64 << 20
 SVC_RGW_PART = 8 << 20
 SVC_RGW_VERSIONS = 3
 SVC_RGW_DEGRADED = 4
-SVC_FS_DENTRIES = 1000
-SVC_FS_DIRS = 100
+SVC_FS_DENTRIES = 500
+SVC_FS_DIRS = 48
 SVC_FS_DEPTH = 4
 SVC_FS_DATA_EVERY = 8
 SVC_FS_BIG = 64 << 20
@@ -772,11 +819,25 @@ DAEMON_ENV = {
     "CEPH_TPU_TORCH_MGR_PG_STALE_GRACE": "3.0",
 }
 DAEMON_IMAGE = "nbd0"
+#: the image ``rbd_nbd`` exports, in ``SVC_NBD_REQUEST`` requests (64 MiB
+#: until phase 3o needed the room, then 32)
+DAEMON_NBD_BYTES = 16 << 20
 DAEMON_CEPH_DAEMON = (("perf", "dump"), ("config", "show"),
                       ("residency", "status"),
                       ("cpu_profiler", "action=start"),
                       ("cpu_profiler", "action=stop"))
 DAEMON_BUDGET_S = 240.0
+#: phase 3o: the operator's command-line tools.  (a) ``rados_bench`` at
+#: its own defaults (``rados_bench.OSDS``, ``OBJECTS``, ``SIZE``: 20 OSDs,
+#: 16 x 4 MiB) under the flagship profile on the card (``bench.py:32-37``),
+#: then once at its default lrc profile, whose generated layers are
+#: jerasure's (the host); (b) ``rados_cli`` against 3n (a)'s cluster, its
+#: objects of 4 MiB; (d) ``objectstore_tool``'s filestore and kstore, each
+#: holding a few 4 MiB objects; the phase's budget
+TOOLS_PROFILE = "plugin=cuda technique=reed_sol_van k=8 m=4 w=8"
+TOOLS_CLI_OBJECTS = 3
+TOOLS_STORE_OBJECTS = 3
+TOOLS_BUDGET_S = 90.0
 #: phase 3n (b) and (c): the host-timing gates at their defaults (the JAX
 #: package's) and the limits the smoke runs them at: the telemetry report
 #: loop's overhead at the JAX smoke arm's 25%
@@ -1475,17 +1536,25 @@ def phase_sweep_edges(dev, gen) -> None:
                         dev)
 
 
+def _tool(tool, argv, rc: int = 0) -> str:
+    """``tool.main(argv)`` in this process with its stdout captured; it
+    must exit ``rc``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = tool.main(argv)
+    name = tool.__name__.rsplit(".", 1)[-1]
+    assert got == rc, \
+        f"{name} {' '.join(argv)} exited {got}: {buf.getvalue()[-2000:]}"
+    return buf.getvalue()
+
+
 def _tool_lines(tool, argv) -> list:
     """Run ``tool.main(argv)`` in-process; its output lines, printed with a
     tag.  Fails unless it exits 0."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = tool.main(argv)
-    out = buf.getvalue().strip().splitlines()
+    out = _tool(tool, argv).strip().splitlines()
     tag = tool.__name__.rsplit(".", 1)[-1]
     for line in out:
         print(f"[{tag}] {line}", flush=True)
-    assert rc == 0, f"{tag} exited {rc}"
     return out
 
 
@@ -1910,7 +1979,7 @@ def _tier_h2d_cache(reg, rs, card) -> dict:
 
 
 def _tier_hash_cost(reg, seed, card) -> dict:
-    """Phase 3b's write pass (64 x 4 MiB, w=8, 8 writers) per-op and
+    """Phase 3b's write pass (32 x 4 MiB, w=8, 8 writers) per-op and
     coalesced, with the upload cache on and with the escape hatch set, in
     turns; and blake2b-128's own rate over one 32 MiB granule."""
     ec = reg.factory("cuda", _profile({"technique": "reed_sol_van"}))
@@ -4311,8 +4380,9 @@ def _svc_mirror(seed: int, card: str) -> dict:
 
 async def _nbd_client(port: int, export: str, model: bytearray,
                       rs) -> dict:
-    """A fixed-newstyle NBD client: handshake, writes and reads of
-    ``SVC_NBD_BYTES`` in ``SVC_NBD_REQUEST`` requests, FLUSH, TRIM, DISC;
+    """A fixed-newstyle NBD client: handshake, writes and reads of the
+    whole image (``model``'s size) in ``SVC_NBD_REQUEST`` requests, FLUSH,
+    TRIM, DISC;
     every reply must carry error 0.  Returns the seconds of each part."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     magic, opt_magic, flags = struct.unpack(">QQH",
@@ -4343,18 +4413,18 @@ async def _nbd_client(port: int, export: str, model: bytearray,
 
     seconds = {}
     t0 = time.perf_counter()
-    for off in range(0, SVC_NBD_BYTES, SVC_NBD_REQUEST):
+    for off in range(0, size, SVC_NBD_REQUEST):
         piece = rs.randint(0, 256, SVC_NBD_REQUEST, dtype=np.uint8).tobytes()
         await command(1, off, SVC_NBD_REQUEST, piece)
         model[off:off + SVC_NBD_REQUEST] = piece
     seconds["write"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for off in range(0, SVC_NBD_BYTES, SVC_NBD_REQUEST):
+    for off in range(0, size, SVC_NBD_REQUEST):
         assert await command(0, off, SVC_NBD_REQUEST) == \
             model[off:off + SVC_NBD_REQUEST], f"nbd: read at {off}"
     seconds["read"] = time.perf_counter() - t0
     await command(3, 0, 0)
-    trim = (SVC_NBD_BYTES // 2 + 12345, 3 * SVC_NBD_REQUEST)
+    trim = (size // 2 + 12345, 3 * SVC_NBD_REQUEST)
     t0 = time.perf_counter()
     await command(4, *trim)
     seconds["trim"] = time.perf_counter() - t0
@@ -4651,8 +4721,8 @@ def _svc_rgw(seed: int, card: str) -> dict:
 
 def _fs_tree() -> tuple:
     """The CephFS step's tree: ``SVC_FS_DIRS`` directories nested
-    ``SVC_FS_DEPTH`` deep under ``/t`` and files spread over them, 1,000
-    dentries in all; every ``SVC_FS_DATA_EVERY``-th file gets 4 KiB."""
+    ``SVC_FS_DEPTH`` deep under ``/t`` and files spread over them,
+    ``SVC_FS_DENTRIES`` dentries in all; every ``SVC_FS_DATA_EVERY``-th file gets 4 KiB."""
     dirs = []
     for top in range(SVC_FS_DIRS // SVC_FS_DEPTH):
         path = f"/t/d{top:02d}"
@@ -4676,7 +4746,7 @@ async def _fs_walk(mds, path: str = "/") -> dict:
 
 
 def _svc_cephfs(seed: int, card: str) -> dict:
-    """(d) CephFS: a tree of 1,000 dentries, a file at the documented
+    """(d) CephFS: a tree of 500 dentries, a file at the documented
     default layout, a crash and a fresh MDS's journal replay, and two MDS
     ranks with an exported subtree."""
     from ceph_tpu_torch.mds import MDS, CephFS, MultiMDS
@@ -5005,7 +5075,8 @@ def _daemons_cluster(seed: int, card: str) -> dict:
     run_dir = tempfile.mkdtemp(prefix="ct-3n-")
     addr_map = os.path.join(run_dir, "addr_map.json")
     seconds, out = {}, {}
-    model = bytearray(SVC_NBD_BYTES)
+    model = bytearray(DAEMON_NBD_BYTES)
+    tools = {"seconds": {}}
 
     async def sampler(series, stop):
         """The mgr's ``pg stat`` degraded count and health, every 0.2 s."""
@@ -5034,6 +5105,7 @@ def _daemons_cluster(seed: int, card: str) -> dict:
         seconds["write"] = time.perf_counter() - t0
         leaders = {int(c.backend.primary_of(oid).split(".")[1])
                    for oid in payloads}
+        out["d0_acting"] = c.backend.acting_set("d0")
         out["write_transfers"] = _transfers(
             before, await _residency_by_osd(run_dir, osds), "write",
             leaders)
@@ -5065,11 +5137,13 @@ def _daemons_cluster(seed: int, card: str) -> dict:
         assert got == payloads, "daemons: a degraded read differs"
         out["degraded_read_transfers"] = _transfers(
             before, await _residency_by_osd(run_dir, live), "degraded read")
-        # revive: the degraded count drains to HEALTH_OK
+        # revive through ceph_volume (phase 3o (c)): the degraded count
+        # drains to HEALTH_OK
         t0 = time.perf_counter()
-        await asyncio.get_running_loop().run_in_executor(
-            None, vstart.revive_osd, run_dir, victim, DAEMON_WAIT_S)
-        seconds["revive"] = time.perf_counter() - t0
+        tools["activated"] = await asyncio.get_running_loop(
+        ).run_in_executor(None, _tools_activate, run_dir, victim)
+        seconds["revive"] = tools["seconds"]["(c) activate"] = \
+            time.perf_counter() - t0
         t0 = time.perf_counter()
         while True:
             await asyncio.sleep(0.2)
@@ -5087,7 +5161,7 @@ def _daemons_cluster(seed: int, card: str) -> dict:
             f"daemons: degraded {degraded} (peak {peak}, upticks {upticks})"
         out["degraded_series"] = degraded
         out["health"] = sorted({h for _, h in series})
-        await RBD(c.backend).create(DAEMON_IMAGE, SVC_NBD_BYTES,
+        await RBD(c.backend).create(DAEMON_IMAGE, DAEMON_NBD_BYTES,
                                     order=SVC_ORDER)
         await c.close()
 
@@ -5095,7 +5169,7 @@ def _daemons_cluster(seed: int, card: str) -> dict:
         c = await RemoteClient.connect(addr_map, DAEMON_PROFILE)
         try:
             img = await Image.open(c.backend, DAEMON_IMAGE)
-            return await _read_image(img, SVC_NBD_BYTES)
+            return await _read_image(img, DAEMON_NBD_BYTES)
         finally:
             await c.close()
 
@@ -5125,6 +5199,10 @@ def _daemons_cluster(seed: int, card: str) -> dict:
             assert "error" not in reply, (words, reply)
         assert reply["status"] == "stopped" and reply["report"]
         seconds["ceph_daemon"] = time.perf_counter() - t0
+        # rados_cli, every subcommand (phase 3o (b))
+        t0 = time.perf_counter()
+        tools["cli"] = _tools_cli(run_dir, env, seed)
+        tools["seconds"]["(b) rados_cli"] = time.perf_counter() - t0
         # rbd_nbd, a process exporting the image over NBD
         t0 = time.perf_counter()
         nbd = subprocess.Popen(
@@ -5151,9 +5229,9 @@ def _daemons_cluster(seed: int, card: str) -> dict:
         # every stored shard, each store mounted here after the clean stop
         t0 = time.perf_counter()
         image_object = 1 << SVC_ORDER
-        final = dict(payloads, **_objects_of(
+        final = dict(payloads, **tools["cli"]["objects"], **_objects_of(
             model, f"rbd_data.{DAEMON_IMAGE}.", image_object,
-            range(SVC_NBD_BYTES // image_object)))
+            range(DAEMON_NBD_BYTES // image_object)))
         profile = {key: val for key, val in DAEMON_PROFILE.items()
                    if key != "plugin"}
         out["check"] = _wire_numpy_check(
@@ -5161,11 +5239,18 @@ def _daemons_cluster(seed: int, card: str) -> dict:
             registry_mod.instance().factory("cuda", profile),
             registry_mod.instance().factory("jerasure", profile))
         seconds["check"] = time.perf_counter() - t0
+        # the offline tools on the stopped cluster's stores (phase 3o (d))
+        # and ceph_volume on a fresh run directory (3o (c))
+        t0 = time.perf_counter()
+        tools["offline"] = _tools_offline(run_dir, seed, out["d0_acting"],
+                                          out["victim"])
+        tools["volume"] = _tools_volume_fresh()
+        tools["seconds"]["(c, d) offline"] = time.perf_counter() - t0
     finally:
         if not stopped:
             vstart.stop_cluster(run_dir)
         shutil.rmtree(run_dir, ignore_errors=True)
-    out["seconds"] = seconds
+    out.update(seconds=seconds, tools=tools)
     wt = out["write_transfers"]
     print(f"[daemons] (a) {DAEMON_MONS} mons, 1 mgr, {DAEMON_OSDS} OSD "
           f"processes on {DAEMON_STORE}, reed_sol_van k=4 m=2 w=8 on cuda: "
@@ -5182,17 +5267,18 @@ def _daemons_cluster(seed: int, card: str) -> dict:
           f"{_rate(DAEMON_OBJECTS * OBJECT, seconds['degraded_read'])}, "
           f"bit-exact, residency h2d/d2h ops per OSD "
           f"{json.dumps({i: [d['h2d_ops'], d['d2h_ops']] for i, d in dt.items()})}"
-          f"; revive {seconds['revive']:.1f} s, degraded series "
+          f"; revived through ceph_volume activate (phase 3o (c)) in "
+          f"{seconds['revive']:.1f} s, degraded series "
           f"{out['degraded_series']} -> HEALTH_OK in "
           f"{seconds['drain']:.1f} s (health seen {out['health']}); "
           f"card {card}", flush=True)
     ns = out["nbd_s"]
     print(f"[daemons] (a) ceph_daemon {len(DAEMON_CEPH_DAEMON)} commands "
           f"in {seconds['ceph_daemon']:.1f} s; rbd_nbd process: "
-          f"{SVC_NBD_BYTES >> 20} MiB in {SVC_NBD_REQUEST >> 10} KiB "
-          f"requests written {_rate(SVC_NBD_BYTES, ns['write'])}, read "
-          f"{_rate(SVC_NBD_BYTES, ns['read'])}, image == model; clean stop "
-          f"{seconds['stop']:.1f} s; {out['check']} "
+          f"{DAEMON_NBD_BYTES >> 20} MiB in {SVC_NBD_REQUEST >> 10} KiB "
+          f"requests written {_rate(DAEMON_NBD_BYTES, ns['write'])}, read "
+          f"{_rate(DAEMON_NBD_BYTES, ns['read'])}, image == model; clean "
+          f"stop {seconds['stop']:.1f} s; {out['check']} "
           f"({seconds['check']:.1f} s, stores mounted here); card memory "
           f"{json.dumps(out['card_memory'])}; card {card}", flush=True)
     return out
@@ -5311,13 +5397,364 @@ def phase_daemons(seed: int, card: str) -> dict:
     gc.collect()
     out["launches"] = dict(out["telemetry"]["launches"],
                            **out["qos"]["launches"])
-    out["seconds"] = time.perf_counter() - t_phase
+    embedded = sum(out["cluster"]["tools"]["seconds"].values())
+    out["seconds"] = time.perf_counter() - t_phase - embedded
     held = "held" if out["seconds"] <= DAEMON_BUDGET_S else "MISSED"
-    print(f"[daemons] phase {out['seconds']:.1f} s (budget "
+    print(f"[daemons] phase {out['seconds']:.1f} s without phase 3o's "
+          f"{embedded:.1f} s inside (a) (budget "
           f"{DAEMON_BUDGET_S:.0f} s {held}); gf2_matrix_w8 launches in "
           f"this process {json.dumps(out['launches'])}, "
           f"{sum(out['launches'].values())} in all; card {card}",
           flush=True)
+    return out
+
+
+def _tools_activate(run_dir: str, osd: int) -> str:
+    """3o (c): ``ceph_volume prepare`` and ``activate`` of 3n (a)'s
+    SIGKILLed OSD, on its blockstore: an OSD process that builds its codec
+    on the card before it listens (docstring, phase 3o)."""
+    from ceph_tpu_torch.tools import ceph_volume, vstart
+
+    argv = ["--run-dir", run_dir, "--id", str(osd)]
+    out = _tool(ceph_volume, ["prepare", *argv, "--objectstore",
+                              DAEMON_STORE])
+    assert out.startswith(f"prepared osd.{osd} ({DAEMON_STORE}) at "), out
+    line = _tool(ceph_volume, ["activate", *argv])
+    assert re.fullmatch(rf"activated osd\.{osd} pid=\d+\n", line), line
+    assert vstart._load_pids(run_dir)[osd] == int(line.rsplit("=", 1)[1])
+    return line.strip()
+
+
+def _tools_volume_fresh() -> dict:
+    """3o (c): ``ceph_volume prepare`` and ``list`` on a fresh run
+    directory; a second prepare and an activate without a cluster are
+    refused."""
+    from ceph_tpu_torch.tools import ceph_volume
+
+    run_dir = tempfile.mkdtemp(prefix="ct-3o-")
+    try:
+        argv = ["--run-dir", run_dir, "--id", "0"]
+        _tool(ceph_volume, ["prepare", *argv, "--objectstore", DAEMON_STORE])
+        with contextlib.redirect_stderr(io.StringIO()):
+            _tool(ceph_volume, ["prepare", *argv], rc=1)
+            _tool(ceph_volume, ["activate", *argv], rc=1)
+        meta = json.loads(_tool(ceph_volume, ["list", "--run-dir",
+                                              run_dir]))["osd.0"]
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    assert meta["objectstore"] == DAEMON_STORE and meta["whoami"] == 0 \
+        and meta["prepared"] is True and len(meta["fsid"]) == 36, meta
+    return meta
+
+
+def _tools_cli(run_dir: str, env: dict, seed: int) -> dict:
+    """3o (b): every ``rados_cli`` subcommand against 3n (a)'s cluster
+    (docstring, phase 3o); returns the objects it leaves stored and the
+    OSDs' H2D / D2H ops during its puts."""
+    from ceph_tpu_torch.tools import rados_cli
+
+    rs = np.random.RandomState(seed + 2600)
+    objs = {f"t{i}": rs.randint(0, 256, OBJECT, np.uint8).tobytes()
+            for i in range(TOOLS_CLI_OBJECTS)}
+    files = {oid: os.path.join(run_dir, f"{oid}.in") for oid in objs}
+    for oid, data in objs.items():
+        with open(files[oid], "wb") as f:
+            f.write(data)
+    base, oids, calls = ["--dir", run_dir], list(objs), []
+
+    def cli(*argv) -> str:
+        calls.append(argv[0])
+        return _tool(rados_cli, [*base, *argv])
+
+    def process(*argv) -> bytes:
+        calls.append(argv[0])
+        proc = subprocess.run(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.rados_cli", *base,
+             *argv], env=env, capture_output=True, timeout=300)
+        assert proc.returncode == 0, (argv, proc.stderr.decode()[-2000:])
+        return proc.stdout
+
+    def per_osd(text: str) -> list:
+        rows = [line for line in text.splitlines()
+                if line.startswith("osd.")]
+        assert len(rows) == DAEMON_OSDS, text
+        return rows
+
+    osds = range(DAEMON_OSDS)
+    before = _in_new_loop(_residency_by_osd(run_dir, osds))
+    assert process("put", oids[0], files[oids[0]]) == \
+        f"wrote {OBJECT} bytes to {oids[0]}\n".encode()
+    for oid in oids[1:]:
+        assert cli("put", oid, files[oid]) == \
+            f"wrote {OBJECT} bytes to {oid}\n"
+    transfers = _transfers(before, _in_new_loop(
+        _residency_by_osd(run_dir, osds)), "rados_cli put")
+    assert process("get", oids[1], "-") == objs[oids[1]], "rados_cli get -"
+    got = os.path.join(run_dir, "t.out")
+    assert cli("get", oids[0], got) == f"read {OBJECT} bytes from {oids[0]}\n"
+    with open(got, "rb") as f:
+        assert f.read() == objs[oids[0]], "rados_cli get"
+    assert cli("stat", oids[0]) == f"{oids[0]} size {OBJECT}\n"
+    assert cli("setomapval", oids[0], "owner", "smoke") == "set\n"
+    assert cli("listomapvals", oids[0]) == "owner\tb'smoke'\n"
+    gone = oids.pop()
+    assert cli("rm", gone) == f"removed {gone}\n"
+    listed = cli("ls").split()
+    assert set(oids) <= set(listed) and gone not in listed, listed
+    df = cli("df").splitlines()
+    assert len(df) == DAEMON_OSDS + 1 and df[-1].startswith("total\t"), df
+    health = cli("health", "detail").splitlines()
+    assert health[0] in ("HEALTH_OK", "HEALTH_WARN", "HEALTH_ERR"), health
+    assert cli("health").strip() in ("HEALTH_OK", "HEALTH_WARN",
+                                     "HEALTH_ERR")
+    assert " pg slices: " in cli("pg", "stat")
+    assert "  cluster:\n    health: HEALTH_" in cli("status")
+    log = cli("log", "last", "5").splitlines()
+    assert all(re.fullmatch(r"\d+\.\d{3} [A-Z]+ \S.*", line)
+               for line in log), log
+    per_osd(cli("tier", "status"))
+    per_osd(cli("recovery", "status"))
+    for view in ("in-flight", "historic", "slow"):
+        per_osd(cli("ops", view))
+    per_osd(cli("trace", "status"))
+    spans = _in_new_loop(_asok(run_dir, "osd.0", "trace dump"))
+    trace_id = spans[0]["trace_id"] if spans else 1
+    trace = cli("trace", str(trace_id)).splitlines()
+    assert len(trace) >= (1 if spans else 0), trace
+    per_osd(cli("profile", "status"))
+    per_osd(cli("profile", "dump"))
+    assert cli("profile", "reset").count("\treset") == DAEMON_OSDS
+    assert all("\th2d " in row for row in per_osd(cli("residency",
+                                                      "status")))
+    missing = {"status", "health", "pg", "put", "get", "rm", "stat", "ls",
+               "df", "tier", "recovery", "ops", "trace", "profile", "log",
+               "residency", "setomapval", "listomapvals"} - set(calls)
+    assert not missing, f"rados_cli: {missing} not run"
+    return {"objects": {oid: objs[oid] for oid in oids},
+            "commands": len(calls),
+            "put_transfers": transfers, "health": health[0],
+            "trace_spans": len(trace),
+            "log_lines": len(log)}
+
+
+def _tools_offline(run_dir: str, seed: int, d0_acting: list,
+                   victim: int) -> dict:
+    """3o (d): ``monstore_tool`` on 3n (a)'s stopped ``mon.0``,
+    ``osdmaptool`` on the map it rebuilds, ``objectstore_tool`` on a
+    filestore and a kstore of 4 MiB objects, ``ceph_cli`` with a ``cuda``
+    profile (docstring, phase 3o)."""
+    from ceph_tpu_torch import objectstore
+    from ceph_tpu_torch.osd.types import Transaction
+    from ceph_tpu_torch.tools import (ceph_cli, monstore_tool,
+                                      objectstore_tool, osdmaptool)
+
+    out = {}
+    mon0 = os.path.join(run_dir, "mon", "0")
+    versions = json.loads(_tool(monstore_tool, [mon0, "show-versions"]))
+    assert versions["last_committed"] > 0 and versions["stored_versions"] \
+        > 0 and versions["uncommitted_v"] is None, versions
+    paxos = _tool(monstore_tool, [mon0, "dump-paxos"]).splitlines()
+    assert len(paxos) == versions["stored_versions"]
+    assert [json.loads(line)["v"] for line in paxos] == sorted(
+        json.loads(line)["v"] for line in paxos)
+    keys = _tool(monstore_tool, [mon0, "dump-keys"]).splitlines()
+    assert len(keys) > versions["stored_versions"], keys
+    text = _tool(monstore_tool, [mon0, "get-osdmap"])
+    osdmap = json.loads(text)
+    pool = osdmap["pools"]["ecpool"]
+    width = int(DAEMON_PROFILE["k"]) + int(DAEMON_PROFILE["m"])
+    assert osdmap["max_osd"] == DAEMON_OSDS and \
+        pool["k"] + pool["m"] == width, osdmap
+    out["monstore"] = dict(versions, epoch=osdmap["epoch"])
+    path = os.path.join(run_dir, "osdmap.json")
+    with open(path, "w") as f:
+        f.write(text)
+    assert json.loads(_tool(osdmaptool, [path, "--print"])) == osdmap
+
+    def table() -> dict:
+        lines = _tool(osdmaptool, [path, "--test-map-pgs", "--pool",
+                                   "ecpool"]).splitlines()
+        assert lines[0] == f"pool ecpool pg_num {pool['pg_num']} size " \
+            f"{width}" and lines[-1].endswith(" holes 0"), lines
+        rows = {row.split("\t")[0]: int(row.split("\t")[1])
+                for row in lines[2:-1]}
+        assert len(rows) == DAEMON_OSDS and \
+            sum(rows.values()) == pool["pg_num"] * width, rows
+        return rows
+
+    out["pgs_per_osd"] = table()
+    line = _tool(osdmaptool, [path, "--test-map-object", "d0", "--pool",
+                              "ecpool"])
+    assert line.endswith(f" -> {d0_acting}\n"), (line, d0_acting)
+    assert _tool(osdmaptool, [path, "--mark-out", str(victim)]).startswith(
+        f"osdmaptool: osd_out osd.{victim}, epoch now ")
+    assert table()[f"osd.{victim}"] == 0
+    rs = np.random.RandomState(seed + 2700)
+    out["objectstore"] = {}
+    for kind in ("filestore", "kstore"):
+        src = os.path.join(run_dir, "tools", kind)
+        store = objectstore.create(kind, src)
+        objs = {}
+        for i in range(TOOLS_STORE_OBJECTS):
+            oid = f"{kind}{i}@{i}"
+            objs[oid] = rs.randint(0, 256, OBJECT, np.uint8).tobytes()
+            store.queue_transaction(
+                Transaction().write(oid, 0, objs[oid])
+                .setattr(oid, "_size", OBJECT).setattr(oid, "_version", i + 1))
+        store.umount()
+        base = ["--data-path", src, "--type", kind, "--op"]
+        assert sorted(_tool(objectstore_tool, [*base, "list"]).split()) == \
+            sorted(objs)
+        first = next(iter(objs))
+        assert _tool(objectstore_tool, [*base, "info", "--oid", first]) == (
+            f"oid: {first}\nsize: {OBJECT}\nattr _size: {OBJECT}\n"
+            f"attr _version: 1\n")
+        dump = src + ".dump"
+        assert _tool(objectstore_tool, [*base, "export", "--file", dump]) \
+            == f"exported {len(objs)} object(s) to {dump}\n"
+        dst = src + "-imported"
+        assert _tool(objectstore_tool, [
+            "--data-path", dst, "--type", kind, "--op", "import", "--file",
+            dump]) == f"imported {len(objs)} object(s) from {dump}\n"
+        store = objectstore.create(kind, dst)
+        try:
+            assert sorted(store.list_objects()) == sorted(objs)
+            for i, (oid, data) in enumerate(objs.items()):
+                assert store.read(oid) == data and \
+                    store.getattr(oid, "_version") == i + 1, \
+                    f"tools: {kind} import of {oid} differs from its export"
+        finally:
+            store.umount()
+        assert _tool(objectstore_tool, [*base, "remove", "--oid", first]) \
+            == f"removed {first}\n"
+        assert first not in _tool(objectstore_tool, [*base, "list"]).split()
+        out["objectstore"][kind] = {"objects": len(objs),
+                                    "dump_bytes": os.path.getsize(dump)}
+    profile = TOOLS_PROFILE.split()
+    with _environ({ceph_cli.STATE_ENV: os.path.join(run_dir, "cli.json")}):
+        made = json.loads(_tool(ceph_cli, [
+            "osd", "erasure-code-profile", "set", "flagship", *profile]))
+        assert made == {"profile": "flagship", "chunk_count": 12,
+                        "data_chunk_count": 8}, made
+        made = json.loads(_tool(ceph_cli, [
+            "osd", "pool", "create", "cardpool", "erasure", "flagship"]))
+        assert made == {"pool": "cardpool", "profile": "flagship",
+                        "chunk_count": 12, "data_chunk_count": 8}, made
+        assert json.loads(_tool(ceph_cli, [
+            "osd", "erasure-code-profile", "get", "flagship"])) == dict(
+                kv.split("=", 1) for kv in profile)
+        assert json.loads(_tool(ceph_cli, [
+            "osd", "erasure-code-profile", "ls"])) == ["default", "flagship"]
+        assert json.loads(_tool(ceph_cli, ["osd", "pool", "ls"])) == {
+            "cardpool": {"pool_type": "erasure", "profile": "flagship",
+                         "chunk_count": 12, "data_chunk_count": 8}}
+        with contextlib.redirect_stderr(io.StringIO()):
+            _tool(ceph_cli, ["osd", "erasure-code-profile", "rm",
+                             "flagship"], rc=1)
+        assert json.loads(_tool(ceph_cli, ["status"])) == {
+            "health": "HEALTH_OK", "pools": 1, "profiles": 2}
+        assert "zlib" in json.loads(_tool(ceph_cli, ["compression", "ls"]))
+    return out
+
+
+def _tools_bench(card: str) -> dict:
+    """3o (a): ``rados_bench`` at its defaults (docstring, phase 3o)."""
+    from ceph_tpu_torch.tools import rados_bench
+
+    ref = registry_mod.instance().factory("jerasure", {
+        key: val for key, val in rados_bench.parse_profile(
+            TOOLS_PROFILE).items() if key != "plugin"})
+    shape = (rados_bench.OSDS, rados_bench.OBJECTS, rados_bench.SIZE)
+
+    async def run():
+        cluster, payloads, results = await rados_bench.bench(
+            *shape, rados_bench.parse_profile(TOOLS_PROFILE))
+        try:
+            launches = _w8_launches()
+            check = _cluster_check(cluster, ref, payloads)
+        finally:
+            await cluster.shutdown()
+        return results, launches, check
+
+    cuda_gf.reset_launches()
+    t0 = time.perf_counter()
+    results, launches, check = _in_new_loop(run())
+    seconds = {"cuda": time.perf_counter() - t0}
+    assert launches > 0, "tools (a): gf2_matrix_w8 idle in rados_bench"
+    rates = {row["phase"]: row["mb_s"] for row in results}
+    assert [(row["objects"], row["size"]) for row in results] == \
+        [shape[1:]] * 2, results
+    print(f"[tools] (a) rados_bench --profile \"{TOOLS_PROFILE}\" at its "
+          f"defaults ({shape[0]} OSDs, in-process ECCluster, {shape[1]} x "
+          f"{shape[2] >> 20} MiB): {json.dumps(results[0])} "
+          f"{json.dumps(results[1])}; gf2_matrix_w8 launches {launches}; "
+          f"{check} ({seconds['cuda']:.1f} s); card {card}", flush=True)
+    cuda_gf.reset_launches()
+    t0 = time.perf_counter()
+    lrc = [json.loads(line) for line in _tool(rados_bench, []).splitlines()]
+    seconds["lrc"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    host = sum(cuda_gf.launches.values())
+    assert host == 0 and [(row["phase"], row["objects"], row["size"])
+                          for row in lrc] == [
+        ("write", *shape[1:]), ("read", *shape[1:])], (host, lrc)
+    print(f"[tools] (a) rados_bench with no arguments (its default "
+          f"\"{rados_bench.PROFILE}\", whose generated layers are "
+          f"jerasure's: the host, {host} kernel launches): "
+          f"{json.dumps(lrc[0])} {json.dumps(lrc[1])} "
+          f"({seconds['lrc']:.1f} s); card {card}", flush=True)
+    return {"cuda": rates, "launches": launches, "check": check,
+            "lrc": {row["phase"]: row["mb_s"] for row in lrc},
+            "seconds": seconds}
+
+
+def phase_tools(card: str, embedded: dict) -> dict:
+    """The operator's command-line tools on the card (docstring, phase
+    3o): (a) here, (b)-(d) inside 3n (a), whose results ``embedded``
+    holds."""
+    t_phase = time.perf_counter()
+    out = {"bench": _tools_bench(card)}
+    seconds = dict(embedded["seconds"], **{
+        "(a) rados_bench": time.perf_counter() - t_phase})
+    cli, off = embedded["cli"], embedded["offline"]
+    pt = cli["put_transfers"]
+    print(f"[tools] (b) rados_cli against 3n (a)'s {DAEMON_OSDS} OSD "
+          f"processes, {cli['commands']} commands (one put and one get each "
+          f"a process), {TOOLS_CLI_OBJECTS} x {OBJECT >> 20} MiB put, one "
+          f"removed, the others in 3n (a)'s shard check; health "
+          f"{cli['health']}, {cli['log_lines']} log lines, "
+          f"{cli['trace_spans']} spans of one trace; residency h2d/d2h ops "
+          f"per OSD in the puts "
+          f"{json.dumps({i: [d['h2d_ops'], d['d2h_ops']] for i, d in pt.items()})}"
+          f" ({seconds['(b) rados_cli']:.1f} s); card {card}", flush=True)
+    print(f"[tools] (c) ceph_volume: {embedded['activated']} (3n (a)'s "
+          f"SIGKILLed OSD prepared and activated on its {DAEMON_STORE}, "
+          f"its codec built on the card before it listened, "
+          f"{seconds['(c) activate']:.1f} s); prepare, a refused second "
+          f"prepare, an activate without a cluster and list on a fresh run "
+          f"directory; card {card}", flush=True)
+    ms, st = off["monstore"], off["objectstore"]
+    print(f"[tools] (d) monstore_tool on mon.0's store: last_committed "
+          f"{ms['last_committed']}, {ms['stored_versions']} versions, "
+          f"get-osdmap epoch {ms['epoch']}; osdmaptool on that map: "
+          f"--test-map-pgs {json.dumps(off['pgs_per_osd'])}, "
+          f"--test-map-object d0 == the client's acting set, --mark-out; "
+          f"objectstore_tool list / info / export / import / remove on "
+          f"{json.dumps(st)} ({TOOLS_STORE_OBJECTS} x {OBJECT >> 20} MiB "
+          f"each, imported == exported); ceph_cli with \"{TOOLS_PROFILE}\" "
+          f"(chunk_count 12) ({seconds['(c, d) offline']:.1f} s); card "
+          f"{card}", flush=True)
+    out.update(seconds=seconds, cli={key: val for key, val in cli.items()
+                                     if key != "objects"},
+               activated=embedded["activated"], offline=off,
+               volume=embedded["volume"])
+    total = sum(seconds.values())
+    print(f"[tools] phase {total:.1f} s ((a) here, (b)-(d) inside 3n (a): "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+          f"budget {TOOLS_BUDGET_S:.0f} s "
+          f"{_held(total <= TOOLS_BUDGET_S)}); gf2_matrix_w8 launches in "
+          f"rados_bench {out['bench']['launches']}; card {card}", flush=True)
+    out["total_seconds"] = total
     return out
 
 
@@ -5334,7 +5771,7 @@ def phase_ec_benchmark(card: str) -> None:
     gibs = int(kib) / 2**20 / float(seconds)
     print(f"[ec_benchmark] {' '.join(argv)} -> {out[-1]!r} "
           f"({gibs:.3f} GiB/s decode; card {card})", flush=True)
-    argv = ["-p", "cuda", "-w", "storage-path", "--objects", "64", "-s",
+    argv = ["-p", "cuda", "-w", "storage-path", "--objects", "32", "-s",
             str(OBJECT), "--writers", str(WRITERS), "--profile",
             "-P", f"k={K}", "-P", f"m={M}"]
     buf = io.StringIO()
@@ -5513,6 +5950,8 @@ def main(argv=None) -> int:
     osdc = timed("3l osdc", phase_osdc, args.seed, card)
     services = timed("3m services", phase_services, args.seed, card)
     daemons = timed("3n daemons", phase_daemons, args.seed, card)
+    tools = timed("3o tools", phase_tools, card,
+                  daemons["cluster"].pop("tools"))
     timed("4 ec_benchmark", phase_ec_benchmark, card)
     launched.update(timed("5 sweep", phase_sweep, card))
     launched.update(timed("6 probes", phase_probes, card))
@@ -5535,6 +5974,7 @@ def main(argv=None) -> int:
     print(json.dumps({"osdc_path": osdc}, default=str))
     print(json.dumps({"services_path": services}, default=str))
     print(json.dumps({"daemons_path": daemons}, default=str))
+    print(json.dumps({"tools_path": tools}, default=str))
     print(smi)
     print(json.dumps({"kernels": [
         {key: row[key] for key in (

@@ -18,8 +18,13 @@ on ``TCPMessenger``s with the native wire codec, corked and signed, the
 codec fuzzer, the client libraries of ``osdc/``, and the services on
 RADOS: an RBD image's write and read, served over NBD, the ``rbd_cli``
 import and export, an S3 PUT and GET over the gateway and a CephFS
-file's write and read, beside two MDS ranks); and ``python -m ... --help``
-of the three daemons, ``vstart`` and ``rbd_nbd`` the same way.  The
+file's write and read, beside two MDS ranks, and the command-line tools:
+``osdmaptool`` on a new map, ``monstore_tool`` on a mon's store,
+``objectstore_tool`` from a kstore into a filestore, ``ceph_volume``,
+``ceph_cli`` with a ``cuda`` profile, ``rados_bench`` and ``rados_cli``);
+and ``python -m ... --help`` of the three daemons, ``vstart``,
+``rbd_nbd``, ``rados_cli``, ``rados_bench``, ``ceph_volume`` and
+``objectstore_tool`` the same way.  The
 native host
 libraries are held to the same rule: every source the port's build names
 lies in ``ceph_tpu_torch/native/``, no port module names a path under the
@@ -121,6 +126,11 @@ def test_port_files_import_no_jax_and_no_reference_package():
     assert {"__init__.py", "gateway.py", "sync.py"} \
         <= {p.name for p in files if p.parent == PORT / "rgw"}
     assert PORT / "tools" / "rbd_cli.py" in files
+    # and the operator's command-line tools
+    assert {"osdmaptool.py", "monstore_tool.py", "objectstore_tool.py",
+            "ceph_volume.py", "ceph_cli.py", "rados_bench.py",
+            "rados_cli.py"} <= {p.name for p in files
+                                if p.parent == PORT / "tools"}
     # and the daemons in processes of their own, the load generator, the
     # utilities around them, the QoS and telemetry benches and the tools
     # that start and talk to the daemons
@@ -440,6 +450,56 @@ with tempfile.TemporaryDirectory() as tmp:
     with open(dst, "rb") as f:
         assert f.read() == b"cli" * 30000
 loop.close()
+from ceph_tpu_torch.mon.monitor import MonClient, MonCluster
+from ceph_tpu_torch.osd.messenger import Messenger
+from ceph_tpu_torch.tools import (ceph_cli, ceph_volume, monstore_tool,
+                                  objectstore_tool, osdmaptool, rados_bench,
+                                  rados_cli)
+async def mon_store(path):
+    ms = Messenger()
+    mc = MonCluster(3, ms, store_dir=path)
+    await mc.form_quorum()
+    cl = MonClient(ms, 3, "c")
+    async def dispatch(src, msg):
+        await cl.handle_reply(msg)
+    ms.register("c", dispatch)
+    assert (await cl.command({"prefix": "osd create", "n": 4}))[0] == 0
+    await ms.shutdown()
+    mc.close_stores()
+with tempfile.TemporaryDirectory() as tmp:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        osdmap = os.path.join(tmp, "map.json")
+        for argv in (["--createsimple", "6"], ["--create-pool", "p", "--k",
+                     "2", "--m", "1", "--pg-num", "8"], ["--test-map-pgs"]):
+            assert osdmaptool.main([osdmap, *argv]) == 0
+        loop = asyncio.new_event_loop()
+        loop.run_until_complete(mon_store(os.path.join(tmp, "mon")))
+        loop.close()
+        assert monstore_tool.main([os.path.join(tmp, "mon", "mon.0"),
+                                   "get-osdmap"]) == 0
+        s = objectstore.create("kstore", f"{tmp}/ks")
+        s.queue_transaction(Transaction().write("o", 0, b"k" * 5000))
+        s.umount()
+        dump = f"{tmp}/dump"
+        for path, kind, op in (("ks", "kstore", "export"),
+                               ("fs", "filestore", "import")):
+            assert objectstore_tool.main([
+                "--data-path", f"{tmp}/{path}", "--type", kind, "--op", op,
+                "--file", dump]) == 0
+        assert ceph_volume.main(["prepare", "--run-dir", tmp, "--id",
+                                 "0"]) == 0
+        assert ceph_volume.main(["list", "--run-dir", tmp]) == 0
+        os.environ[ceph_cli.STATE_ENV] = f"{tmp}/cli.json"
+        assert ceph_cli.main(["osd", "erasure-code-profile", "set", "c",
+                              "plugin=cuda", "k=2", "m=1",
+                              "device=cpu"]) == 0
+        assert rados_bench.main(["--osds", "4", "--objects", "2", "--size",
+                                 "5000", "--profile",
+                                 "plugin=cuda k=2 m=1 device=cpu"]) == 0
+        assert rados_cli.main(["--dir", tmp, "ls"]) == 0
+    assert '"phase": "read"' in buf.getvalue() and \
+        '"chunk_count": 3' in buf.getvalue()
 assert not any(m in ("jax", "tools", "experiments")
                or m.startswith(("jax.", "ceph_tpu.", "tools.", "experiments."))
                for m, mod in sys.modules.items() if mod is not None)
@@ -474,11 +534,13 @@ assert not any(m in ("jax", "tools", "experiments")
 @pytest.mark.parametrize("module", [
     "ceph_tpu_torch.daemon.osd", "ceph_tpu_torch.daemon.mon",
     "ceph_tpu_torch.daemon.mgr", "ceph_tpu_torch.tools.vstart",
-    "ceph_tpu_torch.tools.rbd_nbd"])
+    "ceph_tpu_torch.tools.rbd_nbd", "ceph_tpu_torch.tools.rados_cli",
+    "ceph_tpu_torch.tools.rados_bench", "ceph_tpu_torch.tools.ceph_volume",
+    "ceph_tpu_torch.tools.objectstore_tool"])
 def test_daemon_and_vstart_entry_points_run_without_jax(module):
-    """``python -m <module> --help`` of the daemons and the tools that
-    start them, in an interpreter where ``jax`` and the JAX package cannot
-    be imported."""
+    """``python -m <module> --help`` of the daemons, the tools that
+    start them and the command-line tools with an argument parser, in an
+    interpreter where ``jax`` and the JAX package cannot be imported."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _MAIN_PROBE, module],
                           cwd=REPO, env=env, capture_output=True, text=True,

@@ -9,11 +9,10 @@ runs as the same script through both packages in one process: its own
 assertions hold in each, and every command's ``(rc, out)`` and the
 leader's osdmap dict at the end are the same in both.  Results are
 compared, never timings.  A minted auth key is random and a cluster-log
-stamp is a time, so those two fields are compared by type.  The JAX
-package's offline store tool (``tools/monstore_tool.py``) and the cephx
-handshake are not ported (ROADMAP.md queue 1 items 20 and 16); the mon's
-keyring hook is driven with the JAX package's ``KeyRing`` object, the
-only thing of cephx it touches.
+stamp is a time, so those two fields are compared by type.  Each package's
+mon mints and revokes keys in its own package's ``KeyRing``
+(``auth/cephx.py``); the offline store tool of each package is held to
+the other's in ``tests/test_torch_tools.py``.
 """
 
 import asyncio
@@ -22,7 +21,7 @@ import types
 import numpy as np
 import pytest
 
-from ceph_tpu.auth import KeyRing
+from ceph_tpu.auth import KeyRing as JKeyRing
 from ceph_tpu.auth import caps as j_caps
 from ceph_tpu.mon import monitor as j_monitor
 from ceph_tpu.mon import osdmap as j_osdmap
@@ -31,7 +30,7 @@ from ceph_tpu.osd import cluster as j_cluster
 from ceph_tpu.osd import messenger as j_messenger
 from ceph_tpu.utils import config as j_config
 from ceph_tpu.utils.perf import PerfCounters as JPerfCounters
-from ceph_tpu_torch.auth import caps
+from ceph_tpu_torch.auth import KeyRing, caps
 from ceph_tpu_torch.mon import monitor, osdmap, services
 from ceph_tpu_torch.osd import cluster, cluster_bench, messenger
 from ceph_tpu_torch.utils import config
@@ -42,7 +41,7 @@ PORT = types.SimpleNamespace(
     OSDMap=osdmap.OSDMap, ClusterLog=services.ClusterLog,
     LogClient=services.LogClient, Messenger=messenger.Messenger,
     caps=caps, config=config, PerfCounters=PerfCounters,
-    ECCluster=cluster.ECCluster,
+    ECCluster=cluster.ECCluster, KeyRing=KeyRing,
     # the port's mon-backed cluster runs the card's plugin, on the CPU
     # where the profile asks for it
     with_mons=lambda n, prof, **kw: cluster.ECCluster.create_with_mons(
@@ -55,6 +54,7 @@ JAX = types.SimpleNamespace(
     ClusterLog=j_services.ClusterLog, LogClient=j_services.LogClient,
     Messenger=j_messenger.Messenger, caps=j_caps, config=j_config,
     PerfCounters=JPerfCounters, ECCluster=j_cluster.ECCluster,
+    KeyRing=JKeyRing,
     with_mons=lambda n, prof, **kw: j_cluster.ECCluster.create_with_mons(
         n, dict(prof), plugin="jerasure", **kw),
     make=lambda n, prof, **kw: j_cluster.ECCluster(
@@ -528,7 +528,7 @@ async def _auth_rm_revokes_keyring(P, log):
     ms = P.Messenger()
     mc = P.MonCluster(3, ms)
     await mc.form_quorum()
-    ms.keyring = KeyRing()
+    ms.keyring = P.KeyRing()
     provisioned = ms.keyring.add("mon.1")
     cl = _client(P, ms, log)
     rc, out = await cl.command({"prefix": "auth get-or-create",
