@@ -28,6 +28,7 @@ hot path.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from typing import Dict, List, Optional
 
@@ -228,6 +229,20 @@ def install(mode: str = "raise") -> ResidencyVerifier:
     if _GLOBAL is None:
         _GLOBAL = ResidencyVerifier(mode)
     return _GLOBAL
+
+
+#: the ``residency_verify`` option's environment layer
+MODE_ENV = "CEPH_TPU_TORCH_RESIDENCY_VERIFY"
+
+
+def mode_from_env() -> Optional[str]:
+    """The verifier mode the test suite installs: ``"raise"`` (the
+    default), ``"record"``, or None when ``CEPH_TPU_TORCH_RESIDENCY_VERIFY``
+    is ``0``/``off``."""
+    value = os.environ.get(MODE_ENV, "1")
+    if value in ("0", "off"):
+        return None
+    return "record" if value == "record" else "raise"
 
 
 def global_verifier() -> Optional[ResidencyVerifier]:

@@ -1,8 +1,8 @@
 """Messenger fault injection (ms_inject_* analogue).
 
-Port of ``ceph_tpu/msg/fault.py``.  The reference also reports each
-injected tear to its runtime atomic-section verifier; the port has no
-such verifier, so tears are only counted.
+Port of ``ceph_tpu/msg/fault.py``.  Each injected tear is counted and
+reported to the runtime atomic-section verifier
+(``analysis/runtime.py`` :func:`on_tear`).
 
 Reference: the ms_inject_socket_failures / ms_inject_delay knobs in
 src/common/options.cc:735-756 drive the messenger layer directly.  This
@@ -151,7 +151,18 @@ class FaultInjector:
             return False
         self._kill_after_apply = None
         self.apply_kills += 1
+        self._notify_tear(f"apply-window kill ({kind})")
         return True
+
+    @staticmethod
+    def _notify_tear(kind: str) -> None:
+        """Report an injected tear to the runtime atomic-section
+        verifier (the tests assert tears only cross watermark-safe
+        states: no task parked inside a declared section).  A no-op
+        when the verifier is not installed."""
+        from ceph_tpu_torch.analysis import runtime
+
+        runtime.on_tear(kind)
 
     # -- ring-level injection (torn-record manufacture) --------------------
 
@@ -176,6 +187,7 @@ class FaultInjector:
             return False
         self._ring_tear_countdown = None
         self.ring_tears += 1
+        self._notify_tear("shm ring torn record")
         return True
 
     # -- connection-level injection (torn-burst manufacture) ---------------
@@ -198,4 +210,5 @@ class FaultInjector:
         split = self._conn_kill_countdown
         self._conn_kill_countdown = None
         self.conn_kills += 1
+        self._notify_tear("mid-burst connection kill")
         return split

@@ -259,6 +259,7 @@ class _FrameReader:
         rec, _pos = unframe(header + payload, 0)
         return rec  # None if magic/crc check failed
 
+    # cephlint: wire-hot-section msgr-frame-parse
     async def next_frame(self) -> Optional[bytes]:
         """The next framed record; None on EOF or a corrupt frame (the
         caller drops the connection either way)."""
@@ -326,6 +327,7 @@ class _FrameReader:
                 return None
             self._buf = buf[pos:] + chunk if pos < len(buf) else chunk
             self._pos = 0
+    # cephlint: end-wire-hot-section
 
 
 async def _read_frame(framer) -> Optional[bytes]:
@@ -746,6 +748,8 @@ class TCPMessenger:
                     # reverse stream to this peer rides the data frame
                     # (v3 senders never append it; v3 receivers never
                     # read this far)
+                    # cephlint: wire-optional -- v3 senders end at the
+                    # blob
                     back_ack = dec.varint() if dec.remaining() else None
                 try:
                     with _PS_DECODE:
@@ -786,10 +790,15 @@ class TCPMessenger:
                 # connection down (the per-message ack drain above).  An
                 # await slipped between them lets the conn die with the
                 # watermark past an undelivered message, so the
-                # reconnect replay skips it -- silent loss.
+                # reconnect replay skips it -- silent loss.  The static
+                # rule flags any yield inside; the runtime verifier
+                # (analysis/runtime.py) asserts no task ever suspends
+                # here under the tests.
+                # cephlint: atomic-section msgr-watermark-ordering
                 if seq <= self._in_seqs.get(in_key, 0):
                     continue  # duplicate from a replay: already delivered
                 self._in_seqs[in_key] = seq
+                # cephlint: end-atomic-section
             if msg is _UNDECODABLE:
                 # unknown frame kind (e.g. mgr report frames reaching a
                 # pre-report daemon): the watermark already advanced, so
@@ -1156,9 +1165,11 @@ class TCPMessenger:
             _PS_ENCODE.add_bytes(entry.nbytes)
             return entry
 
-    # The per-frame seal/flush seams below are wire hot sections:
-    # payloads cross as part lists (the zero-copy contract) -- no
+    # The per-frame seal/flush seams below are DECLARED wire hot
+    # sections: payloads must cross as part lists (the zero-copy
+    # contract) -- the wire-hot-path-alloc rule flags any provable
     # per-frame bytes concatenation inside.
+    # cephlint: wire-hot-section msgr-seal-flush
     def _entry_frames(self, entry: _QueuedMsg, session_key,
                       ack: int) -> List:
         """On-wire buffer list for one queued message: cached payload
@@ -1309,6 +1320,7 @@ class TCPMessenger:
             task = asyncio.get_event_loop().create_task(
                 self._drain_conn(node, q, conn))
             self.adopt_task(f"drain.{node}.{self._cork_seq}", task)
+    # cephlint: end-wire-hot-section
 
     def _requeue_lossy(self, node: str, q: _CorkQueue, batch,
                        lossless: bool) -> None:

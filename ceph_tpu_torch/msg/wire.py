@@ -183,12 +183,13 @@ def decode_message(data: bytes) -> object:
             at_version=at_version, log_entries=entries,
             op_class=dec.string(), rollback=dec.value(),
             prev_version=dec.value(),
-            # pre-reqid senders end here
+            # cephlint: wire-optional -- pre-reqid senders end here
             reqid=dec.value() if dec.remaining() else None,
-            # pre-trace senders end at the reqid (and pre-trace
-            # decoders stop there, ignoring this trailing context)
+            # cephlint: wire-optional -- pre-trace senders end at the
+            # reqid (and pre-trace decoders stop there, ignoring this
+            # trailing context)
             trace=dec.value() if dec.remaining() else None,
-            # pre-qos senders end at the
+            # cephlint: wire-optional -- pre-qos senders end at the
             # trace context
             qos_class=dec.value() if dec.remaining() else None,
         )
@@ -207,12 +208,12 @@ def decode_message(data: bytes) -> object:
             subchunks={k: [tuple(x) for x in v]
                        for k, v in dec.value().items()},
             op_class=dec.string(),
-            # pre-trace senders end here
+            # cephlint: wire-optional -- pre-trace senders end here
             trace=dec.value() if dec.remaining() else None,
-            # pre-qos senders end at the
+            # cephlint: wire-optional -- pre-qos senders end at the
             # trace context
             qos_class=dec.value() if dec.remaining() else None,
-            # pre-regen senders end at the
+            # cephlint: wire-optional -- pre-regen senders end at the
             # qos class
             regen=dec.value() if dec.remaining() else None,
         )
@@ -225,14 +226,14 @@ def decode_message(data: bytes) -> object:
     if kind == _MSG_MGR_BEACON:
         return MgrBeacon(
             name=dec.string(), seq=dec.varint(),
-            # pre-lag senders end at the seq
+            # cephlint: wire-optional -- pre-lag senders end at the seq
             lag_ms=dec.value() if dec.remaining() else None,
         )
     if kind == _MSG_MGR_REPORT:
         return MgrReport(
             name=dec.string(), seq=dec.varint(),
             interval=dec.value(), stats=dec.value(),
-            # pre-lag senders end at the
+            # cephlint: wire-optional -- pre-lag senders end at the
             # stats payload
             lag_ms=dec.value() if dec.remaining() else None,
         )

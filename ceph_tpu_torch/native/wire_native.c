@@ -278,6 +278,7 @@ static int emit_dict(Emit *e, PyObject *d) {
   while (PyDict_Next(d, &pos, &key, &val)) {
     if (!PyUnicode_Check(key)) {
       /* the Python encoder raises TypeError here -- same contract */
+      /* cephlint: disable-next-line=native-missing-fallback */
       PyErr_Format(PyExc_TypeError, "dict keys must be str, got %R",
                    (PyObject *)Py_TYPE(key));
       return -1;
@@ -361,6 +362,7 @@ static int emit_extent_map(Emit *e, PyObject *d) {
     Py_ssize_t i, n;
     if (!PyUnicode_Check(key)) {
       /* the Python encoder raises TypeError here -- same contract */
+      /* cephlint: disable-next-line=native-missing-fallback */
       PyErr_Format(PyExc_TypeError, "dict keys must be str, got %R",
                    (PyObject *)Py_TYPE(key));
       return -1;
@@ -401,6 +403,7 @@ static int emit_buffers_read(Emit *e, PyObject *d) {
     Py_ssize_t i, n;
     if (!PyUnicode_Check(key)) {
       /* the Python encoder raises TypeError here -- same contract */
+      /* cephlint: disable-next-line=native-missing-fallback */
       PyErr_Format(PyExc_TypeError, "dict keys must be str, got %R",
                    (PyObject *)Py_TYPE(key));
       return -1;

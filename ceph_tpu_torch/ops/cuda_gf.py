@@ -277,7 +277,7 @@ def prep_matrix_w8(bitmatrix: np.ndarray, k: int) -> np.ndarray:
     bits = B.reshape(groups * 4, 8, k, 2, 4)
     col = (bits << np.arange(8, dtype=np.uint32)[:, None, None, None]).sum(
         1, dtype=np.uint32)
-    v = np.arange(16)
+    v = np.arange(16, dtype=np.uint32)
     tab = np.zeros((groups * 4, k, 2, 16), dtype=np.uint32)
     for s in range(4):
         tab ^= col[..., s, None] * ((v >> s) & 1).astype(np.uint32)
@@ -301,7 +301,7 @@ def prep_matrix_w16(bitmatrix: np.ndarray, k: int) -> np.ndarray:
     bits = B.reshape(groups * 4, 16, k, 4, 4)
     col = (bits << np.arange(16, dtype=np.uint32)[:, None, None, None]).sum(
         1, dtype=np.uint32)
-    v = np.arange(16)
+    v = np.arange(16, dtype=np.uint32)
     tab = np.zeros((groups * 4, k, 4, 16), dtype=np.uint32)
     for s in range(4):
         tab ^= col[..., s, None] * ((v >> s) & 1).astype(np.uint32)

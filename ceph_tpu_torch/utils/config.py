@@ -415,6 +415,29 @@ OPTIONS: Dict[str, Option] = {
              "path (CEPH_TPU_TORCH_NATIVE=0 runs every codec seam in "
              "Python; the ceph_wire_codec_native gauge reads 0)",
              see_also=("osd_wire_codec_native",)),
+        # read only through their environment layer (before any Config
+        # exists), declared so the schema stays the single source of
+        # truth (cephlint ceph-config-undeclared-key)
+        _opt("no_h2d_cache", bool, False, LEVEL_DEV,
+             "disable the device-side H2D upload cache in the batching "
+             "pipeline (ops/pipeline.py; CEPH_TPU_TORCH_NO_H2D_CACHE=1 "
+             "uploads every granule)"),
+        _opt("cli_state", str, "", LEVEL_DEV,
+             "path of the ceph CLI's persisted mini-cluster state file "
+             "(tools/ceph_cli.py; empty = its per-user default)"),
+        _opt("atomic_verify", bool, True, LEVEL_DEV,
+             "runtime atomic-section verifier (analysis/runtime.py, "
+             "installed by the port's tests): every event loop's task "
+             "factory checks that no task ever suspends inside a "
+             "declared `cephlint: atomic-section` region; "
+             "CEPH_TPU_TORCH_ATOMIC_VERIFY=0 disables it"),
+        _opt("residency_verify", str, "1", LEVEL_DEV,
+             "runtime device-resident-section verifier "
+             "(analysis/residency.py, installed by the port's tests): a "
+             "counted D2H seam inside a declared `cephlint: "
+             "device-resident-section` region raises.  Values: 1/raise "
+             "(default), record (violations only fail the driving "
+             "test), 0 (off)"),
     ]
 }
 

@@ -18,12 +18,11 @@ CPU slots: its stored shards equal the JAX package's ``tcp_only`` run,
 and wire bytes avoided are monotone in the slot count.  Both tools'
 ``-w cluster-path`` and ``-w mesh-path`` print the JAX tool's keys.
 
-Policies: the port's half runs under this file's policy (the tier-1
-conftest's verifier where its loops can run a task, else asyncio's
-default); each JAX package half runs under asyncio's default policy,
-switched on for that call alone, so the conftest's verifier cannot fail
-a port test for the JAX package's own declared sections in
-``ceph_tpu/msg/tcp.py``.
+Policies: the port's half runs under the port's verifiers
+(``tests/torch_verify.py``); each JAX package half runs under the
+port's verifying policy, switched on for that call alone, whose
+verifier holds the JAX package's declared sections too (those of
+``ceph_tpu/msg/tcp.py`` among them).
 """
 
 import asyncio
@@ -41,6 +40,7 @@ from ceph_tpu_torch import parallel
 from ceph_tpu_torch.msg import cluster_bench, mesh_bench
 from ceph_tpu_torch.plugins import registry as registry_mod
 from ceph_tpu_torch.tools import ec_benchmark
+from torch_verify import port_verifiers, verifying_policy
 
 #: the JAX test's constants (tests/test_cluster_path.py)
 _TOLERANCE = 1.35
@@ -54,33 +54,17 @@ ITERS = 3
 SEED = 4321  # run_cluster_path_bench's default payload seed
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @contextlib.contextmanager
 def _policy(default: bool):
-    """asyncio's default policy when ``default`` or when the current one
-    cannot run a task; else the current one."""
-    if not default and _policy_runs_tasks():
-        yield
+    """A port run under the port's verifiers (``tests/torch_verify.py``);
+    a JAX package call (``default``) under the port's verifying policy
+    alone, which holds the JAX package's sections too."""
+    if not default:
+        with port_verifiers():
+            yield
         return
     saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+    asyncio.set_event_loop_policy(verifying_policy())
     try:
         yield
     finally:
@@ -88,7 +72,7 @@ def _policy(default: bool):
 
 
 def _jax_call(fn, *a, **kw):
-    """A JAX package call under asyncio's default policy."""
+    """A JAX package call under the port's verifying policy."""
     with _policy(True):
         return fn(*a, **kw)
 

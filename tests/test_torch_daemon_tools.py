@@ -8,7 +8,7 @@ process cluster storing what a JAX package process cluster stores.
 
 Every pool is the ``cuda`` plugin's codec on the CPU (``device=cpu``);
 children run with ``DAEMON_ENV``.  The JAX package's halves run
-under asyncio's default policy for their call alone.
+under the port's verifying policy for their call alone.
 """
 
 import asyncio
@@ -34,6 +34,7 @@ from ceph_tpu_torch.utils import gcopt, perfglue
 from ceph_tpu_torch.utils.admin_socket import AdminSocket, admin_command
 from ceph_tpu_torch.utils.config import get_config
 from torch_process_lock import one_cluster_at_a_time
+from torch_verify import port_verifiers, verifying_policy
 
 REPO = Path(__file__).resolve().parent.parent
 PROFILE = {"k": "2", "m": "1", "device": "cpu"}
@@ -48,38 +49,15 @@ KILL_ENV = {"CEPH_TPU_TORCH_OSD_READ_GATHER_TIMEOUT": "6.0",
             "CEPH_TPU_TORCH_OSD_CLIENT_OP_COMMIT_TIMEOUT": "6.0"}
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy(monkeypatch):
-    """Children get ``DAEMON_ENV``; keep the conftest's verifying policy
-    where it can run a task, else run under asyncio's default."""
+    """Children get ``DAEMON_ENV``; both packages' loops run under the port's
+    verifiers (``tests/torch_verify.py``)."""
     get_config()  # this process's settings come before the env change
     for key, val in DAEMON_ENV.items():
         monkeypatch.setenv(key, val)
-    if _policy_runs_tasks():
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
@@ -97,12 +75,12 @@ def _one_torch_thread():
 
 def _run(coro, P=None):
     """Run ``coro`` on a new loop: the port's under this file's policy,
-    the JAX package's (``P`` is ``JAX``) under asyncio's default policy
-    for this call alone (its atomic sections would trip the conftest's
-    verifier)."""
+    the JAX package's (``P`` is ``JAX``) under the port's verifying
+    policy, which holds the JAX package's sections too, for this call
+    alone."""
     saved = asyncio.get_event_loop_policy()
     if P is JAX:
-        asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+        asyncio.set_event_loop_policy(verifying_policy())
     loop = asyncio.new_event_loop()
     try:
         return loop.run_until_complete(coro)

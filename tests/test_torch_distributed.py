@@ -37,6 +37,7 @@ from ceph_tpu_torch.osd import cluster, cluster_bench
 from ceph_tpu_torch.parallel import distributed
 from ceph_tpu_torch.plugins import registry
 from ceph_tpu_torch.plugins.interface import ErasureCodeError
+from torch_verify import port_verifiers
 
 #: (data, shard, sub) grids of 1, 2, 4 and 8 slots (shard divides k=8)
 GRIDS = [(1, 1, 1), (1, 2, 1), (2, 1, 1), (1, 4, 1), (2, 2, 1), (1, 2, 2),
@@ -51,33 +52,13 @@ def cpu_slots():
     parallel.configure_devices(None)
 
 
-def _policy_runs_tasks() -> bool:
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Asyncio's default policy where the conftest's verifying policy
-    cannot run a task (as in tests/test_torch_cluster.py)."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def _codecs(grid, k=8, m=4):

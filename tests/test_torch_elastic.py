@@ -36,6 +36,7 @@ from ceph_tpu_torch.osd import (cluster, elastic_bench, failover_bench,
                                 placement)
 from ceph_tpu_torch.utils import config
 from ceph_tpu_torch.utils.perf import PerfCounters
+from torch_verify import port_verifiers
 
 PROFILE = {"k": "2", "m": "1"}
 PORT = types.SimpleNamespace(
@@ -55,36 +56,13 @@ JAX = types.SimpleNamespace(
 BOTH = (PORT, JAX)
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task;
-    where it cannot, both packages' loops run under asyncio's default
-    policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def _run(coro):

@@ -33,6 +33,7 @@ from ceph_tpu_torch.msg import FaultInjector, fault
 from ceph_tpu_torch.osd import (coalescer, ectransaction, ecutil, memstore,
                                 messenger, types)
 from ceph_tpu_torch.utils import aio, config, perf, trace
+from torch_verify import port_verifiers
 
 PORT = {"coalescer": coalescer, "perf": perf, "trace": trace,
         "memstore": memstore, "types": types, "messenger": messenger,
@@ -42,40 +43,13 @@ REF = {"coalescer": j_coalescer, "perf": j_perf, "trace": j_trace,
        "fault": j_fault, "profiling": j_profiling}
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task.  The
-    tier-1 conftest installs the JAX package's atomic-section verifier as
-    every loop's task factory; where ``asyncio.Task`` takes only
-    coroutines (Python 3.12 on), it refuses the generator the verifier
-    wraps each coroutine in."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task, so
-    the JAX package's half of each comparison runs under its verifier;
-    where it cannot, this file's loops, the JAX package's included, run
-    under asyncio's default policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def _run(coro):
@@ -557,8 +531,13 @@ def test_config_reads_every_option_the_port_declares():
     root = pathlib.Path(config.__file__).resolve().parents[1]
     read = set()
     for path in root.rglob("*.py"):
-        read |= set(re.findall(r'(?:get|set|_cfg)_val\(\s*"(\w+)"',
-                               path.read_text()))
+        text = path.read_text()
+        read |= set(re.findall(r'(?:get|set|_cfg)_val\(\s*"(\w+)"', text))
+        # an option read before any Config exists goes through its
+        # environment layer alone (no_h2d_cache, cli_state and the two
+        # verifiers' switches)
+        read |= {name.lower() for name in
+                 re.findall(r'"CEPH_TPU_TORCH_(\w+)"', text)}
     assert read == set(config.OPTIONS)
 
 

@@ -40,6 +40,7 @@ from ceph_tpu_torch.tier.device_tier import DeviceTierStore
 from ceph_tpu_torch.utils.config import get_config
 from ceph_tpu_torch.utils.encoding import Decoder, Encoder
 from ceph_tpu_torch.utils.perf import PerfCounters
+from torch_verify import port_verifiers
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -52,33 +53,13 @@ def cpu_slots():
     j_mesh_plane.reset()
 
 
-def _policy_runs_tasks() -> bool:
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Asyncio's default policy where the conftest's verifying policy
-    cannot run a task (as in tests/test_torch_cluster.py)."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def run(coro):

@@ -55,6 +55,7 @@ from ceph_tpu_torch.mgr import module_host, pgmap, report
 from ceph_tpu_torch.osd import cluster, messenger
 from ceph_tpu_torch.utils import config, trace
 from ceph_tpu_torch.utils.perf import PerfCounters
+from torch_verify import port_verifiers
 
 PORT = types.SimpleNamespace(
     name="port", mgr=mgr, module_host=module_host, pgmap=pgmap,
@@ -79,36 +80,13 @@ LEDGER_FAMILIES = ("ceph_library_builds_total", "ceph_transfer_bytes_total",
                    "ceph_mesh_wire_bytes_avoided_total")
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task;
-    where it cannot, both packages' loops run under asyncio's default
-    policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def _run(coro):

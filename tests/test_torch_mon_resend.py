@@ -21,6 +21,7 @@ import pytest
 from ceph_tpu.osd import cluster as j_cluster
 from ceph_tpu_torch.mon import monitor
 from ceph_tpu_torch.osd import cluster, messenger
+from torch_verify import port_verifiers
 
 #: both clusters' pool runs the numpy plugin, so that the two osdmaps,
 #: profiles included, can be compared whole (the mon is the subject)
@@ -37,36 +38,13 @@ JAX = types.SimpleNamespace(
 WAIT_S, HOLD_S = 0.3, 1.0
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task; where
-    it cannot, this file's loops, the JAX package's included, run under
-    asyncio's default policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def _reqids(records):

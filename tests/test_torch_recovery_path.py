@@ -23,41 +23,19 @@ import tools.ec_benchmark as j_ec_benchmark
 from ceph_tpu.osd import recovery_bench as j_recovery_bench
 from ceph_tpu_torch.osd import recovery_bench
 from ceph_tpu_torch.tools import ec_benchmark
+from torch_verify import port_verifiers
 
 CPU_PROFILE = dict(recovery_bench.PROFILE, device="cpu")
 SIZES = {"n_osds": 8, "n_objects": 12, "obj_bytes": 8 << 10}
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task;
-    where it cannot, this file's loops, the JAX package's included, run
-    under asyncio's default policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def _payloads(seed=77):

@@ -35,6 +35,7 @@ from ceph_tpu_torch import rgw
 from ceph_tpu_torch.osd import cluster, cluster_bench
 from ceph_tpu_torch.rgw import gateway
 from ceph_tpu_torch.utils.perf import PerfCounters
+from torch_verify import port_verifiers, verifying_policy
 
 PORT = types.SimpleNamespace(
     name="port", rgw=rgw, gateway=gateway, PerfCounters=PerfCounters,
@@ -60,46 +61,23 @@ def _frozen_clock(monkeypatch):
         monkeypatch.setattr(mod.RGWGateway, "_upload_counter", 0)
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task;
-    where it cannot, both packages' loops run under asyncio's default
-    policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def _run(coro, P=None):
     """Run ``coro`` on a new loop: the port's under this file's policy,
-    the JAX package's (``P`` is ``JAX``) under asyncio's default policy
-    for this call alone (its atomic sections would trip the conftest's
-    verifier)."""
+    the JAX package's (``P`` is ``JAX``) under the port's verifying
+    policy, which holds the JAX package's sections too, for this call
+    alone."""
     saved = asyncio.get_event_loop_policy()
     if P is JAX:
-        asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+        asyncio.set_event_loop_policy(verifying_policy())
     loop = asyncio.new_event_loop()
     try:
         return loop.run_until_complete(coro)

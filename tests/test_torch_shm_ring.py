@@ -26,41 +26,20 @@ from ceph_tpu_torch.msg import shm_ring
 from ceph_tpu_torch.msg.cluster_bench import (ClusterHarness, make_payloads,
                                               python_wire_codec)
 from ceph_tpu_torch.utils.config import get_config
+from torch_verify import port_verifiers, verifying_policy
 
 PORT = types.SimpleNamespace(name="port", ring=shm_ring)
 JAX = types.SimpleNamespace(name="jax", ring=j_ring)
 BOTH = (PORT, JAX)
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task; where
-    it cannot, this file's loops run under asyncio's default policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def run(coro):
@@ -293,8 +272,8 @@ def _j_ec():
 def test_ring_transport_end_to_end_byte_identical_to_tcp_and_jax():
     """Same payloads over ring mode and TCP mode: colocated connections
     ride rings, stores are byte-identical to TCP mode and to the JAX
-    package's ring mode (run under asyncio's default policy, so the
-    verifier cannot fail this test for the JAX package's own sections)."""
+    package's ring mode (run under the port's verifying policy, whose
+    verifier holds the JAX package's sections too)."""
     payloads = make_payloads(16, 1536, seed=23)
 
     async def one_mode(harness_cls, ec, ring_on: bool, cfg):
@@ -332,7 +311,7 @@ def test_ring_transport_end_to_end_byte_identical_to_tcp_and_jax():
     from ceph_tpu.utils.config import get_config as j_get_config
 
     saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+    asyncio.set_event_loop_policy(verifying_policy())
     try:
         jring = run(one_mode(JHarness, _j_ec(), True, j_get_config()))
     finally:

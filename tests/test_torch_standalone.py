@@ -33,26 +33,9 @@ from ceph_tpu_torch.osd.types import (ECSubRead, ECSubReadReply, ECSubWrite,
 from ceph_tpu_torch.tools import vstart
 from ceph_tpu_torch.utils.admin_socket import admin_command
 from torch_process_lock import one_cluster_at_a_time
+from torch_verify import port_verifiers
 
 PROFILE = {"k": "2", "m": "1", "device": "cpu"}
-
-
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
 
 
 #: the daemons' settings for these tests (their environment layer):
@@ -68,21 +51,15 @@ DAEMON_ENV = {"OMP_NUM_THREADS": "1",
 @pytest.fixture(autouse=True)
 def _loop_policy(monkeypatch):
     """Children get ``DAEMON_ENV`` (this process keeps its own settings:
-    its config exists before the environment changes); keep the
-    conftest's verifying policy where it can run a task, else run under
-    asyncio's default."""
+    its config exists before the environment changes); both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``)."""
     from ceph_tpu_torch.utils.config import get_config
 
     get_config()
     for key, val in DAEMON_ENV.items():
         monkeypatch.setenv(key, val)
-    if _policy_runs_tasks():
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():

@@ -28,6 +28,7 @@ from ceph_tpu_torch.analysis import residency
 from ceph_tpu_torch.osd import storage_bench
 from ceph_tpu_torch.plugins import registry
 from ceph_tpu_torch.tools import ec_benchmark
+from torch_verify import port_verifiers
 
 PROFILES = {
     "rs_w8_k4m2": {"technique": "reed_sol_van", "k": "4", "m": "2"},
@@ -39,40 +40,13 @@ PROFILES = {
 }
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task.  The
-    tier-1 conftest installs the JAX package's atomic-section verifier as
-    every loop's task factory; where ``asyncio.Task`` takes only
-    coroutines (Python 3.12 on), it refuses the generator the verifier
-    wraps each coroutine in."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task, so
-    the JAX package's half of each comparison runs under its verifier;
-    where it cannot, this file's loops, the JAX package's included, run
-    under asyncio's default policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def _harnesses(name, erasures=2):

@@ -44,37 +44,16 @@ from ceph_tpu_torch.utils import throttle
 from ceph_tpu_torch.utils.config import get_config
 from ceph_tpu_torch.utils.encoding import (Encoder, crc32c_parts, frame,
                                            frame_parts, unframe)
-
-
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
+from torch_verify import port_verifiers, verifying_policy
 
 
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task; where
-    it cannot, this file's loops run under asyncio's default policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 @pytest.fixture(autouse=True)
@@ -465,8 +444,8 @@ def test_port_and_jax_messengers_share_a_socket(signed):
     """A port messenger and a JAX package messenger, each an OSD, run the
     banner, the handshake and lossless sessions both ways over real
     sockets: every message arrives once and in order, and acks drain
-    both unacked queues.  The loop runs under asyncio's default policy
-    (the JAX package's messenger runs in it)."""
+    both unacked queues.  The loop runs under the port's verifying
+    policy (the JAX package's messenger runs in it)."""
     from ceph_tpu.auth.cephx import KeyRing as JKeyRing
     from ceph_tpu.msg.fault import FaultInjector as JFaultInjector
 
@@ -506,7 +485,7 @@ def test_port_and_jax_messengers_share_a_socket(signed):
         return sent, out
 
     saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+    asyncio.set_event_loop_policy(verifying_policy())
     try:
         sent, (at_b, at_a, a_left, b_left) = _run(main())
     finally:
@@ -629,7 +608,7 @@ def test_throttle_script_matches_jax():
 
     mine = _run(script(throttle))
     saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+    asyncio.set_event_loop_policy(verifying_policy())
     try:
         theirs = _run(script(j_throttle))
     finally:

@@ -39,6 +39,7 @@ from ceph_tpu_torch.msg.wire import decode_message, encode_message
 from ceph_tpu_torch.osd import memstore, types
 from ceph_tpu_torch.utils.config import get_config
 from ceph_tpu_torch.utils.encoding import Encoder
+from torch_verify import port_verifiers
 
 CPU = {"device": "cpu"}
 #: exposition families the port renames or leaves out, by design
@@ -47,35 +48,13 @@ CPU = {"device": "cpu"}
 RENAMED = {"ceph_jit_retraces_total": "ceph_library_builds_total"}
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task; where
-    it cannot, this file's loops run under asyncio's default policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 @pytest.fixture(autouse=True)
 def _one_torch_thread():

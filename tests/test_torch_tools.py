@@ -7,8 +7,8 @@ seed) and compares what they print and what they leave on disk; files one
 tool writes (maps, dumps, stores) are fed to the other.  Fields that are
 times, uuids, pids, rates or random keys are compared by type.  Every
 pool of the port is the ``cuda`` plugin's codec on the CPU
-(``device=cpu``); the JAX package's tools run under asyncio's default
-policy for their call alone.
+(``device=cpu``); the JAX package's tools run under the port's
+verifying policy for their call alone.
 """
 
 import asyncio
@@ -42,49 +42,26 @@ from tools import osdmaptool as j_osdmaptool
 from tools import rados_bench as j_rados_bench
 from tools import rados_cli as j_rados_cli
 from torch_process_lock import one_cluster_at_a_time
+from torch_verify import port_verifiers, verifying_policy
 
 PROFILE = {"k": "2", "m": "1", "device": "cpu"}
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy(monkeypatch):
-    """Daemons get one OpenMP thread; this file's loops keep the
-    conftest's verifying policy where it can run a task, else run under
-    asyncio's default."""
+    """Daemons get one OpenMP thread; this file's loops both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``)."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    if _policy_runs_tasks():
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 @contextlib.contextmanager
 def _jax_policy(jax: bool):
-    """The JAX package's calls under asyncio's default policy alone."""
+    """The JAX package's calls under the port's verifying policy alone."""
     saved = asyncio.get_event_loop_policy()
     if jax:
-        asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+        asyncio.set_event_loop_policy(verifying_policy())
     try:
         yield
     finally:

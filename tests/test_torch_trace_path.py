@@ -28,47 +28,23 @@ from ceph_tpu.plugins import registry as j_registry
 from ceph_tpu_torch.osd import trace_bench
 from ceph_tpu_torch.plugins import registry
 from ceph_tpu_torch.tools import ec_benchmark
+from torch_verify import port_verifiers, verifying_policy
 
 PROFILE = {"k": "4", "m": "2", "technique": "reed_sol_van"}
 SMOKE = dict(n_objects=8, obj_bytes=4096, writers=4, iters=1,
              overhead_limit_pct=1e9)
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @contextlib.contextmanager
 def _port_policy():
-    if _policy_runs_tasks():
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    try:
-        yield
-    finally:
-        asyncio.set_event_loop_policy(saved)
 
 
 @contextlib.contextmanager
-def _default_policy():
+def _verifying_policy():
     saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+    asyncio.set_event_loop_policy(verifying_policy())
     try:
         yield
     finally:
@@ -105,7 +81,7 @@ def runs():
     with _port_policy():
         mine = trace_bench.run_trace_overhead_bench(
             ec, keep_shards=True, **SMOKE)
-    with _default_policy():
+    with _verifying_policy():
         theirs = j_trace_bench.run_trace_overhead_bench(
             j_registry.instance().factory("jerasure", dict(PROFILE)),
             **SMOKE)

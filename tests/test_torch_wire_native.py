@@ -46,6 +46,7 @@ from ceph_tpu_torch.native import wire_codec
 from ceph_tpu_torch.osd import types as p_types
 from ceph_tpu_torch.utils.config import get_config
 from ceph_tpu_torch.utils.encoding import Encoder
+from torch_verify import port_verifiers, verifying_policy
 
 NATIVE = wire_codec.native()
 PORT_T = types.SimpleNamespace(report=report, types=p_types)
@@ -53,36 +54,13 @@ JAX_T = types.SimpleNamespace(report=j_report, types=j_types)
 WIDE_INT = (1 << 64) + 3
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @pytest.fixture(autouse=True)
 def _loop_policy():
-    """Keep the conftest's verifying policy where it can run a task;
-    where it cannot, this file's loops run under asyncio's default
-    policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    yield
-    asyncio.set_event_loop_policy(saved)
 
 
 def _jax_native():
@@ -536,7 +514,7 @@ def test_port_native_and_jax_messenger_share_a_socket(jax_native):
             await b.shutdown()
 
     saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+    asyncio.set_event_loop_policy(verifying_policy())
     try:
         at_a, at_b = _run(main())
     finally:

@@ -29,6 +29,7 @@ from ceph_tpu_torch import profiling
 from ceph_tpu_torch.msg import cluster_bench
 from ceph_tpu_torch.profiling import wire_tax_bench
 from ceph_tpu_torch.tools import ec_benchmark
+from torch_verify import port_verifiers, verifying_policy
 
 SMOKE = dict(n_objects=8, obj_bytes=4096, writers=4, iters=1)
 #: every timing gate open (coverage and overhead read walls too)
@@ -38,38 +39,13 @@ OPEN = dict(coverage_min_pct=0.0, overhead_limit_pct=1e9, retries=1,
 CPU = {"device": "cpu"}
 
 
-def _policy_runs_tasks() -> bool:
-    """Whether the current event-loop policy's loops can run a task (the
-    tier-1 conftest's atomic-section verifier cannot under Python 3.12)."""
-    async def nothing():
-        return None
-
-    coro = nothing()
-    loop = asyncio.new_event_loop()
-    try:
-        loop.run_until_complete(coro)
-        return True
-    except TypeError:
-        coro.close()
-        return False
-    finally:
-        loop.close()
-
-
 @contextlib.contextmanager
 def _port_policy():
-    """Keep the conftest's verifying policy where it can run a task;
-    where it cannot, the port's loops run under asyncio's default
-    policy."""
-    if _policy_runs_tasks():
+    """Both packages' loops run under the port's verifiers
+    (``tests/torch_verify.py``): its atomic-section verifier, which holds
+    both packages' sections, and its residency verifier."""
+    with port_verifiers():
         yield
-        return
-    saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
-    try:
-        yield
-    finally:
-        asyncio.set_event_loop_policy(saved)
 
 
 @pytest.fixture(autouse=True)
@@ -79,9 +55,9 @@ def _loop_policy():
 
 
 def _jax_call(fn, *args, **kwargs):
-    """A JAX package call under asyncio's default policy."""
+    """A JAX package call under the port's verifying policy."""
     saved = asyncio.get_event_loop_policy()
-    asyncio.set_event_loop_policy(asyncio.DefaultEventLoopPolicy())
+    asyncio.set_event_loop_policy(verifying_policy())
     try:
         return fn(*args, **kwargs)
     finally:
